@@ -1,0 +1,36 @@
+"""Canonical problems for the PyTorch port (counterpart of
+``odefilters/models/library.py``).
+
+Vector fields are written in the same index-and-stack style as the JAX
+package's, so they evaluate on ``(d,)`` and on ``(d, B)`` alike. A model
+with a CUDA implementation names it in ``ODEProblem.field``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from odefilters_torch.problem import ODEProblem, ode_problem
+
+
+def fitzhugh_nagumo_f(u, p, t):
+    """FitzHugh-Nagumo vector field; ``p = (a, b, 1/tau, I0)``.
+
+    ``v * (v * v)`` is the order in which JAX expands ``v**3``, so the two
+    packages agree to the last bit; the CUDA field (``Fhn`` in
+    ``ops/csrc/fields.cuh``) uses the same order.
+    """
+    a, b, tinv, izero = p
+    v, w = u[0], u[1]
+    dv = v - v * (v * v) / 3 - w + izero
+    dw = tinv * (v + a - b * w)
+    return torch.stack([dv, dw])
+
+
+def fitzhugh_nagumo(
+    u0=(-1.0, 1.0), p=(0.7, 0.8, 1 / 12.5, 0.5), tspan=(0.0, 20.0), *,
+    device=None, dtype=None,
+) -> ODEProblem:
+    """FitzHugh-Nagumo neuron model, as ``odefilters.models.fitzhugh_nagumo``."""
+    return ode_problem(fitzhugh_nagumo_f, u0, tspan, p=p, field="fhn",
+                       device=device, dtype=dtype)

@@ -1,0 +1,568 @@
+"""Fused EK0 filter + RTS smoother pair: plain PyTorch versions and the
+wrappers of the two CUDA kernels that replace the JAX package's Pallas pair.
+
+==================================  =========================================
+this module                         ``odefilters/ops/pallas_kernels.py``
+==================================  =========================================
+``pair_layout``                     ``_pair_layout``
+``ek0_step_collapsed``              ``_ek0_step_lists(collapsed=True,
+                                    want_outputs=False)``
+``list_chol_inv``                   ``_list_chol_inv``
+``list_cho_solve_inv``              ``_list_cho_solve_inv``
+``ek0_pair_bwd_step_plain``         ``_ek0_pair_bwd_step_plain``
+``ek0_pair_fwd_plain`` /            ``_ek0_pair_fwd_kernel`` (CUDA:
+``ek0_pair_fwd``                    ``csrc/ek0_pair.cu::ek0_pair_fwd_kernel``)
+``ek0_pair_bwd_plain`` /            ``_ek0_pair_bwd_kernel(plain=True)`` (CUDA:
+``ek0_pair_bwd``                    ``csrc/ek0_pair.cu::ek0_pair_bwd_kernel``)
+``ek0_fused_solve``                 ``ek0_fused_solve``
+``solve_ensemble_ek0_smooth``       ``solve_ensemble_ek0_pallas_smooth``
+==================================  =========================================
+
+The step bodies work on lists of per-member ``(B,)`` tensors, in the JAX
+bodies' order of operations. A Python ``0.0`` entry is a structural zero:
+the measured row/column ``bx`` of a committed EK0 covariance is exactly
+zero after the R = 0 update, and every term through it is skipped.
+
+Layouts follow the JAX package: the state stream is ``(T+1, V, B)`` rows
+``[mean (nq*d) | active covariance upper triangle | s2]`` and the
+backward's output ``(T+1, d+1, B)`` rows ``[us | raw variance]``, with the
+ensemble axis last and contiguous so that a warp's accesses coalesce.
+
+Dispatch: ``ek0_pair_fwd`` and ``ek0_pair_bwd`` run the plain version on
+CPU tensors, launch the CUDA kernel on CUDA tensors, and raise on any
+other device. Each counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from odefilters_torch.ops import _build
+from odefilters_torch.priors import _ibm_small_np, precond_small
+
+# CUDA vector fields the kernels are instantiated for: name -> (d, n_params).
+CUDA_FIELDS = {"fhn": (2, 4)}
+# The kernels are instantiated for this order only (nq = 4).
+CUDA_ORDERS = (3,)
+
+
+def pair_layout(nq: int, d: int, bx: int):
+    """Packed-row layout of the pair's state stream: the active upper
+    triangle's ``(i, l)`` entries and the row width
+    ``V = nq*d + len(triu) + 1`` (15 at q = 3, d = 2)."""
+    triu = [(i, l) for i in range(nq) if i != bx
+            for l in range(i, nq) if l != bx]
+    return triu, nq * d + len(triu) + 1
+
+
+def _is0(x):
+    """Structural zero: a Python float 0.0 entry in a list block."""
+    return isinstance(x, (int, float)) and x == 0.0
+
+
+def _smul(a, b):
+    if _is0(a) or _is0(b):
+        return 0.0
+    if isinstance(a, float) and a == 1.0:
+        return b
+    if isinstance(b, float) and b == 1.0:
+        return a
+    return a * b
+
+
+def _sreduce(terms):
+    live = [t for t in terms if not _is0(t)]
+    if not live:
+        return 0.0
+    return functools.reduce(lambda a, b: a + b, live)
+
+
+def _lists(M) -> list[list[float]]:
+    """A numpy constant matrix as nested Python floats (static entries)."""
+    return [[float(x) for x in row] for row in np.asarray(M)]
+
+
+def ek0_step_collapsed(
+    m, C, p, t_new, *, f: Callable, At, Qt, pinv0: float, pinv1: float,
+    d: int, nq: int,
+):
+    """One EK0 (dynamic diffusion) filter step on the committed covariance's
+    active block: predict the mean, evaluate ``f`` at the predicted state,
+    calibrate ``s2 = |z|^2 / (d hq)``, predict the covariance's upper
+    triangle, apply the R = 0 update. Measures block 1.
+
+    ``m``: nq x d lists, ``C``: nq x nq lists of ``(B,)`` tensors (row and
+    column 1 are never read); ``At``/``Qt``: nested Python floats.
+    Returns ``(m_new, C_new, s2)`` with row/column 1 of ``C_new`` zero.
+    """
+    b = 1
+    pb = pinv1
+    hq = pb * pb * Qt[b][b]
+    mp = [
+        [_sreduce([_smul(At[i][l], m[l][j]) for l in range(nq)])
+         for j in range(d)]
+        for i in range(nq)
+    ]
+    u_pred = torch.stack([pinv0 * mp[0][j] for j in range(d)])
+    du = f(u_pred, p, t_new)
+    z = [pb * mp[b][j] - du[j] for j in range(d)]
+    zz = _sreduce([zj * zj for zj in z])
+    s2 = zz / (d * hq)
+    act = [a for a in range(nq) if a != b]
+    tmp_c = {
+        (i, c): _sreduce([_smul(At[i][a], C[a][c]) for a in act])
+        for i in range(nq) for c in act
+    }
+    Cp = [[None] * nq for _ in range(nq)]
+    for i in range(nq):
+        for l in range(i, nq):
+            Cp[i][l] = _sreduce(
+                [_smul(tmp_c[(i, c)], At[l][c]) for c in act]
+                + [_smul(Qt[i][l], s2)]
+            )
+            Cp[l][i] = Cp[i][l]
+    s = pb * pb * Cp[b][b]
+    inv_s = 1.0 / s
+    kg = [pb * Cp[i][b] * inv_s for i in range(nq)]
+    m_new = [[mp[i][j] - kg[i] * z[j] for j in range(d)] for i in range(nq)]
+    zero_c = torch.zeros_like(s)
+    C_new = [[zero_c] * nq for _ in range(nq)]
+    for i in act:
+        for l in act:
+            if l < i:
+                continue
+            C_new[i][l] = Cp[i][l] - kg[i] * kg[l] * s
+            C_new[l][i] = C_new[i][l]
+    return m_new, C_new, s2
+
+
+def list_chol_inv(C, nq: int):
+    """Unrolled Cholesky returning ``(L, inv_diag)``: one rsqrt per pivot,
+    with the clamp inside the rsqrt only (a negative pivot gives a large
+    negative factor entry, as in the JAX package)."""
+    L = [[None] * nq for _ in range(nq)]
+    invd = [None] * nq
+    for i in range(nq):
+        for j in range(i + 1):
+            s = C[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                inv = torch.rsqrt(torch.clamp(s, min=1e-30))
+                invd[i] = inv
+                L[i][j] = s * inv
+            else:
+                L[i][j] = s * invd[j]
+    return L, invd
+
+
+def list_cho_solve_inv(L, invd, b, nq: int):
+    """Solve ``L L^T x = b`` with the pivot reciprocals of `list_chol_inv`."""
+    y = [None] * nq
+    for i in range(nq):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s * invd[i]
+    x = [None] * nq
+    for i in range(nq - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, nq):
+            s = s - L[k][i] * x[k]
+        x[i] = s * invd[i]
+    return x
+
+
+def ek0_pair_bwd_step_plain(
+    m_f, C_f, m_s, Cs, s2, *, At_st, QL_st, Q_st, nq: int, d: int, bx: int,
+    jitter: float = 0.0,
+):
+    """One backward RTS step carrying the smoothed covariance plain, through
+    the additive Joseph form
+
+        C_s' = (I-GA) C_f (I-GA)^T + s2 (G QL)(G QL)^T + G C_s G^T,
+
+    three PSD terms and no subtraction. ``Cp``'s diagonal is jittered
+    relatively by ``jitter`` (1e-6 in float32, 1e-12 in float64): at steps
+    whose diffusion collapses, the plain predicted covariance is
+    ill-conditioned enough for an unjittered solve to amplify roundoff
+    without bound. Row/column ``bx`` of ``C_f``, ``Cs`` and the result are
+    structural zeros. Returns ``(m_new, Cs_new)``.
+    """
+    tmp = [
+        [_sreduce([_smul(At_st[i][a], C_f[a][c]) for a in range(nq)])
+         for c in range(nq)]
+        for i in range(nq)
+    ]
+    Cp = [[None] * nq for _ in range(nq)]
+    for i in range(nq):
+        for l in range(i, nq):
+            Cp[i][l] = _sreduce(
+                [_smul(tmp[i][c], At_st[l][c]) for c in range(nq)]
+                + [_smul(s2, Q_st[i][l])]
+            )
+            Cp[l][i] = Cp[i][l]
+    if jitter:
+        for i in range(nq):
+            Cp[i][i] = Cp[i][i] * (1.0 + jitter)
+    Lp, Lp_inv = list_chol_inv(Cp, nq)
+    G = [[0.0] * nq for _ in range(nq)]
+    for i in range(nq):
+        if i == bx:
+            continue
+        G[i] = list_cho_solve_inv(Lp, Lp_inv, [tmp[l][i] for l in range(nq)],
+                                  nq)
+    mp = [
+        [_sreduce([_smul(At_st[i][l], m_f[l][j]) for l in range(nq)])
+         for j in range(d)]
+        for i in range(nq)
+    ]
+    dm = [[m_s[i][j] - mp[i][j] for j in range(d)] for i in range(nq)]
+    m_new = []
+    for i in range(nq):
+        rowm = []
+        for j in range(d):
+            inc = _sreduce([_smul(G[i][l], dm[l][j]) for l in range(nq)])
+            rowm.append(m_f[i][j] if _is0(inc) else m_f[i][j] + inc)
+        m_new.append(rowm)
+    GA = [
+        [_sreduce([_smul(G[i][a], At_st[a][l]) for a in range(nq)])
+         for l in range(nq)]
+        for i in range(nq)
+    ]
+    IGA = [
+        [(1.0 - GA[i][l]) if i == l else
+         (0.0 - GA[i][l] if not _is0(GA[i][l]) else 0.0)
+         for l in range(nq)]
+        for i in range(nq)
+    ]
+    Y = [
+        [_sreduce([_smul(IGA[i][a], C_f[a][c]) for a in range(nq)])
+         for c in range(nq)]
+        for i in range(nq)
+    ]
+    GL = [
+        [_sreduce([_smul(G[i][a], QL_st[a][l]) for a in range(nq)])
+         for l in range(nq)]
+        for i in range(nq)
+    ]
+    V = [
+        [_sreduce([_smul(G[i][a], Cs[a][c]) for a in range(nq)])
+         for c in range(nq)]
+        for i in range(nq)
+    ]
+    Cs_new = [[0.0] * nq for _ in range(nq)]
+    for i in range(nq):
+        if i == bx:
+            continue
+        for l in range(i, nq):
+            if l == bx:
+                continue
+            b1 = _sreduce([_smul(Y[i][c], IGA[l][c]) for c in range(nq)])
+            b2 = _smul(s2, _sreduce(
+                [_smul(GL[i][k], GL[l][k]) for k in range(nq)]
+            ))
+            b3 = _sreduce([_smul(V[i][c], G[l][c]) for c in range(nq)])
+            Cs_new[i][l] = _sreduce([b1, b2, b3])
+            Cs_new[l][i] = Cs_new[i][l]
+    return m_new, Cs_new
+
+
+def ek0_pair_fwd_plain(
+    f: Callable, m0_p: torch.Tensor, ps: torch.Tensor, *, At, Qt,
+    pinv0: float, pinv1: float, t0: float, dt: float, n_steps: int,
+) -> torch.Tensor:
+    """Forward filter of the pair: ``(T+1, V, B)`` stream of packed rows
+    ``[mean | active covariance triangle | s2]`` from the preconditioned
+    initial means ``m0_p`` ``(nq, d, B)`` and parameters ``ps``
+    ``(n_params, B)``. Row 0 is the exact initial state with s2 = 1."""
+    nq, d, B = m0_p.shape
+    T = int(n_steps)
+    triu, V = pair_layout(nq, d, 1)
+    At, Qt = _lists(At), _lists(Qt)
+    dtype, device = m0_p.dtype, m0_p.device
+    st = torch.empty((T + 1, V, B), dtype=dtype, device=device)
+
+    def pack(k, m, C, s2):
+        vals = [m[i][j] for i in range(nq) for j in range(d)]
+        vals += [C[i][l] for (i, l) in triu] + [s2]
+        torch.stack(vals, out=st[k])
+
+    m = [[m0_p[i, j] for j in range(d)] for i in range(nq)]
+    zero = torch.zeros_like(m[0][0])
+    C = [[zero] * nq for _ in range(nq)]
+    pack(0, m, C, zero + 1.0)
+    # t_{k+1} = t0 + dt (k+1) in the working dtype, never accumulated
+    ts = (torch.tensor(t0, dtype=dtype, device=device)
+          + torch.tensor(dt, dtype=dtype, device=device)
+          * torch.arange(1, T + 1, dtype=dtype, device=device))
+    for k in range(T):
+        m, C, s2 = ek0_step_collapsed(
+            m, C, ps, ts[k], f=f, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1,
+            d=d, nq=nq,
+        )
+        pack(k + 1, m, C, s2)
+    return st
+
+
+def ek0_pair_bwd_plain(
+    st: torch.Tensor, *, nq: int, d: int, At, Qt, QLt, pinv0: float,
+    jitter: float,
+) -> torch.Tensor:
+    """Backward RTS pass of the pair over the stream ``st``: ``(T+1, d+1, B)``
+    rows ``[pinv0 * smoothed mean of block 0 | raw smoothed variance]``.
+
+    The step from t_k uses the diffusion of interval k -> k+1, which the
+    forward stored in row k+1; it is carried over from the previous
+    (later) row."""
+    bx = 1
+    T = st.shape[0] - 1
+    B = st.shape[2]
+    triu, _ = pair_layout(nq, d, bx)
+    At_st, QL_st, Q_st = _lists(At), _lists(QLt), _lists(Qt)
+    out = torch.empty((T + 1, d + 1, B), dtype=st.dtype, device=st.device)
+
+    def read(k):
+        row = st[k]
+        m = [[row[i * d + j] for j in range(d)] for i in range(nq)]
+        C = [[0.0] * nq for _ in range(nq)]
+        for idx, (i, l) in enumerate(triu, start=nq * d):
+            C[i][l] = row[idx]
+            C[l][i] = C[i][l]
+        return m, C, row[nq * d + len(triu)]
+
+    def emit(k, m, var):
+        torch.stack([pinv0 * m[0][j] for j in range(d)] + [var], out=out[k])
+
+    m_s, Cs, s2 = read(T)
+    emit(T, m_s, Cs[0][0])
+    for k in range(T - 1, -1, -1):
+        m_f, C_f, s2_k = read(k)
+        m_s, Cs = ek0_pair_bwd_step_plain(
+            m_f, C_f, m_s, Cs, s2, At_st=At_st, QL_st=QL_st, Q_st=Q_st,
+            nq=nq, d=d, bx=bx, jitter=jitter,
+        )
+        emit(k, m_s, Cs[0][0])
+        s2 = s2_k
+    return out
+
+
+def _check_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype):
+    for tname, t in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {tname} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+        if t.device != next(iter(tensors.values())).device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+
+
+def _dispatch_device(name: str, t: torch.Tensor) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(
+            f"{name}: tensors on device {t.device} are not supported; the "
+            "pair runs its plain PyTorch version on 'cpu' and its CUDA "
+            "kernel on 'cuda'"
+        )
+    return kind
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"the pair's kernels take float32 or float64, got {dtype}")
+
+
+def _consts(*mats, scalars) -> ctypes.Array:
+    vals = [float(x) for M in mats for x in np.asarray(M).ravel()]
+    vals += [float(x) for x in scalars]
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def ek0_pair_fwd(
+    f: Callable, field: Optional[str], m0_p: torch.Tensor, ps: torch.Tensor,
+    *, At, Qt, pinv0: float, pinv1: float, t0: float, dt: float,
+    n_steps: int,
+) -> torch.Tensor:
+    """The pair's forward filter: `ek0_pair_fwd_plain` on CPU tensors, the
+    CUDA kernel ``ek0_pair_fwd_kernel`` on CUDA tensors (vector field
+    ``field``, see ``CUDA_FIELDS``)."""
+    if _dispatch_device("ek0_pair_fwd", m0_p) == "cpu":
+        return ek0_pair_fwd_plain(
+            f, m0_p, ps, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1, t0=t0,
+            dt=dt, n_steps=n_steps,
+        )
+    if field not in CUDA_FIELDS:
+        raise NotImplementedError(
+            f"no CUDA vector field {field!r}; the kernels are built for "
+            f"{sorted(CUDA_FIELDS)}"
+        )
+    nq, d, B = m0_p.shape
+    d_f, n_params = CUDA_FIELDS[field]
+    if nq - 1 not in CUDA_ORDERS or d != d_f or ps.shape != (n_params, B):
+        raise ValueError(
+            f"ek0_pair_fwd: field {field!r} takes m0_p (nq, {d_f}, B) with "
+            f"nq - 1 in {CUDA_ORDERS} and ps ({n_params}, B); got "
+            f"{tuple(m0_p.shape)} and {tuple(ps.shape)}"
+        )
+    _check_cuda_inputs("ek0_pair_fwd", {"m0_p": m0_p, "ps": ps}, m0_p.dtype)
+    fn = getattr(_build.load(), f"ek0_pair_fwd_{field}_{_suffix(m0_p.dtype)}")
+    T = int(n_steps)
+    _, V = pair_layout(nq, d, 1)
+    st = torch.empty((T + 1, V, B), dtype=m0_p.dtype, device=m0_p.device)
+    consts = _consts(At, Qt, scalars=(pinv0, pinv1, t0, dt))
+    with torch.cuda.device(m0_p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(m0_p.data_ptr(), ps.data_ptr(), st.data_ptr(), B, T, consts,
+                stream)
+    ek0_pair_fwd.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"ek0_pair_fwd_kernel launch failed: CUDA error {rc}")
+    return st
+
+
+ek0_pair_fwd.launches = 0
+
+
+def ek0_pair_bwd(
+    st: torch.Tensor, *, nq: int, d: int, At, Qt, QLt, pinv0: float,
+    jitter: float,
+) -> torch.Tensor:
+    """The pair's backward smoother: `ek0_pair_bwd_plain` on CPU tensors,
+    the CUDA kernel ``ek0_pair_bwd_kernel`` on CUDA tensors."""
+    if _dispatch_device("ek0_pair_bwd", st) == "cpu":
+        return ek0_pair_bwd_plain(
+            st, nq=nq, d=d, At=At, Qt=Qt, QLt=QLt, pinv0=pinv0, jitter=jitter,
+        )
+    _, V = pair_layout(nq, d, 1)
+    if (nq - 1 not in CUDA_ORDERS or d != 2 or st.ndim != 3
+            or st.shape[1] != V):
+        raise ValueError(
+            f"ek0_pair_bwd: the kernel takes nq - 1 in {CUDA_ORDERS}, d = 2 "
+            f"and a (T+1, {V}, B) stream; got nq={nq}, d={d}, "
+            f"{tuple(st.shape)}"
+        )
+    _check_cuda_inputs("ek0_pair_bwd", {"st": st}, st.dtype)
+    fn = getattr(_build.load(), f"ek0_pair_bwd_{_suffix(st.dtype)}")
+    T, B = st.shape[0] - 1, st.shape[2]
+    out = torch.empty((T + 1, d + 1, B), dtype=st.dtype, device=st.device)
+    consts = _consts(At, Qt, QLt, scalars=(pinv0, 1.0 + jitter))
+    with torch.cuda.device(st.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(st.data_ptr(), out.data_ptr(), B, T, consts, stream)
+    ek0_pair_bwd.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"ek0_pair_bwd_kernel launch failed: CUDA error {rc}")
+    return out
+
+
+ek0_pair_bwd.launches = 0
+
+
+def pair_constants(q: int, dt: float):
+    """Host-side constants of the pair on a uniform grid of step ``dt``:
+    ``(At, Qt, QLt, p)`` as float64 numpy, with ``Qt = QLt QLt^T`` and the
+    preconditioner ``p``."""
+    At, _, QLt = _ibm_small_np(q)
+    p, _ = precond_small(dt, q)
+    return At, QLt @ QLt.T, QLt, p
+
+
+def ek0_fused_solve(
+    f: Callable,
+    m0: torch.Tensor,
+    ps: torch.Tensor,
+    t0: float,
+    dt: float,
+    n_steps: int,
+    q: int,
+    *,
+    field: Optional[str] = None,
+    prior=None,
+    mesh=None,
+    second_order: bool = False,
+    diffusion: str = "dynamic",
+    _bwd_plain: bool = True,
+):
+    """Complete fused probabilistic solve: the pair's filter and RTS
+    smoother.
+
+    ``m0``: ``(q+1, d, B)`` unpreconditioned Taylor initial means; ``ps``:
+    ``(n_params, B)``. Returns ``(us, stds)``, the smoothed posterior means
+    and stds of the solution, shapes ``(T+1, d, B)`` and ``(T+1, B)``.
+    """
+    if prior is not None:
+        raise NotImplementedError(
+            "IOUP / Matern priors are not ported yet "
+            "(ROADMAP.md queue 1, slice 1 item 8)"
+        )
+    if second_order:
+        raise NotImplementedError(
+            "second-order problems are not ported yet "
+            "(ROADMAP.md queue 1, slice 1 item 8)"
+        )
+    if diffusion != "dynamic":
+        raise NotImplementedError(
+            f"diffusion={diffusion!r} is not ported yet; the pair runs the "
+            "dynamic diffusion (ROADMAP.md queue 1, slice 1 item 8)"
+        )
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not supported: the port runs on one card")
+    if not _bwd_plain:
+        raise NotImplementedError(
+            "the square-root backward (_bwd_plain=False) is not ported yet "
+            "(ROADMAP.md queue 2, item 2)"
+        )
+    nq = q + 1
+    _, d, _ = m0.shape
+    T = int(n_steps)
+    At, Qt, QLt, p = pair_constants(q, dt)
+    pinv0 = float(1.0 / p[0])
+    m0_p = torch.as_tensor(p, dtype=m0.dtype, device=m0.device)[:, None, None] * m0
+    st = ek0_pair_fwd(
+        f, field, m0_p, ps, At=At, Qt=Qt, pinv0=pinv0,
+        pinv1=float(1.0 / p[1]), t0=float(t0), dt=float(dt), n_steps=T,
+    )
+    jit_eps = 1e-6 if m0.dtype == torch.float32 else 1e-12
+    out = ek0_pair_bwd(st, nq=nq, d=d, At=At, Qt=Qt, QLt=QLt, pinv0=pinv0,
+                       jitter=jit_eps)
+    us = out[:, :d]
+    stds = pinv0 * torch.sqrt(torch.clamp(out[:, d], min=0.0))
+    return us, stds
+
+
+def solve_ensemble_ek0_smooth(
+    prob_f: Callable,
+    u0s: torch.Tensor,
+    ps: torch.Tensor,
+    tspan,
+    n_steps: int,
+    q: int = 3,
+    *,
+    field: Optional[str] = None,
+    prior=None,
+    mesh=None,
+    diffusion: str = "dynamic",
+):
+    """Taylor init + the fused filter + the fused RTS smoother over an
+    ensemble: ``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``. Returns
+    ``(us, stds)`` as `ek0_fused_solve`, which checks the options."""
+    from odefilters_torch.taylor import taylor_coefficients
+
+    t0, t1 = tspan
+    dt = (t1 - t0) / n_steps
+    # contiguous copies: forward-mode AD refuses inputs whose elements
+    # alias one another, as in an expanded (broadcast) ensemble
+    ps_t = ps.T.contiguous()
+    m0 = torch.stack(taylor_coefficients(prob_f, u0s.T.contiguous(), ps_t, t0, q))
+    return ek0_fused_solve(prob_f, m0, ps_t, float(t0), float(dt), n_steps, q,
+                           field=field, prior=prior, mesh=mesh,
+                           diffusion=diffusion)
