@@ -4,14 +4,21 @@ Probabilistic ODE solvers (Gaussian ODE filters) on PyTorch, with the hot
 path in hand-written CUDA kernels for the NVIDIA H100. The JAX package
 ``odefilters`` beside it is the reference; module paths mirror it.
 
-Ported so far: the fused EK0 filter + RTS smoother ensemble solve on a
-uniform grid, with the dynamic diffusion and the IBM prior::
+Ported so far, on a uniform grid with the IBM prior: the fused EK0 filter +
+RTS smoother ensemble solve (dynamic diffusion), and the fused EK0 filter
+with its per-member log-likelihood (dynamic or static diffusion) and that
+likelihood's gradient by ``torch.autograd``::
 
     import torch
     import odefilters_torch as odt
-    prob = odt.models.fitzhugh_nagumo(device="cuda", dtype=torch.float32)
+    prob = odt.models.fitzhugh_nagumo(dtype=torch.float32)  # on the card
     sol = odt.solve_ensemble(prob, odt.EK0(order=3), u0s, ps, n_save=500)
     sol.us, sol.stds   # (501, 2, B), (501, B)
+    fil = odt.solve_ensemble(prob, odt.EK0(order=3, smooth=False), u0s, ps,
+                             n_save=500)
+    fil.lls            # (B,), differentiable in u0s and ps
+
+Constructors build on the CUDA card unless given ``device="cpu"``.
 
 This package never imports JAX.
 """

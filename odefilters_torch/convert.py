@@ -12,15 +12,16 @@ import numpy as np
 import torch
 
 from odefilters_torch import models
-from odefilters_torch.problem import ODEProblem
+from odefilters_torch.problem import ODEProblem, resolve_device
 
 _MODELS = {"fitzhugh_nagumo": models.fitzhugh_nagumo}
 
 
-def problem_from_numpy(model_name: str, u0, p, tspan, *, device=None,
+def problem_from_numpy(model_name: str, u0, p, tspan, *, device="cuda",
                        dtype=torch.float64) -> ODEProblem:
     """The port's ``model_name`` problem with ``u0``, ``p`` and ``tspan``
-    taken from numpy values, on ``device`` in ``dtype``."""
+    taken from numpy values, on ``device`` (the CUDA card unless given) in
+    ``dtype``."""
     if model_name not in _MODELS:
         raise NotImplementedError(
             f"model {model_name!r} is not ported yet; ported: {sorted(_MODELS)}"
@@ -31,8 +32,11 @@ def problem_from_numpy(model_name: str, u0, p, tspan, *, device=None,
     )
 
 
-def ensemble_inputs_from_numpy(u0s, ps, *, device=None, dtype=torch.float64):
-    """``(u0s (B, d), ps (B, n_params))`` numpy arrays as contiguous tensors."""
+def ensemble_inputs_from_numpy(u0s, ps, *, device="cuda",
+                               dtype=torch.float64):
+    """``(u0s (B, d), ps (B, n_params))`` numpy arrays as contiguous tensors
+    on ``device`` (the CUDA card unless given)."""
+    device = resolve_device(device)
     return (
         torch.as_tensor(np.ascontiguousarray(u0s), dtype=dtype, device=device),
         torch.as_tensor(np.ascontiguousarray(ps), dtype=dtype, device=device),

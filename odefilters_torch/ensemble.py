@@ -1,19 +1,23 @@
 """Front door of the fused ensemble solves (counterpart of
 ``odefilters/ensemble.py``).
 
-Ported so far: the fixed-grid EK0 filter + RTS smoother with the dynamic
-diffusion, which runs on the fused pair (`ops.ek0_pair`). Every other
-branch of the JAX front door raises ``NotImplementedError`` naming the
-ROADMAP.md slice that ports it.
+Ported so far, on uniform grids with EK0: the filter + RTS smoother with
+the dynamic diffusion, on the fused pair (`ops.ek0_pair`), and the filter
+alone with its per-member log-likelihood and gradient, under the dynamic
+or a static diffusion (`ops.ek0_filter`). Every other branch of the JAX
+front door raises ``NotImplementedError`` naming the ROADMAP.md slice that
+ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from odefilters_torch.algorithms import AbstractEK
+from odefilters_torch.ops.ek0_filter import solve_ensemble_ek0
 from odefilters_torch.ops.ek0_pair import solve_ensemble_ek0_smooth
 from odefilters_torch.problem import ODEProblem
 
@@ -24,12 +28,18 @@ class EnsembleKernelSolution:
 
     ``us``: ``(S+1, d, B)`` posterior means on the save grid; ``stds``:
     ``(S+1, B)`` marginal stds (the EK0 covariance is isotropic across
-    dims). The JAX package's log-likelihoods, step counts and calibrated
-    diffusions come with the paths that produce them.
+    dims), or ``(S+1, d, B)`` under fixedMV. ``lls``: ``(B,)`` ODE-residual
+    log-likelihoods from the filter path (all NaN under a static diffusion;
+    None from the filter + smoother pair). ``diffusions``: the calibrated
+    per-member global sigma^2 under a static diffusion, ``(B,)`` or
+    ``(d, B)`` for fixedMV; None otherwise. The JAX package's step counts
+    come with the adaptive paths that produce them.
     """
 
     us: torch.Tensor
     stds: torch.Tensor
+    lls: Optional[torch.Tensor] = None
+    diffusions: Optional[torch.Tensor] = None
 
 
 def solve_ensemble(
@@ -48,6 +58,9 @@ def solve_ensemble(
     ``n_save`` is the number of uniform steps over ``prob.tspan``. Tensors
     on a CUDA device run the CUDA kernels (the problem must name a CUDA
     vector field in ``prob.field``); CPU tensors run the plain versions.
+    With ``smooth=False`` the result carries ``lls``, and gradients of it
+    with respect to ``u0s`` and ``ps`` flow by ``torch.autograd`` (dynamic
+    diffusion only).
     """
     if adaptive:
         raise NotImplementedError(
@@ -58,11 +71,20 @@ def solve_ensemble(
         raise NotImplementedError(
             "EK1 ensemble kernels are not ported yet (ROADMAP.md queue 1, slice 4)"
         )
-    if not alg.smooth:
+    if alg.diffusionmodel == "dynamicMV":
         raise NotImplementedError(
-            "the fixed-grid EK0 filter without smoother is not ported yet "
-            "(ROADMAP.md queue 1, slice 2)"
+            "dynamicMV is not on the fused kernels, as in the JAX package"
         )
+    if not alg.smooth:
+        out = solve_ensemble_ek0(
+            prob.f, u0s, ps, prob.tspan, n_save, q=alg.order,
+            field=prob.field, prior=alg.prior, mesh=mesh,
+            diffusion=alg.diffusionmodel,
+        )
+        if alg.diffusionmodel == "dynamic":
+            return EnsembleKernelSolution(*out)
+        us, stds, lls, sig = out
+        return EnsembleKernelSolution(us, stds, lls, diffusions=sig)
     us, stds = solve_ensemble_ek0_smooth(
         prob.f, u0s, ps, prob.tspan, n_save, q=alg.order, field=prob.field,
         prior=alg.prior, mesh=mesh, diffusion=alg.diffusionmodel,

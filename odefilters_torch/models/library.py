@@ -29,8 +29,9 @@ def fitzhugh_nagumo_f(u, p, t):
 
 def fitzhugh_nagumo(
     u0=(-1.0, 1.0), p=(0.7, 0.8, 1 / 12.5, 0.5), tspan=(0.0, 20.0), *,
-    device=None, dtype=None,
+    device="cuda", dtype=None,
 ) -> ODEProblem:
-    """FitzHugh-Nagumo neuron model, as ``odefilters.models.fitzhugh_nagumo``."""
+    """FitzHugh-Nagumo neuron model, as ``odefilters.models.fitzhugh_nagumo``,
+    on the CUDA card unless ``device`` names another."""
     return ode_problem(fitzhugh_nagumo_f, u0, tspan, p=p, field="fhn",
                        device=device, dtype=dtype)

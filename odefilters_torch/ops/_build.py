@@ -2,9 +2,10 @@
 
 The sources under ``csrc/`` are compiled for Hopper (``sm_90a``) into one
 shared library with a plain C interface, at first use, into
-``build/odefilters_torch/`` beside the package. The library's name carries
-a hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused. Nothing here runs at import time.
+``build/odefilters_torch/`` beside the package: one ``nvcc`` per source,
+all started together, then one link. The library's name carries a hash of
+the sources and flags, so an edited source builds anew and an unchanged
+one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,25 +21,39 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
-SOURCES = ("ek0_pair.cu",)
-HEADERS = ("fields.cuh",)
+SOURCES = ("ek0_pair.cu", "ek0_filter.cu")
+HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Per-source flags. The filter's kernels round op by op as their plain
+# versions do on the card (no FMA contraction): their log-likelihoods and
+# stds carry the innovation at the solver's accuracy floor. Built with
+# contraction, at 8192 members x 500 steps they miss the plain lls by
+# 1.8e-5 relative in float64 and 2.3e-2 in float32, the stds by 7.5e-4 and
+# 0.24, and run no faster on an H100 (scripts/torch_kernel_fma.py).
+SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_double)
-# C entry points and their argument types: the forward takes
-# (m0_p, ps, stream_out, B, T, consts, cuda_stream), the backward
-# (stream_in, out, B, T, consts, cuda_stream).
-ENTRIES = {
-    "ek0_pair_fwd_fhn_f32": (_P, _P, _P, _I, _I, _D, _P),
-    "ek0_pair_fwd_fhn_f64": (_P, _P, _P, _I, _I, _D, _P),
-    "ek0_pair_bwd_f32": (_P, _P, _I, _I, _D, _P),
-    "ek0_pair_bwd_f64": (_P, _P, _I, _I, _D, _P),
-}
+# C entry points and their argument types; the last is the CUDA stream.
+# ek0_pair_fwd: (m0_p, ps, stream_out, B, T, consts)
+# ek0_pair_bwd: (stream_in, out, B, T, consts)
+# ek0_filter: (m0_p, ps, us, var, lls, sig, B, T, mode, consts)
+# ek0_filter_grad_fwd: (m0_p, ps, us, stds, lls, stream_out, B, T, consts)
+# ek0_filter_grad_bwd: (stream_in, ps, dus, dstds, dlls, dm0_p, dps, B, T,
+#                       consts)
+ENTRIES = {}
+for _s in ("f32", "f64"):
+    ENTRIES.update({
+        f"ek0_pair_fwd_fhn_{_s}": (_P, _P, _P, _I, _I, _D, _P),
+        f"ek0_pair_bwd_{_s}": (_P, _P, _I, _I, _D, _P),
+        f"ek0_filter_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
+        f"ek0_filter_grad_fwd_fhn_{_s}": (_P,) * 6 + (_I, _I, _D, _P),
+        f"ek0_filter_grad_bwd_fhn_{_s}": (_P,) * 7 + (_I, _I, _D, _P),
+    })
 
 
 def _nvcc() -> str:
@@ -62,14 +77,15 @@ def library_path() -> Path:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return BUILD_DIR / f"libodefilters_torch_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
     """Compile the kernels unless the library for these sources exists.
 
-    Returns ``{"path", "seconds", "log"}``: seconds spent in ``nvcc`` (0.0
-    when the library was already there) and its output, which with
+    Returns ``{"path", "seconds", "log"}``: wall seconds spent in ``nvcc``
+    (0.0 when the library was already there) and its output, which with
     ``-Xptxas -v`` lists each kernel's registers and spills.
     """
     path = library_path()
@@ -78,16 +94,36 @@ def build() -> dict:
         log = log_path.read_text() if log_path.is_file() else ""
         return {"path": path, "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), "-I", str(CSRC),
+             "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(f"== {src}\n{out}" for src, out in zip(SOURCES, outs))
+    tmp = path.with_name(f"{tag}.tmp.so")
+    try:
+        failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, path)
     return {"path": path, "seconds": seconds, "log": log}

@@ -34,19 +34,16 @@
 
 #include <cuda_runtime.h>
 
+#include "ek0_common.cuh"
 #include "fields.cuh"
+
+using ek0::BX;
+using ek0::FwdConsts;
+using ek0::Layout;
 
 namespace {
 
-constexpr int BX = 1;        // measured derivative block (first-order ODE)
 constexpr int THREADS = 64;
-
-template <typename S, int NQ>
-struct FwdConsts {
-  S At[NQ][NQ];   // preconditioned IBM transition (upper triangular)
-  S Qt[NQ][NQ];   // preconditioned process noise QLt QLt^T
-  S pinv0, pinv1, t0, dt;
-};
 
 template <typename S, int NQ>
 struct BwdConsts {
@@ -55,107 +52,6 @@ struct BwdConsts {
   S QLt[NQ][NQ];  // its lower Cholesky factor
   S pinv0, one_plus_jitter;
 };
-
-template <int NQ, int D>
-struct Layout {
-  // stream row: mean (NQ*D) | active upper triangle | s2
-  static constexpr int V = NQ * D + (NQ - 1) * NQ / 2 + 1;
-};
-
-template <typename S>
-__device__ __forceinline__ S rsqrt_(S x);
-template <>
-__device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
-template <>
-__device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
-
-template <typename S, int NQ, int D>
-__device__ __forceinline__ void store_row(S* __restrict__ st, size_t row0,
-                                          size_t sB, const S (&m)[NQ][D],
-                                          const S (&C)[NQ][NQ], S s2) {
-  int v = 0;
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) st[row0 + (v++) * sB] = m[i][j];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    if (i == BX) continue;
-#pragma unroll
-    for (int l = i; l < NQ; ++l) {
-      if (l == BX) continue;
-      st[row0 + (v++) * sB] = C[i][l];
-    }
-  }
-  st[row0 + v * sB] = s2;
-}
-
-template <typename S, int NQ, int D>
-__device__ __forceinline__ void load_row(const S* __restrict__ st,
-                                         size_t row0, size_t sB,
-                                         S (&m)[NQ][D], S (&C)[NQ][NQ],
-                                         S& s2) {
-  int v = 0;
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) m[i][j] = st[row0 + (v++) * sB];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int l = 0; l < NQ; ++l) C[i][l] = S(0);
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-    if (i == BX) continue;
-#pragma unroll
-    for (int l = i; l < NQ; ++l) {
-      if (l == BX) continue;
-      C[i][l] = st[row0 + (v++) * sB];
-      C[l][i] = C[i][l];
-    }
-  }
-  s2 = st[row0 + v * sB];
-}
-
-// tmp = At C over the active block: tmp[i][c] for c != BX, summing
-// a >= i (At upper triangular), a != BX (C's row BX is zero).
-template <typename S, int NQ>
-__device__ __forceinline__ void at_times_c(const S (&At)[NQ][NQ],
-                                           const S (&C)[NQ][NQ],
-                                           S (&tmp)[NQ][NQ]) {
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int c = 0; c < NQ; ++c) {
-      S acc = S(0);
-      if (c != BX) {
-#pragma unroll
-        for (int a = i; a < NQ; ++a)
-          if (a != BX) acc += At[i][a] * C[a][c];
-      }
-      tmp[i][c] = acc;
-    }
-}
-
-// Cp = tmp At^T + s2 Qt, symmetric (upper triangle computed, mirrored).
-template <typename S, int NQ>
-__device__ __forceinline__ void predict_cov(const S (&tmp)[NQ][NQ],
-                                            const S (&At)[NQ][NQ],
-                                            const S (&Qt)[NQ][NQ], S s2,
-                                            S (&Cp)[NQ][NQ]) {
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int l = i; l < NQ; ++l) {
-      S acc = S(0);
-#pragma unroll
-      for (int c = l; c < NQ; ++c)
-        if (c != BX) acc += tmp[i][c] * At[l][c];
-      acc += s2 * Qt[i][l];
-      Cp[i][l] = acc;
-      Cp[l][i] = acc;
-    }
-}
 
 }  // namespace
 
@@ -172,70 +68,18 @@ __global__ void __launch_bounds__(THREADS)
   if (b >= B) return;
   const size_t sB = (size_t)B;
 
-  S p[F::NP];
-#pragma unroll
-  for (int k = 0; k < F::NP; ++k) p[k] = ps[k * sB + b];
-  S m[NQ][D];
-  S C[NQ][NQ];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) m[i][j] = m0[(i * D + j) * sB + b];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int l = 0; l < NQ; ++l) C[i][l] = S(0);
-  store_row<S, NQ, D>(st, b, sB, m, C, S(1));
+  S p[F::NP], m[NQ][D], C[NQ][NQ];
+  ek0::load_member<S, NQ, F::NP, D>(m0, ps, b, sB, p, m, C);
+  ek0::store_row<S, NQ, D>(st, b, sB, m, C, S(1));
 
-  const S pb = c.pinv1;
-  const S hq = pb * pb * c.Qt[BX][BX];
   for (int k = 0; k < T; ++k) {
     // t_{k+1} in the working dtype, never accumulated
     const S t = c.t0 + c.dt * S(k + 1);
-    S mp[NQ][D];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i)
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        S acc = S(0);
-#pragma unroll
-        for (int l = i; l < NQ; ++l) acc += c.At[i][l] * m[l][j];
-        mp[i][j] = acc;
-      }
-    S u[D], du[D], z[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) u[j] = c.pinv0 * mp[0][j];
-    F()(u, p, t, du);
-#pragma unroll
-    for (int j = 0; j < D; ++j) z[j] = pb * mp[BX][j] - du[j];
-    S zz = S(0);
-#pragma unroll
-    for (int j = 0; j < D; ++j) zz += z[j] * z[j];
-    const S s2 = zz / (S(D) * hq);
-
-    S tmp[NQ][NQ], Cp[NQ][NQ];
-    at_times_c<S, NQ>(c.At, C, tmp);
-    predict_cov<S, NQ>(tmp, c.At, c.Qt, s2, Cp);
-    const S s = pb * pb * Cp[BX][BX];
-    const S inv_s = S(1) / s;
-    S kg[NQ];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) kg[i] = pb * Cp[i][BX] * inv_s;
-#pragma unroll
-    for (int i = 0; i < NQ; ++i)
-#pragma unroll
-      for (int j = 0; j < D; ++j) m[i][j] = mp[i][j] - kg[i] * z[j];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      if (i == BX) continue;
-#pragma unroll
-      for (int l = i; l < NQ; ++l) {
-        if (l == BX) continue;
-        C[i][l] = Cp[i][l] - kg[i] * kg[l] * s;
-        C[l][i] = C[i][l];
-      }
-    }
-    store_row<S, NQ, D>(st, (size_t)(k + 1) * V * sB + b, sB, m, C, s2);
+    ek0::StepVals<S, NQ, D> v;
+    ek0::ek0_step<S, NQ, F, false>(c, p, t, m, C, v);
+    ek0::commit<S, NQ, D>(v, m, C);
+    ek0::store_row<S, NQ, D>(st, (size_t)(k + 1) * V * sB + b, sB, m, C,
+                             v.s2);
   }
 }
 
@@ -252,7 +96,7 @@ __global__ void __launch_bounds__(THREADS)
 
   // smoothed == filtered at the last grid point
   S m_s[NQ][D], Cs[NQ][NQ], s2;
-  load_row<S, NQ, D>(st, (size_t)T * V * sB + b, sB, m_s, Cs, s2);
+  ek0::load_row<S, NQ, D>(st, (size_t)T * V * sB + b, sB, m_s, Cs, s2);
   {
     const size_t o = (size_t)T * (D + 1) * sB + b;
 #pragma unroll
@@ -262,12 +106,13 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int k = T - 1; k >= 0; --k) {
     S m_f[NQ][D], C_f[NQ][NQ], s2_k;
-    load_row<S, NQ, D>(st, (size_t)k * V * sB + b, sB, m_f, C_f, s2_k);
+    ek0::load_row<S, NQ, D>(st, (size_t)k * V * sB + b, sB, m_f, C_f,
+                            s2_k);
 
     // s2 is the diffusion of interval k -> k+1 (stored in row k+1)
     S tmp[NQ][NQ], Cp[NQ][NQ];
-    at_times_c<S, NQ>(c.At, C_f, tmp);
-    predict_cov<S, NQ>(tmp, c.At, c.Qt, s2, Cp);
+    ek0::at_times_c<S, NQ>(c.At, C_f, tmp);
+    ek0::predict_cov<S, NQ>(tmp, c.At, c.Qt, s2, Cp);
 #pragma unroll
     for (int i = 0; i < NQ; ++i) Cp[i][i] = Cp[i][i] * c.one_plus_jitter;
 
@@ -281,7 +126,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int k2 = 0; k2 < j; ++k2) sum = sum - L[i][k2] * L[j][k2];
         if (i == j) {
-          const S inv = rsqrt_(sum > S(1e-30) ? sum : S(1e-30));
+          const S inv = ek0::rsqrt_(sum > S(1e-30) ? sum : S(1e-30));
           invd[i] = inv;
           L[i][i] = sum * inv;
         } else {
@@ -409,24 +254,14 @@ __global__ void __launch_bounds__(THREADS)
 
 namespace {
 
-// consts: At (NQ*NQ), Qt (NQ*NQ), then pinv0, pinv1, t0, dt
 template <typename S, int NQ, class F>
 int launch_fwd(const void* m0, const void* ps, void* st, int B, int T,
                const double* k, void* stream) {
   if (B < 1 || T < 0) return (int)cudaErrorInvalidValue;
-  FwdConsts<S, NQ> c;
-  int o = 0;
-  for (int i = 0; i < NQ; ++i)
-    for (int l = 0; l < NQ; ++l) c.At[i][l] = S(k[o++]);
-  for (int i = 0; i < NQ; ++i)
-    for (int l = 0; l < NQ; ++l) c.Qt[i][l] = S(k[o++]);
-  c.pinv0 = S(k[o++]);
-  c.pinv1 = S(k[o++]);
-  c.t0 = S(k[o++]);
-  c.dt = S(k[o++]);
   const int blocks = (B + THREADS - 1) / THREADS;
   ek0_pair_fwd_kernel<S, NQ, F><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const S*)m0, (const S*)ps, (S*)st, B, T, c);
+      (const S*)m0, (const S*)ps, (S*)st, B, T,
+      ek0::read_fwd_consts<S, NQ>(k));
   return (int)cudaGetLastError();
 }
 

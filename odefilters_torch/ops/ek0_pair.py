@@ -5,8 +5,7 @@ wrappers of the two CUDA kernels that replace the JAX package's Pallas pair.
 this module                         ``odefilters/ops/pallas_kernels.py``
 ==================================  =========================================
 ``pair_layout``                     ``_pair_layout``
-``ek0_step_collapsed``              ``_ek0_step_lists(collapsed=True,
-                                    want_outputs=False)``
+``ek0_step_core``                   ``_ek0_step_lists(collapsed=True)``
 ``list_chol_inv``                   ``_list_chol_inv``
 ``list_cho_solve_inv``              ``_list_cho_solve_inv``
 ``ek0_pair_bwd_step_plain``         ``_ek0_pair_bwd_step_plain``
@@ -35,20 +34,17 @@ other device. Each counts its kernel launches in ``.launches``.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from odefilters_torch.ops import _build
+from odefilters_torch.ops._launch import (
+    CUDA_ORDERS, check_cuda_inputs, check_field, check_ported,
+    dispatch_device, host_consts, launch, suffix,
+)
 from odefilters_torch.priors import _ibm_small_np, precond_small
-
-# CUDA vector fields the kernels are instantiated for: name -> (d, n_params).
-CUDA_FIELDS = {"fhn": (2, 4)}
-# The kernels are instantiated for this order only (nq = 4).
-CUDA_ORDERS = (3,)
 
 
 def pair_layout(nq: int, d: int, bx: int):
@@ -87,18 +83,21 @@ def _lists(M) -> list[list[float]]:
     return [[float(x) for x in row] for row in np.asarray(M)]
 
 
-def ek0_step_collapsed(
+def ek0_step_core(
     m, C, p, t_new, *, f: Callable, At, Qt, pinv0: float, pinv1: float,
-    d: int, nq: int,
+    d: int, nq: int, static: bool = False,
 ):
-    """One EK0 (dynamic diffusion) filter step on the committed covariance's
-    active block: predict the mean, evaluate ``f`` at the predicted state,
-    calibrate ``s2 = |z|^2 / (d hq)``, predict the covariance's upper
-    triangle, apply the R = 0 update. Measures block 1.
+    """One EK0 filter step on the committed covariance's active block:
+    predict the mean, evaluate ``f`` at the predicted state, calibrate
+    ``s2 = |z|^2 / (d hq)`` (the Python constant 1.0 under a static
+    diffusion, which filters with the unscaled prior), predict the
+    covariance's upper triangle, apply the R = 0 update. Measures block 1.
 
     ``m``: nq x d lists, ``C``: nq x nq lists of ``(B,)`` tensors (row and
     column 1 are never read); ``At``/``Qt``: nested Python floats.
-    Returns ``(m_new, C_new, s2)`` with row/column 1 of ``C_new`` zero.
+    Returns ``(m_new, C_new, s2, zz, z, s, inv_s)``: the new state, with
+    row/column 1 of ``C_new`` zero, the diffusion, and the innovation
+    statistics that the filter's outputs are built from.
     """
     b = 1
     pb = pinv1
@@ -112,7 +111,7 @@ def ek0_step_collapsed(
     du = f(u_pred, p, t_new)
     z = [pb * mp[b][j] - du[j] for j in range(d)]
     zz = _sreduce([zj * zj for zj in z])
-    s2 = zz / (d * hq)
+    s2 = 1.0 if static else zz / (d * hq)
     act = [a for a in range(nq) if a != b]
     tmp_c = {
         (i, c): _sreduce([_smul(At[i][a], C[a][c]) for a in act])
@@ -138,7 +137,7 @@ def ek0_step_collapsed(
                 continue
             C_new[i][l] = Cp[i][l] - kg[i] * kg[l] * s
             C_new[l][i] = C_new[i][l]
-    return m_new, C_new, s2
+    return m_new, C_new, s2, zz, z, s, inv_s
 
 
 def list_chol_inv(C, nq: int):
@@ -273,6 +272,30 @@ def ek0_pair_bwd_step_plain(
     return m_new, Cs_new
 
 
+def step_times(t0: float, dt: float, n_steps: int, dtype, device):
+    """``t_{k+1} = t0 + dt (k+1)`` for k < n_steps in the working dtype,
+    never accumulated."""
+    return (torch.tensor(t0, dtype=dtype, device=device)
+            + torch.tensor(dt, dtype=dtype, device=device)
+            * torch.arange(1, n_steps + 1, dtype=dtype, device=device))
+
+
+def pack_row(row: torch.Tensor, m, C, s2, triu) -> None:
+    """Write one packed stream row ``[mean | active triangle | s2]``."""
+    vals = [x for mi in m for x in mi] + [C[i][l] for (i, l) in triu] + [s2]
+    torch.stack(vals, out=row)
+
+
+def unpack_row(row: torch.Tensor, nq: int, d: int, triu):
+    """``(m, C, s2)`` from a packed row; C's row/column 1 are Python 0.0."""
+    m = [[row[i * d + j] for j in range(d)] for i in range(nq)]
+    C = [[0.0] * nq for _ in range(nq)]
+    for idx, (i, l) in enumerate(triu, start=nq * d):
+        C[i][l] = row[idx]
+        C[l][i] = C[i][l]
+    return m, C, row[nq * d + len(triu)]
+
+
 def ek0_pair_fwd_plain(
     f: Callable, m0_p: torch.Tensor, ps: torch.Tensor, *, At, Qt,
     pinv0: float, pinv1: float, t0: float, dt: float, n_steps: int,
@@ -287,26 +310,17 @@ def ek0_pair_fwd_plain(
     At, Qt = _lists(At), _lists(Qt)
     dtype, device = m0_p.dtype, m0_p.device
     st = torch.empty((T + 1, V, B), dtype=dtype, device=device)
-
-    def pack(k, m, C, s2):
-        vals = [m[i][j] for i in range(nq) for j in range(d)]
-        vals += [C[i][l] for (i, l) in triu] + [s2]
-        torch.stack(vals, out=st[k])
-
     m = [[m0_p[i, j] for j in range(d)] for i in range(nq)]
     zero = torch.zeros_like(m[0][0])
     C = [[zero] * nq for _ in range(nq)]
-    pack(0, m, C, zero + 1.0)
-    # t_{k+1} = t0 + dt (k+1) in the working dtype, never accumulated
-    ts = (torch.tensor(t0, dtype=dtype, device=device)
-          + torch.tensor(dt, dtype=dtype, device=device)
-          * torch.arange(1, T + 1, dtype=dtype, device=device))
+    pack_row(st[0], m, C, zero + 1.0, triu)
+    ts = step_times(t0, dt, T, dtype, device)
     for k in range(T):
-        m, C, s2 = ek0_step_collapsed(
+        m, C, s2 = ek0_step_core(
             m, C, ps, ts[k], f=f, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1,
             d=d, nq=nq,
-        )
-        pack(k + 1, m, C, s2)
+        )[:3]
+        pack_row(st[k + 1], m, C, s2, triu)
     return st
 
 
@@ -328,13 +342,7 @@ def ek0_pair_bwd_plain(
     out = torch.empty((T + 1, d + 1, B), dtype=st.dtype, device=st.device)
 
     def read(k):
-        row = st[k]
-        m = [[row[i * d + j] for j in range(d)] for i in range(nq)]
-        C = [[0.0] * nq for _ in range(nq)]
-        for idx, (i, l) in enumerate(triu, start=nq * d):
-            C[i][l] = row[idx]
-            C[l][i] = C[i][l]
-        return m, C, row[nq * d + len(triu)]
+        return unpack_row(st[k], nq, d, triu)
 
     def emit(k, m, var):
         torch.stack([pinv0 * m[0][j] for j in range(d)] + [var], out=out[k])
@@ -352,41 +360,6 @@ def ek0_pair_bwd_plain(
     return out
 
 
-def _check_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype):
-    for tname, t in tensors.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {tname} is {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {tname} must be contiguous")
-        if t.device != next(iter(tensors.values())).device:
-            raise ValueError(f"{name}: all tensors must be on one device")
-
-
-def _dispatch_device(name: str, t: torch.Tensor) -> str:
-    kind = t.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(
-            f"{name}: tensors on device {t.device} are not supported; the "
-            "pair runs its plain PyTorch version on 'cpu' and its CUDA "
-            "kernel on 'cuda'"
-        )
-    return kind
-
-
-def _suffix(dtype: torch.dtype) -> str:
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.float64:
-        return "f64"
-    raise TypeError(f"the pair's kernels take float32 or float64, got {dtype}")
-
-
-def _consts(*mats, scalars) -> ctypes.Array:
-    vals = [float(x) for M in mats for x in np.asarray(M).ravel()]
-    vals += [float(x) for x in scalars]
-    return (ctypes.c_double * len(vals))(*vals)
-
-
 def ek0_pair_fwd(
     f: Callable, field: Optional[str], m0_p: torch.Tensor, ps: torch.Tensor,
     *, At, Qt, pinv0: float, pinv1: float, t0: float, dt: float,
@@ -394,38 +367,22 @@ def ek0_pair_fwd(
 ) -> torch.Tensor:
     """The pair's forward filter: `ek0_pair_fwd_plain` on CPU tensors, the
     CUDA kernel ``ek0_pair_fwd_kernel`` on CUDA tensors (vector field
-    ``field``, see ``CUDA_FIELDS``)."""
-    if _dispatch_device("ek0_pair_fwd", m0_p) == "cpu":
+    ``field``, see ``_launch.CUDA_FIELDS``)."""
+    if dispatch_device("ek0_pair_fwd", m0_p) == "cpu":
         return ek0_pair_fwd_plain(
             f, m0_p, ps, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1, t0=t0,
             dt=dt, n_steps=n_steps,
         )
-    if field not in CUDA_FIELDS:
-        raise NotImplementedError(
-            f"no CUDA vector field {field!r}; the kernels are built for "
-            f"{sorted(CUDA_FIELDS)}"
-        )
     nq, d, B = m0_p.shape
-    d_f, n_params = CUDA_FIELDS[field]
-    if nq - 1 not in CUDA_ORDERS or d != d_f or ps.shape != (n_params, B):
-        raise ValueError(
-            f"ek0_pair_fwd: field {field!r} takes m0_p (nq, {d_f}, B) with "
-            f"nq - 1 in {CUDA_ORDERS} and ps ({n_params}, B); got "
-            f"{tuple(m0_p.shape)} and {tuple(ps.shape)}"
-        )
-    _check_cuda_inputs("ek0_pair_fwd", {"m0_p": m0_p, "ps": ps}, m0_p.dtype)
-    fn = getattr(_build.load(), f"ek0_pair_fwd_{field}_{_suffix(m0_p.dtype)}")
+    check_field("ek0_pair_fwd", field, nq, d, B, ps)
+    check_cuda_inputs("ek0_pair_fwd", {"m0_p": m0_p, "ps": ps}, m0_p.dtype)
     T = int(n_steps)
     _, V = pair_layout(nq, d, 1)
     st = torch.empty((T + 1, V, B), dtype=m0_p.dtype, device=m0_p.device)
-    consts = _consts(At, Qt, scalars=(pinv0, pinv1, t0, dt))
-    with torch.cuda.device(m0_p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(m0_p.data_ptr(), ps.data_ptr(), st.data_ptr(), B, T, consts,
-                stream)
-    ek0_pair_fwd.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"ek0_pair_fwd_kernel launch failed: CUDA error {rc}")
+    launch(ek0_pair_fwd, m0_p.device,
+           f"ek0_pair_fwd_{field}_{suffix(m0_p.dtype)}",
+           m0_p.data_ptr(), ps.data_ptr(), st.data_ptr(), B, T,
+           host_consts(At, Qt, scalars=(pinv0, pinv1, t0, dt)))
     return st
 
 
@@ -438,7 +395,7 @@ def ek0_pair_bwd(
 ) -> torch.Tensor:
     """The pair's backward smoother: `ek0_pair_bwd_plain` on CPU tensors,
     the CUDA kernel ``ek0_pair_bwd_kernel`` on CUDA tensors."""
-    if _dispatch_device("ek0_pair_bwd", st) == "cpu":
+    if dispatch_device("ek0_pair_bwd", st) == "cpu":
         return ek0_pair_bwd_plain(
             st, nq=nq, d=d, At=At, Qt=Qt, QLt=QLt, pinv0=pinv0, jitter=jitter,
         )
@@ -450,17 +407,12 @@ def ek0_pair_bwd(
             f"and a (T+1, {V}, B) stream; got nq={nq}, d={d}, "
             f"{tuple(st.shape)}"
         )
-    _check_cuda_inputs("ek0_pair_bwd", {"st": st}, st.dtype)
-    fn = getattr(_build.load(), f"ek0_pair_bwd_{_suffix(st.dtype)}")
+    check_cuda_inputs("ek0_pair_bwd", {"st": st}, st.dtype)
     T, B = st.shape[0] - 1, st.shape[2]
     out = torch.empty((T + 1, d + 1, B), dtype=st.dtype, device=st.device)
-    consts = _consts(At, Qt, QLt, scalars=(pinv0, 1.0 + jitter))
-    with torch.cuda.device(st.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(st.data_ptr(), out.data_ptr(), B, T, consts, stream)
-    ek0_pair_bwd.launches += 1
-    if rc != 0:
-        raise RuntimeError(f"ek0_pair_bwd_kernel launch failed: CUDA error {rc}")
+    launch(ek0_pair_bwd, st.device, f"ek0_pair_bwd_{suffix(st.dtype)}",
+           st.data_ptr(), out.data_ptr(), B, T,
+           host_consts(At, Qt, QLt, scalars=(pinv0, 1.0 + jitter)))
     return out
 
 
@@ -499,27 +451,18 @@ def ek0_fused_solve(
     ``(n_params, B)``. Returns ``(us, stds)``, the smoothed posterior means
     and stds of the solution, shapes ``(T+1, d, B)`` and ``(T+1, B)``.
     """
-    if prior is not None:
-        raise NotImplementedError(
-            "IOUP / Matern priors are not ported yet "
-            "(ROADMAP.md queue 1, slice 1 item 8)"
-        )
-    if second_order:
-        raise NotImplementedError(
-            "second-order problems are not ported yet "
-            "(ROADMAP.md queue 1, slice 1 item 8)"
-        )
+    check_ported(prior=prior, second_order=second_order, mesh=mesh)
     if diffusion != "dynamic":
         raise NotImplementedError(
-            f"diffusion={diffusion!r} is not ported yet; the pair runs the "
-            "dynamic diffusion (ROADMAP.md queue 1, slice 1 item 8)"
+            f"diffusion={diffusion!r} on the filter + smoother pair is not "
+            "ported yet: the pair's static-diffusion variant waits in "
+            "ROADMAP.md queue 1 ('Widen the pair'); the filter alone "
+            "(smooth=False) runs the static models"
         )
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not supported: the port runs on one card")
     if not _bwd_plain:
         raise NotImplementedError(
             "the square-root backward (_bwd_plain=False) is not ported yet "
-            "(ROADMAP.md queue 2, item 2)"
+            "(ROADMAP.md queue 1, the square-root pair backward)"
         )
     nq = q + 1
     _, d, _ = m0.shape

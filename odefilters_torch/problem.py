@@ -73,11 +73,27 @@ def remake(prob: ODEProblem, **changes) -> ODEProblem:
     return dataclasses.replace(prob, **changes)
 
 
+def resolve_device(device) -> torch.device:
+    """The device a constructor builds on: the CUDA card unless the caller
+    names another. Without a usable CUDA device a CUDA request raises; it
+    never falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was requested (the default), but CUDA is "
+            "not available; pass device='cpu' to run the plain PyTorch "
+            "versions on the CPU"
+        )
+    return device
+
+
 def ode_problem(f, u0, tspan, p=None, *, field=None, mass_matrix=None,
-                device=None, dtype=None) -> ODEProblem:
+                device="cuda", dtype=None) -> ODEProblem:
     """Convenience constructor: coerces ``u0`` and ``p`` to tensors on
-    ``device`` in ``dtype`` (float64 unless given)."""
+    ``device`` (the CUDA card unless given; see `resolve_device`) in
+    ``dtype`` (float64 unless given)."""
     dtype = torch.float64 if dtype is None else dtype
+    device = resolve_device(device)
     u0 = torch.as_tensor(u0, dtype=dtype, device=device)
     if p is not None:
         p = torch.as_tensor(p, dtype=dtype, device=device)

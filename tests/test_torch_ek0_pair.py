@@ -54,7 +54,7 @@ def _np(x):
 
 
 def test_forward_step_matches_jax_over_chained_steps():
-    """`ek0_step_collapsed` == `_ek0_step_lists(collapsed=True,
+    """`ek0_step_core` == `_ek0_step_lists(collapsed=True,
     want_outputs=False)` on 64 random lanes, each package chaining its own
     outputs over 5 steps."""
     rng = np.random.default_rng(0)
@@ -66,7 +66,7 @@ def test_forward_step_matches_jax_over_chained_steps():
     C = _random_collapsed_cov(rng, n, 1e-3)
     mj, Cj = _lists(m, jnp.asarray), _lists(C, jnp.asarray)
     mt, Ct = _lists(m, torch.from_numpy), _lists(C, torch.from_numpy)
-    f_t = odt.models.fitzhugh_nagumo().f
+    f_t = odt.models.fitzhugh_nagumo(device="cpu").f
     for k in range(5):
         t_new = dt * (k + 1)
         mj, Cj, s2j = pk._ek0_step_lists(
@@ -74,11 +74,11 @@ def test_forward_step_matches_jax_over_chained_steps():
             Qt=Qt, pinv0=pinv0, pinv1=pinv1, d=D, nq=NQ, collapsed=True,
             want_outputs=False,
         )
-        mt, Ct, s2t = ep.ek0_step_collapsed(
+        mt, Ct, s2t = ep.ek0_step_core(
             mt, Ct, torch.from_numpy(p), torch.tensor(t_new, dtype=torch.float64),
             f=f_t, At=ep._lists(At), Qt=ep._lists(Qt), pinv0=pinv0,
             pinv1=pinv1, d=D, nq=NQ,
-        )
+        )[:3]
         np.testing.assert_allclose(_np(s2t), _np(s2j), rtol=1e-12)
         for i in range(NQ):
             for j in range(D):
@@ -164,7 +164,7 @@ def test_fused_solve_matches_pallas_interpret(pair_inputs, pallas_pair):
     _, _, ps, m0 = pair_inputs
     dt = (TSPAN[1] - TSPAN[0]) / N_STEPS
     us, stds = ep.ek0_fused_solve(
-        odt.models.fitzhugh_nagumo().f, torch.from_numpy(m0),
+        odt.models.fitzhugh_nagumo(device="cpu").f, torch.from_numpy(m0),
         torch.from_numpy(np.ascontiguousarray(ps.T)), TSPAN[0], dt, N_STEPS, Q,
     )
     assert us.shape == (N_STEPS + 1, D, B_PAIR)
@@ -177,7 +177,7 @@ def test_fused_solve_matches_pallas_interpret(pair_inputs, pallas_pair):
 def port_solution(pair_inputs):
     """The port's front door on the perturbed ensemble (CPU, f64)."""
     _, u0s, ps, _ = pair_inputs
-    prob = odt.models.fitzhugh_nagumo(tspan=TSPAN)
+    prob = odt.models.fitzhugh_nagumo(device="cpu", tspan=TSPAN)
     launches = (ep.ek0_pair_fwd.launches, ep.ek0_pair_bwd.launches)
     sol = odt.solve_ensemble(prob, odt.EK0(order=Q), torch.from_numpy(u0s),
                              torch.from_numpy(ps), n_save=N_STEPS)
@@ -206,7 +206,7 @@ def test_front_door_equals_fused_solve(pair_inputs, port_solution):
     from odefilters_torch.taylor import taylor_coefficients
 
     _, u0s, ps, _ = pair_inputs
-    f = odt.models.fitzhugh_nagumo().f
+    f = odt.models.fitzhugh_nagumo(device="cpu").f
     u0 = torch.from_numpy(np.ascontiguousarray(u0s.T))
     pt = torch.from_numpy(np.ascontiguousarray(ps.T))
     m0 = torch.stack(taylor_coefficients(f, u0, pt, TSPAN[0], Q))
@@ -218,7 +218,7 @@ def test_front_door_equals_fused_solve(pair_inputs, port_solution):
 
 def test_front_door_any_ensemble_size():
     rng = np.random.default_rng(2)
-    prob = odt.models.fitzhugh_nagumo(tspan=TSPAN)
+    prob = odt.models.fitzhugh_nagumo(device="cpu", tspan=TSPAN)
     B = 100
     u0s = prob.u0[None] + 0.1 * torch.from_numpy(rng.standard_normal((B, 2)))
     ps = prob.p[None].expand(B, 4)
@@ -240,7 +240,7 @@ def test_float32_plain_pair_close_to_float64():
     ps = np.broadcast_to(np.array([0.7, 0.8, 1 / 12.5, 0.5]), (B, 4)).copy()
     out = {}
     for dtype in (torch.float32, torch.float64):
-        prob = odt.models.fitzhugh_nagumo(dtype=dtype)
+        prob = odt.models.fitzhugh_nagumo(device="cpu", dtype=dtype)
         sol = odt.solve_ensemble(prob, odt.EK0(order=Q),
                                  torch.tensor(u0s, dtype=dtype),
                                  torch.tensor(ps, dtype=dtype), n_save=500)
@@ -253,7 +253,7 @@ def test_float32_plain_pair_close_to_float64():
 
 
 def _ensemble(B=8):
-    prob = odt.models.fitzhugh_nagumo(tspan=TSPAN)
+    prob = odt.models.fitzhugh_nagumo(device="cpu", tspan=TSPAN)
     return prob, prob.u0[None].expand(B, 2), prob.p[None].expand(B, 4)
 
 
@@ -263,7 +263,8 @@ def _ensemble(B=8):
         (odt.EK0(order=Q), dict(adaptive=True), "adaptive"),
         (odt.EK1(order=Q), {}, "EK1"),
         (odt.EK0(order=Q, diffusionmodel="fixed"), {}, "fixed"),
-        (odt.EK0(order=Q, smooth=False), {}, "without smoother"),
+        (odt.EK0(order=Q, smooth=False, diffusionmodel="dynamicMV"), {},
+         "dynamicMV"),
         (odt.EK0(order=Q), dict(mesh=object()), "mesh"),
         (odt.EK0(order=Q, prior="ioup"), {}, "IOUP"),
     ],
@@ -291,5 +292,5 @@ def test_fused_solve_unported_options_raise(kwargs):
     m0 = torch.zeros((NQ, D, 4), dtype=torch.float64)
     ps = torch.zeros((4, 4), dtype=torch.float64)
     with pytest.raises(NotImplementedError):
-        ep.ek0_fused_solve(odt.models.fitzhugh_nagumo().f, m0, ps, 0.0, 0.1,
-                           5, Q, **kwargs)
+        ep.ek0_fused_solve(odt.models.fitzhugh_nagumo(device="cpu").f, m0, ps,
+                           0.0, 0.1, 5, Q, **kwargs)

@@ -22,7 +22,8 @@ REPO = Path(__file__).resolve().parents[1]
 def test_port_imports_no_jax():
     code = (
         "import sys, odefilters_torch, odefilters_torch.convert, "
-        "odefilters_torch.ops.ek0_pair, odefilters_torch.ops._build; "
+        "odefilters_torch.ops.ek0_pair, odefilters_torch.ops.ek0_filter, "
+        "odefilters_torch.ops._build, odefilters_torch.ops._launch; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'odefilters' or m.startswith('odefilters.')]; "
         "assert not bad, bad"
@@ -49,9 +50,9 @@ def test_forward_wrapper_rejects_other_devices():
     At, Qt, _, p, m0, ps, _ = _pair_args("meta")
     before = ep.ek0_pair_fwd.launches
     with pytest.raises(ValueError, match="meta"):
-        ep.ek0_pair_fwd(odt.models.fitzhugh_nagumo().f, "fhn", m0, ps, At=At,
-                        Qt=Qt, pinv0=1 / p[0], pinv1=1 / p[1], t0=0.0, dt=0.1,
-                        n_steps=5)
+        ep.ek0_pair_fwd(odt.models.fitzhugh_nagumo(device="cpu").f, "fhn", m0,
+                        ps, At=At, Qt=Qt, pinv0=1 / p[0], pinv1=1 / p[1],
+                        t0=0.0, dt=0.1, n_steps=5)
     assert ep.ek0_pair_fwd.launches == before
 
 
@@ -67,7 +68,7 @@ def test_backward_wrapper_rejects_other_devices():
 def test_cpu_wrappers_run_the_plain_versions():
     At, Qt, QLt, p, _, _, _ = _pair_args("cpu")
     rng = np.random.default_rng(0)
-    prob = odt.models.fitzhugh_nagumo()
+    prob = odt.models.fitzhugh_nagumo(device="cpu")
     m0 = torch.from_numpy(rng.standard_normal((4, 2, 8)))
     ps = prob.p[:, None].expand(4, 8).contiguous()
     kw = dict(At=At, Qt=Qt, pinv0=float(1 / p[0]), pinv1=float(1 / p[1]),
@@ -98,7 +99,8 @@ def test_build_library_name_follows_sources():
 def test_problem_from_numpy_round_trips_fhn():
     ref = odf.models.fitzhugh_nagumo(u0=(-0.5, 1.2), tspan=(0.0, 5.0))
     prob = convert.problem_from_numpy("fitzhugh_nagumo", np.asarray(ref.u0),
-                                      np.asarray(ref.p), ref.tspan)
+                                      np.asarray(ref.p), ref.tspan,
+                                      device="cpu")
     np.testing.assert_array_equal(prob.u0.numpy(), np.asarray(ref.u0))
     np.testing.assert_array_equal(prob.p.numpy(), np.asarray(ref.p))
     assert prob.tspan == (0.0, 5.0) and prob.field == "fhn"
@@ -107,24 +109,51 @@ def test_problem_from_numpy_round_trips_fhn():
         np.asarray(ref.f(ref.u0, ref.p, 0.0)),
     )
     with pytest.raises(NotImplementedError, match="not ported"):
-        convert.problem_from_numpy("lorenz63", np.zeros(3), np.zeros(3), (0, 1))
+        convert.problem_from_numpy("lorenz63", np.zeros(3), np.zeros(3), (0, 1),
+                                   device="cpu")
 
 
 def test_ensemble_inputs_from_numpy():
     u0s = np.asfortranarray(np.arange(12.0).reshape(6, 2))
     ps = np.ones((6, 4))
-    u, p = convert.ensemble_inputs_from_numpy(u0s, ps, dtype=torch.float32)
+    u, p = convert.ensemble_inputs_from_numpy(u0s, ps, device="cpu",
+                                              dtype=torch.float32)
     assert u.dtype == p.dtype == torch.float32
     assert u.is_contiguous() and p.is_contiguous()
     np.testing.assert_array_equal(u.numpy(), u0s.astype(np.float32))
 
 
+@pytest.mark.parametrize(
+    "make",
+    [lambda: odt.models.fitzhugh_nagumo(),
+     lambda: odt.ode_problem(odt.models.library.fitzhugh_nagumo_f, [0.0, 1.0],
+                             (0, 1)),
+     lambda: convert.problem_from_numpy("fitzhugh_nagumo", np.zeros(2),
+                                        np.ones(4), (0, 1)),
+     lambda: convert.ensemble_inputs_from_numpy(np.zeros((3, 2)),
+                                                np.ones((3, 4)))],
+    ids=["fitzhugh_nagumo", "ode_problem", "problem_from_numpy",
+         "ensemble_inputs_from_numpy"],
+)
+def test_constructors_default_to_cuda_and_never_fall_back(make):
+    """With no device named, the constructors build on the CUDA card; on a
+    machine without CUDA they raise instead of returning CPU tensors."""
+    if torch.cuda.is_available():
+        out = make()
+        tensors = out if isinstance(out, tuple) else (out.u0, out.p)
+        assert all(t.device.type == "cuda" for t in tensors)
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
 def test_problem_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="mass"):
-        odt.ode_problem(odt.models.fitzhugh_nagumo().f, [0.0, 1.0], (0, 1),
-                        mass_matrix=torch.eye(2))
+        odt.ode_problem(odt.models.fitzhugh_nagumo(device="cpu").f, [0.0, 1.0],
+                        (0, 1), mass_matrix=torch.eye(2), device="cpu")
     with pytest.raises(ValueError, match="vector-valued"):
-        odt.ode_problem(odt.models.fitzhugh_nagumo().f, 1.0, (0, 1))
+        odt.ode_problem(odt.models.fitzhugh_nagumo(device="cpu").f, 1.0, (0, 1),
+                        device="cpu")
 
 
 def test_algorithm_validation_matches_jax():

@@ -41,7 +41,7 @@ def _fhn_inputs(n, seed=0):
 def test_fhn_field_matches_jax():
     prob, u, p = _fhn_inputs(16)
     ref = np.asarray(prob.f(jnp.asarray(u), jnp.asarray(p), 0.0))
-    ours = odt.models.fitzhugh_nagumo().f(
+    ours = odt.models.fitzhugh_nagumo(device="cpu").f(
         torch.from_numpy(u), torch.from_numpy(p), 0.0
     ).numpy()
     assert ours.shape == (2, 16)
@@ -50,7 +50,7 @@ def test_fhn_field_matches_jax():
 
 def test_fhn_problem_defaults_match_jax():
     ref = odf.models.fitzhugh_nagumo()
-    ours = odt.models.fitzhugh_nagumo()
+    ours = odt.models.fitzhugh_nagumo(device="cpu")
     np.testing.assert_array_equal(ours.u0.numpy(), np.asarray(ref.u0))
     np.testing.assert_array_equal(ours.p.numpy(), np.asarray(ref.p))
     assert ours.tspan == tuple(float(t) for t in ref.tspan)
@@ -64,13 +64,13 @@ def test_taylor_coefficients_match_vmapped_jax():
     )(jnp.asarray(u.T), jnp.asarray(p.T))
     ref = np.asarray(ref).transpose(1, 2, 0)          # (q+1, d, B)
     ours = torch.stack(taylor_coefficients(
-        odt.models.fitzhugh_nagumo().f, torch.from_numpy(u),
+        odt.models.fitzhugh_nagumo(device="cpu").f, torch.from_numpy(u),
         torch.from_numpy(p), 0.0, 3,
     )).numpy()
     np.testing.assert_allclose(ours, ref, rtol=1e-13)
 
 
 def test_taylor_high_order_raises():
-    prob = odt.models.fitzhugh_nagumo()
+    prob = odt.models.fitzhugh_nagumo(device="cpu")
     with pytest.raises(NotImplementedError, match="jet"):
         taylor_coefficients(prob.f, prob.u0, prob.p, 0.0, 6)
