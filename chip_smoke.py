@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's two
-paths through the front door ``odefilters_torch.solve_ensemble`` at the
-headline width (FitzHugh-Nagumo, EK0(3), IBM prior, 8192 members, 500
-uniform steps over (0, 20)) through them: the filter + RTS smoother pair,
-and the filter with its per-member log-likelihood and that likelihood's
-gradient by ``torch.autograd``. It checks float32 against float64 on the
-worst lanes, float64 against an independent high-accuracy integrator, the
-float64 gradient against a finite difference, and times each path, each
-kernel and the plain versions with CUDA events.
+each against its plain PyTorch version on the card, drives the port's
+paths through the front doors ``odefilters_torch.solve_ensemble`` and
+``odefilters_torch.sample_ensemble`` at the headline width
+(FitzHugh-Nagumo, EK0(3), IBM prior, 8192 members, 500 uniform steps over
+(0, 20)) through them: the filter + RTS smoother pair (dynamic and static
+diffusions), the filter with its per-member log-likelihood and that
+likelihood's gradient by ``torch.autograd``, and the joint-posterior
+sampler. It checks float32 against float64 on the worst lanes, float64
+against an independent high-accuracy integrator, the float64 gradient
+against a finite difference, the sampler's calibration, and times each
+path, each kernel and the plain versions with CUDA events.
 
 Phases:
   1. environment: a CUDA card, its name and power limit, TF32 off;
@@ -40,16 +42,36 @@ Phases:
  10. the filter at 8192 x 500 in float32: the primal kernel (each
      diffusion) and the gradient's forward held against their plain
      versions at this shape, then the timings of each kernel, the forward
-     solve, forward + backward, and each plain version once.
+     solve, forward + backward, and each plain version once;
+ 11. sampler kernels vs plain in float64 at the shape of phase 3 with
+     S = 3 numpy normals: the filter-states kernel (its means directly,
+     its stream through the plain sampler) and the sampler kernel on the
+     plain stream;
+ 12. the same in float32;
+ 13. the sampler's path through ``sample_ensemble`` at 8192 x 500, S = 1
+     and 8, float32 and float64, with the kernels' launch counts; the
+     kernels against their plain versions at this shape (float32); zero
+     normals against the pair's smoothed means of phase 5; the
+     calibration of one member's posterior tiled across the 8192 lanes
+     (float64); float32 against float64 on the same normals; the timings
+     of each kernel, of ``sample_ensemble`` and of each plain version once;
+ 14. the static pair (fixed, fixedMAP, fixedMV): the forward kernel's
+     static mode against its plain version at 1000 x 60 (float64,
+     float32) and 8192 x 500 (float32); ``solve_ensemble`` at 8192 x 500
+     with ``diffusions``, float32 against float64 on the worst lane; the
+     static forward's timing.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the five kernels with their launches on their
+the line before it lists the seven kernels with their launches on their
 path, errors, times, plain times and bounds (``bound_ms``: the larger of
 the bytes each must move over 3.35 TB/s and the operations its plain
 version does, counted per step under a dispatch mode, over 67 TFLOP/s of
 float32; H100 SXM data sheet). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
-gradient's forward (phase 10), in float64 for the adjoint (phase 9).
+gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
+the filter-states kernel's stream through the sampler kernel), in float64
+for the adjoint (phase 9). The sampler's times, plain time and bound are
+those at S = 8.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -76,6 +98,17 @@ scale, at the same tolerances. Float32 gradients of this likelihood
 are ill-conditioned in the reference itself (benchmarks/grad_horizon.json:
 3.27 relative error against float64 at 20 steps, 8.4e4 at 500), so they
 are held finite and their largest relative difference is printed.
+
+The sampler's kernels and the pair's file are built without FMA
+contraction too. The filter-states kernel's means are held directly, its
+stream through the sampler; the sampler's and the static pair's outputs
+(samples; us, stds and sigma^2) directly, at the same tolerances. Zero
+normals turn the sampler into the RTS mean recursion: its path is held
+against the pair's smoothed means (``ZERO_NORMALS_LIMIT``). The
+calibration holds the empirical mean of 8192 samples of one posterior
+within 5 standard errors of the smoothed mean at every (t, dim), and the
+empirical std within 5% of the smoothed std where that exceeds 1e-8 (the
+standard error of a std estimated from 8192 samples is ~0.8%).
 
 Every phase that fails is reported; the script then exits nonzero and
 prints no result. Without a CUDA card it exits nonzero at once. It never
@@ -104,6 +137,8 @@ SOURCE = {
     "ek0_filter": "odefilters_torch/ops/csrc/ek0_filter.cu",
     "ek0_filter_grad_fwd": "odefilters_torch/ops/csrc/ek0_filter.cu",
     "ek0_filter_grad_bwd": "odefilters_torch/ops/csrc/ek0_filter.cu",
+    "ek0_filter_states": "odefilters_torch/ops/csrc/ek0_sample.cu",
+    "ek0_sampler": "odefilters_torch/ops/csrc/ek0_sample.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -111,8 +146,11 @@ REPLACES = {
     "ek0_filter": "odefilters/ops/pallas_kernels.py:360",
     "ek0_filter_grad_fwd": "odefilters/ops/pallas_kernels.py:534",
     "ek0_filter_grad_bwd": "odefilters/ops/pallas_kernels.py:586",
+    "ek0_filter_states": "odefilters/ops/pallas_kernels.py:3679",
+    "ek0_sampler": "odefilters/ops/pallas_kernels.py:4657",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
+S_CHECK, S_MAIN = 3, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
@@ -174,13 +212,13 @@ class Pair:
                            pinv0=self.pinv0,
                            jitter=1e-6 if dtype == torch.float32 else 1e-12)
 
-    def fwd_kernel(self):
+    def fwd_kernel(self, static=None):
         return self.ep.ek0_pair_fwd(self.prob.f, self.prob.field, self.m0_p,
-                                    self.ps, **self.fwd_kw)
+                                    self.ps, static_diff=static, **self.fwd_kw)
 
-    def fwd_plain(self):
+    def fwd_plain(self, static=None):
         return self.ep.ek0_pair_fwd_plain(self.prob.f, self.m0_p, self.ps,
-                                          **self.fwd_kw)
+                                          static_diff=static, **self.fwd_kw)
 
     def bwd_kernel(self, st):
         return self.ep.ek0_pair_bwd(st, **self.bwd_kw)
@@ -188,9 +226,58 @@ class Pair:
     def bwd_plain(self, st):
         return self.ep.ek0_pair_bwd_plain(st, **self.bwd_kw)
 
-    def solution(self, out):
-        """(us, stds) from the backward's (us | raw variance) rows."""
-        return out[:, :2], self.pinv0 * torch.sqrt(torch.clamp(out[:, 2], min=0.0))
+    def solution(self, out, sig=None):
+        """(us, stds) from the backward's (us | raw variance) rows, the stds
+        rescaled by sqrt(sig) under a static diffusion (sig (d, B): fixedMV,
+        stds (T+1, d, B))."""
+        stds = self.pinv0 * torch.sqrt(torch.clamp(out[:, 2], min=0.0))
+        if sig is not None:
+            stds = (stds[:, None] if sig.ndim == 2 else stds) * torch.sqrt(sig)
+        return out[:, :2], stds
+
+
+class Sampler:
+    """The sampler's arguments for one ensemble (those of `Pair`), S
+    standard normals, and both versions of its two kernels. The normals are
+    drawn with numpy from a seed, or, at the headline size, with
+    ``torch.randn`` from a seeded generator on the card."""
+
+    def __init__(self, B, T, dtype, tspan, S=None, numpy_normals=True):
+        from odefilters_torch import convert
+        from odefilters_torch.ops import ek0_sample as es
+
+        self.es = es
+        pair = Pair(B, T, dtype, tspan)
+        self.f, self.field = pair.prob.f, pair.prob.field
+        self.m0_p, self.ps = pair.m0_p, pair.ps
+        kw = pair.fwd_kw
+        At, _, QLt, _ = pair.ep.pair_constants(Q, kw["dt"])
+        self.kw = dict(At=At, QLt=QLt, pinv0=kw["pinv0"], pinv1=kw["pinv1"],
+                       t0=kw["t0"], dt=kw["dt"], n_steps=T)
+        self.skw = dict(At=At, QLt=QLt, pinv0=kw["pinv0"], nq=Q + 1, d=2)
+        self.z = None
+        shape = (T + 1, S, Q + 1, 2, B)
+        if S is not None and numpy_normals:
+            z = np.random.default_rng(2).standard_normal(shape)
+            self.z = convert.normals_from_numpy(z, device=DEVICE, dtype=dtype)
+        elif S is not None:
+            g = torch.Generator(device=DEVICE).manual_seed(2)
+            self.z = torch.randn(shape, generator=g, dtype=dtype, device=DEVICE)
+
+    def states_kernel(self):
+        return self.es.ek0_filter_states(self.f, self.field, self.m0_p,
+                                         self.ps, **self.kw)
+
+    def states_plain(self):
+        return self.es.ek0_filter_states_plain(self.f, self.m0_p, self.ps,
+                                               **self.kw)
+
+    def sampler_kernel(self, st, z=None):
+        return self.es.ek0_sampler(st, self.z if z is None else z, **self.skw)
+
+    def sampler_plain(self, st, z=None):
+        return self.es.ek0_sampler_plain(st, self.z if z is None else z,
+                                         **self.skw)
 
 
 class Filter:
@@ -245,11 +332,14 @@ def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
+    from odefilters_torch.ops import ek0_sample as es
 
     return {"ek0_pair_fwd": ep.ek0_pair_fwd, "ek0_pair_bwd": ep.ek0_pair_bwd,
             "ek0_filter": ef.ek0_filter,
             "ek0_filter_grad_fwd": ef.ek0_filter_grad_fwd,
-            "ek0_filter_grad_bwd": ef.ek0_filter_grad_bwd}
+            "ek0_filter_grad_bwd": ef.ek0_filter_grad_bwd,
+            "ek0_filter_states": es.ek0_filter_states,
+            "ek0_sampler": es.ek0_sampler}
 
 
 def reset_counts():
@@ -357,18 +447,28 @@ def bound(nbytes, ops_per_step, B, T):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_bounds(B, T, dtype):
+def kernel_bounds(B, T, dtype, S):
     """{name: (bound_ms, bound_by, operations per step and member)} of the
-    five kernels at (B, T): each reads its inputs once and writes its
-    outputs once."""
+    seven kernels at (B, T), the sampler at S samples: each reads its
+    inputs once and writes its outputs once."""
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
+    from odefilters_torch.ops import ek0_sample as es
 
     nq, d, n_p, V = Q + 1, 2, 4, 15
+    V_states = es.states_width(nq, d)
     one = Filter(1, 2, dtype, (0.0, 2 * (TSPAN_MAIN[1] - TSPAN_MAIN[0]) / T_MAIN))
     f, m0, ps = one.f, one.m0_p, one.ps
     kw = {k: v for k, v in one.kw.items() if k != "n_steps"}
     QLt = ep.pair_constants(Q, kw["dt"])[2]
+    skw = dict(At=kw["At"], QLt=QLt, pinv0=kw["pinv0"], pinv1=kw["pinv1"],
+               t0=kw["t0"], dt=kw["dt"])
+
+    def sampler(T1):
+        st = es.ek0_filter_states_plain(f, m0, ps, n_steps=T1, **skw)
+        z = torch.ones((T1 + 1, S, nq, d, 1), dtype=dtype, device=DEVICE)
+        return lambda: es.ek0_sampler_plain(st, z, At=kw["At"], QLt=QLt,
+                                            pinv0=kw["pinv0"], nq=nq, d=d)
 
     def pair_bwd(T1):
         st = ep.ek0_pair_fwd_plain(f, m0, ps, n_steps=T1, **kw)
@@ -393,15 +493,22 @@ def kernel_bounds(B, T, dtype):
             lambda T1: lambda: ef.ek0_filter_fwd_stream_plain(
                 f, m0, ps, n_steps=T1, **kw)),
         "ek0_filter_grad_bwd": count_ops(grad_bwd),
+        "ek0_filter_states": count_ops(
+            lambda T1: lambda: es.ek0_filter_states_plain(
+                f, m0, ps, n_steps=T1, **skw)),
+        "ek0_sampler": count_ops(sampler),
     }
     # elements moved: initial state and parameters, stream, per-step rows
     init, stream, rows = (nq * d + n_p) * B, (T + 1) * V * B, (T + 1) * B
+    states = (T + 1) * V_states * B
     elems = {
         "ek0_pair_fwd": init + stream,
         "ek0_pair_bwd": stream + rows * (d + 1),
         "ek0_filter": init + rows * (d + 1) + B,
         "ek0_filter_grad_fwd": init + rows * (d + 1) + B + stream,
         "ek0_filter_grad_bwd": stream + n_p * B + rows * (d + 1) + B + init,
+        "ek0_filter_states": init + states,
+        "ek0_sampler": states + rows * S * nq * d + rows * S * d,
     }
     item = torch.tensor([], dtype=dtype).element_size()
     return {name: bound(elems[name] * item, ops[name], B, T) + (ops[name],)
@@ -578,6 +685,231 @@ def filter_path(odt, dtype):
           f"{label}: the gradient's forward reproduces the forward solve's "
           "us and lls exactly")
     return counts, prob, u0s, ps, sol, (g_u, g_p)
+
+
+def sampler_vs_plain(label, smp, rtol, atol):
+    """Phases 11-12: the filter-states kernel against the plain filter (its
+    means directly, its stream through the plain sampler) and the sampler
+    kernel on the plain stream against the plain sampler."""
+    st_p, st_k = smp.states_plain(), smp.states_kernel()
+    torch.cuda.synchronize()
+    name = f"{label} ek0_filter_states_kernel"
+    close(f"{name}, means", st_k[:, :(Q + 1) * 2], st_p[:, :(Q + 1) * 2], rtol,
+          atol)
+    say(f"   {name}: stream, largest scaled |kernel - plain| "
+        f"{scaled_stream_diff(st_k, st_p):.3e} (reported, not held)")
+    us_p = smp.sampler_plain(st_p)
+    close(f"{name}, samples through the plain sampler", smp.sampler_plain(st_k),
+          us_p, rtol, atol)
+    us_k = smp.sampler_kernel(st_p)
+    torch.cuda.synchronize()
+    close(f"{label} ek0_sampler_kernel on the plain stream, samples", us_k, us_p,
+          rtol, atol)
+
+
+def static_vs_plain(label, pair, static, rtol, atol, plain_bwd=True):
+    """Phase 14: the pair's forward kernel in a static mode against its
+    plain version: sigma^2 directly, the stream in the solution space
+    through the backward (plain, or the kernel, already held against it,
+    where ``plain_bwd`` is false), stds with the exit rescale. Returns the
+    largest |kernel - plain| over us, stds and sigma^2."""
+    (st_p, sig_p), (st_k, sig_k) = pair.fwd_plain(static), pair.fwd_kernel(static)
+    torch.cuda.synchronize()
+    bwd = pair.bwd_plain if plain_bwd else pair.bwd_kernel
+    us_p, sd_p = pair.solution(bwd(st_p), sig_p)
+    us_k, sd_k = pair.solution(bwd(st_k), sig_k)
+    name = f"{label} ek0_pair_fwd_kernel ({static})"
+    return max(close(f"{name}, sigma^2", sig_k, sig_p, rtol, atol),
+               close(f"{name}, us", us_k, us_p, rtol, atol),
+               close(f"{name}, stds", sd_k, sd_p, rtol, atol))
+
+
+# Zero normals against the pair's smoothed means at 8192 x 500: the two
+# forwards (square-root, collapsed plain covariance) round differently, and
+# 500 steps amplify that through the innovation (CPU plain path, 256
+# members: 2.2e-9 in float64; 60 steps: 4.2e-15). Limits: 10x the CPU
+# figure in float64; in float32 the headline's us criterion.
+ZERO_NORMALS_LIMIT = {torch.float64: 2.2e-8, torch.float32: 1e-4}
+
+
+def sampler_path(odt, card, sol32, sol64):
+    """Phase 13: ``sample_ensemble`` at 8192 x 500 with S = 1 and S_MAIN, in
+    float32 and float64, with its launches; the kernels against their plain
+    versions at this shape (float32); zero normals against the pair's
+    smoothed means ``sol32``/``sol64`` of phase 5; the calibration of one
+    member's posterior tiled across the lanes (float64); float32 against
+    float64 on the same normals; then the timings. Returns the kernels'
+    (ms, plain ms, max |kernel - plain|, launches in the main path's run)."""
+    from odefilters_torch.ops import ek0_sample as es
+
+    alg = odt.EK0(order=Q)
+    names = ("ek0_filter_states", "ek0_sampler")
+    launches = {}
+    for dtype in (torch.float32, torch.float64):
+        prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_MAIN)
+        label = str(dtype).replace("torch.", "")
+        for S in (1, S_MAIN):
+            g = torch.Generator(device=DEVICE).manual_seed(S)
+            reset_counts()
+            us = odt.sample_ensemble(prob, alg, u0s, ps, generator=g,
+                                     n_steps=T_MAIN, n_samples=S)
+            torch.cuda.synchronize()
+            counts = read_counts(*names)
+            if dtype == torch.float32 and S == S_MAIN:
+                launches = counts
+            want = ((T_MAIN + 1, 2, B_MAIN) if S == 1
+                    else (T_MAIN + 1, S, 2, B_MAIN))
+            check(all(n == 1 for n in counts.values()),
+                  f"{label} S={S}: launches in the run {counts}, one each")
+            check(tuple(us.shape) == want and bool(torch.isfinite(us).all()),
+                  f"{label} S={S}: samples {tuple(us.shape)}, finite")
+
+    say("   the kernels vs plain at this shape, float32, S = "
+        f"{S_MAIN} normals from torch.randn")
+    smp = Sampler(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN, S_MAIN,
+                  numpy_normals=False)
+    st_p, states_plain_ms = once(smp.states_plain)
+    us_pp, sampler_plain_ms = once(lambda: smp.sampler_plain(st_p))
+    st_k = smp.states_kernel()
+    us_kp, us_kk = smp.sampler_kernel(st_p), smp.sampler_kernel(st_k)
+    torch.cuda.synchronize()
+    head = f"f32 at {B_MAIN} x {T_MAIN}"
+    close(f"{head} ek0_filter_states_kernel, means", st_k[:, :(Q + 1) * 2],
+          st_p[:, :(Q + 1) * 2], 1e-4, 1e-6)
+    err = {
+        "ek0_filter_states": close(
+            f"{head} ek0_filter_states_kernel, samples through the sampler "
+            "kernel", us_kk, us_kp, 1e-4, 1e-6),
+        "ek0_sampler": close(
+            f"{head} ek0_sampler_kernel on the plain stream, samples", us_kp,
+            us_pp, 1e-4, 1e-6),
+    }
+    del us_pp, us_kk
+
+    for dtype, sol in ((torch.float64, sol64), (torch.float32, sol32)):
+        s0 = smp if dtype == torch.float32 else Sampler(
+            B_MAIN, T_MAIN, dtype, TSPAN_MAIN)
+        zeros = torch.zeros((T_MAIN + 1, 1, Q + 1, 2, B_MAIN), dtype=dtype,
+                            device=DEVICE)
+        us0 = s0.sampler_kernel(s0.states_kernel(), zeros)[:, 0]
+        torch.cuda.synchronize()
+        e0 = float((us0.double() - sol.us.double()).abs().max())
+        lim = ZERO_NORMALS_LIMIT[dtype]
+        check(e0 <= lim, f"{str(dtype)[6:]} zero normals vs the pair's smoothed "
+              f"means: max |dus| {e0:.3e} <= {lim:g}")
+
+    # one member's posterior, tiled across the lanes: 8192 samples
+    prob64, _, _ = inputs(1, torch.float64, TSPAN_MAIN)
+    u0t = prob64.u0[None].expand(B_MAIN, 2).contiguous()
+    pt = prob64.p[None].expand(B_MAIN, 4).contiguous()
+    us = odt.sample_ensemble(prob64, alg, u0t, pt, n_steps=T_MAIN,
+                             generator=torch.Generator(device=DEVICE).manual_seed(11))
+    ref = odt.solve_ensemble(prob64, alg, u0t[:1], pt[:1], n_save=T_MAIN)
+    mean_s, std_s = ref.us[:, :, 0], ref.stds[:, 0]
+    se = std_s[:, None] / B_MAIN ** 0.5
+    dmean = (us.mean(dim=2) - mean_s).abs()
+    n_out = int((dmean >= 5.0 * se + 1e-12).sum())
+    check(n_out == 0, f"calibration (f64, {B_MAIN} samples of one member): "
+          f"empirical mean within 5 standard errors of the smoothed mean at "
+          f"every (t, dim); {n_out} outside, largest |dmean| / se "
+          f"{float((dmean / se.clamp(min=1e-300))[1:].max()):.3f}")
+    mask = std_s > 1e-8
+    ratio = us.std(dim=2, correction=0)[mask] / std_s[mask, None]
+    worst = float((ratio - 1.0).abs().max())
+    check(worst <= 0.05, f"calibration: |std ratio - 1| {worst:.4f} <= 0.05 "
+          f"where the smoothed std > 1e-8 ({int(mask.sum())} times)")
+
+    # float32 against float64 on the same normals
+    z64 = torch.randn((T_MAIN + 1, S_MAIN, Q + 1, 2, B_MAIN), dtype=torch.float64,
+                      device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(13))
+    paths = {}
+    for dtype in (torch.float64, torch.float32):
+        s1 = Sampler(B_MAIN, T_MAIN, dtype, TSPAN_MAIN)
+        paths[dtype] = s1.sampler_kernel(s1.states_kernel(), z64.to(dtype))
+    d = (paths[torch.float32].double() - paths[torch.float64]).abs()
+    del paths, z64
+    worst = float(d.max())
+    lane_max = d.amax(dim=(0, 1, 2))
+    failing = torch.nonzero(lane_max > 1e-4).flatten().tolist()
+    check(worst <= 1e-4, f"sampler f32 vs f64, same normals, S={S_MAIN}: max "
+          f"|dx| {worst:.3e} <= 1e-4 on every entry; {len(failing)} lanes "
+          f"outside, worst member {int(lane_max.argmax())}")
+    for b in failing[:10]:
+        t, s, j = np.unravel_index(int(d[..., b].argmax()), d.shape[:3])
+        say(f"   lane {b}: |dx| {float(d[t, s, j, b]):.3e} at t index {t}, "
+            f"sample {s}, dim {j}; smoothed std there "
+            f"{float(sol64.stds[t, b]):.3e}")
+    del d
+
+    say(f"   timing, float32, B={B_MAIN}, T={T_MAIN}: CUDA events")
+    say(f"   card: {card}")
+    prob32, u0s32, ps32 = inputs(B_MAIN, torch.float32, TSPAN_MAIN)
+    z1 = smp.z[:, :1].contiguous()
+    ms = {"ek0_filter_states": time_ms(smp.states_kernel, warmup=3, iters=20),
+          "ek0_sampler": time_ms(lambda: smp.sampler_kernel(st_p), warmup=3,
+                                 iters=20)}
+    ms_s1 = time_ms(lambda: smp.sampler_kernel(st_p, z1), warmup=3, iters=20)
+    say(f"   ek0_filter_states kernel {ms['ek0_filter_states']:.4f} ms, plain "
+        f"{states_plain_ms:.1f} ms")
+    say(f"   ek0_sampler kernel S=1 {ms_s1:.4f} ms, S={S_MAIN} "
+        f"{ms['ek0_sampler']:.4f} ms (ratio {ms['ek0_sampler'] / ms_s1:.2f}); "
+        f"plain S={S_MAIN} {sampler_plain_ms:.1f} ms")
+    for S in (1, S_MAIN):
+        g = torch.Generator(device=DEVICE).manual_seed(3)
+        s_ms = time_ms(lambda: odt.sample_ensemble(
+            prob32, alg, u0s32, ps32, generator=g, n_steps=T_MAIN,
+            n_samples=S), warmup=3, iters=20)
+        say(f"   sample_ensemble S={S} (Taylor init + normals + both kernels): "
+            f"{s_ms:.3f} ms = {B_MAIN * S / s_ms * 1e3:.0f} sample paths/s")
+    plain_ms = {"ek0_filter_states": states_plain_ms,
+                "ek0_sampler": sampler_plain_ms}
+    return ms, plain_ms, err, launches
+
+
+def static_path(odt, card):
+    """Phase 14: the pair's forward kernel in each static mode against its
+    plain version (1000 x 60 in float64 and float32, 8192 x 500 in float32),
+    the front door at 8192 x 500 with ``diffusions``, float32 against float64
+    on the worst lane, and the static forward's timing."""
+    for static in STATIC:
+        for dtype, rtol, atol in ((torch.float64, 1e-10, 1e-12),
+                                  (torch.float32, 1e-4, 1e-6)):
+            static_vs_plain(f"{str(dtype)[6:]} {B_CHECK} x {T_CHECK}",
+                            Pair(B_CHECK, T_CHECK, dtype, TSPAN_CHECK), static,
+                            rtol, atol)
+    pair32 = Pair(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN)
+    for static in STATIC:
+        static_vs_plain(f"f32 {B_MAIN} x {T_MAIN} (backward kernel)", pair32,
+                        static, 1e-4, 1e-6, plain_bwd=False)
+    for static in STATIC:
+        alg = odt.EK0(order=Q, diffusionmodel=static)
+        sols = {}
+        for dtype in (torch.float32, torch.float64):
+            prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_MAIN)
+            reset_counts()
+            sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN)
+            torch.cuda.synchronize()
+            counts = read_counts("ek0_pair_fwd", "ek0_pair_bwd")
+            shape = (2, B_MAIN) if static == "fixedMV" else (B_MAIN,)
+            label = f"{static} {str(dtype)[6:]}"
+            check(all(n == 1 for n in counts.values())
+                  and tuple(sol.diffusions.shape) == shape
+                  and tuple(sol.stds.shape) == (T_MAIN + 1,) + shape
+                  and bool(torch.isfinite(sol.diffusions).all()),
+                  f"{label}: launches {counts}, diffusions "
+                  f"{tuple(sol.diffusions.shape)}, stds {tuple(sol.stds.shape)}")
+            sols[dtype] = sol
+        s32, s64 = sols[torch.float32], sols[torch.float64]
+        worst_lane(f"{static} f32 vs f64", s32.us, s32.stds, s64.us, s64.stds)
+        rel = (s32.diffusions.double() - s64.diffusions).abs() / s64.diffusions
+        say(f"   {static}: sigma^2 f32 vs f64, largest relative difference "
+            f"{float(rel.max()):.3e} (reported)")
+    say(f"   timing of the pair's forward kernel, float32, B={B_MAIN}, "
+        f"T={T_MAIN}: CUDA events; card: {card}")
+    for static in (None,) + STATIC:
+        f_ms = time_ms(lambda: pair32.fwd_kernel(static), warmup=3, iters=20)
+        say(f"   ek0_pair_fwd ({static or 'dynamic'}) {f_ms:.4f} ms")
 
 
 def main() -> int:
@@ -816,21 +1148,47 @@ def main() -> int:
     for name in f_ms:
         say(f"   {name} kernel {f_ms[name]:.4f} ms, plain {f_plain_ms[name]:.1f} ms")
 
-    say("== bounds at the timed shape (float32, B={}, T={})".format(B_MAIN, T_MAIN))
-    bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32)
+    say(f"== 11. sampler kernels vs plain, float64, B={B_CHECK}, T={T_CHECK}, "
+        f"S={S_CHECK}")
+    sampler_vs_plain("f64", Sampler(B_CHECK, T_CHECK, torch.float64,
+                                    TSPAN_CHECK, S_CHECK),
+                     rtol=1e-10, atol=1e-12)
+
+    say(f"== 12. sampler kernels vs plain, float32, B={B_CHECK}, T={T_CHECK}, "
+        f"S={S_CHECK}")
+    sampler_vs_plain("f32", Sampler(B_CHECK, T_CHECK, torch.float32,
+                                    TSPAN_CHECK, S_CHECK),
+                     rtol=1e-4, atol=1e-6)
+
+    say(f"== 13. the sampler's path: sample_ensemble, B={B_MAIN}, T={T_MAIN}, "
+        f"S = 1 and {S_MAIN}")
+    s_ms, s_plain_ms, s_err, s_launches = sampler_path(odt, card, sol32, sol64)
+    launches.update(s_launches)
+
+    say(f"== 14. the static pair: solve_ensemble(EK0(diffusionmodel=...)), "
+        f"B={B_MAIN}, T={T_MAIN}")
+    static_path(odt, card)
+
+    say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
+        B_MAIN, T_MAIN, S_MAIN))
+    bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32, S_MAIN)
     for name, (b_ms, b_by, ops) in bounds.items():
         say(f"   {name}: {ops} operations per step and member; bound "
             f"{b_ms:.4f} ms by {b_by}")
+    b_ms, b_by, ops = kernel_bounds(B_MAIN, T_MAIN, torch.float32, 1)["ek0_sampler"]
+    say(f"   ek0_sampler at S=1: {ops} operations per step and member; bound "
+        f"{b_ms:.4f} ms by {b_by}")
 
     if failures:
         say(f"chip_smoke: {len(failures)} check(s) failed:")
         for f in failures:
             say(f"  - {f}")
         return 1
-    ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms}
+    ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
-                **f_plain_ms}
-    errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter}
+                **f_plain_ms, **s_plain_ms}
+    errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
+            **s_err}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -5,18 +5,25 @@ path in hand-written CUDA kernels for the NVIDIA H100. The JAX package
 ``odefilters`` beside it is the reference; module paths mirror it.
 
 Ported so far, on a uniform grid with the IBM prior: the fused EK0 filter +
-RTS smoother ensemble solve (dynamic diffusion), and the fused EK0 filter
-with its per-member log-likelihood (dynamic or static diffusion) and that
-likelihood's gradient by ``torch.autograd``::
+RTS smoother ensemble solve (dynamic or static diffusion), the fused EK0
+filter with its per-member log-likelihood (dynamic or static diffusion)
+and that likelihood's gradient by ``torch.autograd``, and joint
+smoothing-posterior sample paths (dynamic diffusion)::
 
     import torch
     import odefilters_torch as odt
     prob = odt.models.fitzhugh_nagumo(dtype=torch.float32)  # on the card
     sol = odt.solve_ensemble(prob, odt.EK0(order=3), u0s, ps, n_save=500)
     sol.us, sol.stds   # (501, 2, B), (501, B)
+    mv = odt.solve_ensemble(prob, odt.EK0(order=3, diffusionmodel="fixedMV"),
+                            u0s, ps, n_save=500)
+    mv.diffusions      # (2, B) calibrated sigma^2; mv.stds is (501, 2, B)
     fil = odt.solve_ensemble(prob, odt.EK0(order=3, smooth=False), u0s, ps,
                              n_save=500)
     fil.lls            # (B,), differentiable in u0s and ps
+    g = torch.Generator(device="cuda").manual_seed(0)
+    paths = odt.sample_ensemble(prob, odt.EK0(order=3), u0s, ps, generator=g,
+                                n_steps=500, n_samples=8)  # (501, 8, 2, B)
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 
@@ -34,6 +41,7 @@ from odefilters_torch import models  # noqa: E402
 from odefilters_torch.algorithms import EK0, EK1, AbstractEK  # noqa: E402
 from odefilters_torch.ensemble import (  # noqa: E402
     EnsembleKernelSolution,
+    sample_ensemble,
     solve_ensemble,
 )
 from odefilters_torch.problem import ODEProblem, ode_problem, remake  # noqa: E402
@@ -47,5 +55,6 @@ __all__ = [
     "models",
     "ode_problem",
     "remake",
+    "sample_ensemble",
     "solve_ensemble",
 ]

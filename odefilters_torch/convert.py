@@ -1,7 +1,8 @@
 """Problem arrays from numpy into the port's tensors.
 
 The system has no weights: a problem's initial values, parameters and time
-span are its inputs. These helpers build the port's problem and ensemble
+span are its inputs, and a sampler's standard normals are its noise. These
+helpers build the port's problem, ensemble, normals and state-stream
 tensors from numpy arrays (for instance the JAX package's arrays, as
 numpy), so that both packages solve the same problem.
 """
@@ -41,3 +42,39 @@ def ensemble_inputs_from_numpy(u0s, ps, *, device="cuda",
         torch.as_tensor(np.ascontiguousarray(u0s), dtype=dtype, device=device),
         torch.as_tensor(np.ascontiguousarray(ps), dtype=dtype, device=device),
     )
+
+
+def normals_from_numpy(z, *, device="cuda", dtype=torch.float64):
+    """A sampler's standard normals, a ``(T+1, S, nq, d, B)`` numpy array
+    (the layout of the JAX package's ``ek0_fused_sample``), as a contiguous
+    tensor on ``device`` (the CUDA card unless given)."""
+    z = np.asarray(z)
+    if z.ndim != 5:
+        raise ValueError(f"normals must be (T+1, S, nq, d, B), got {z.shape}")
+    return torch.as_tensor(np.ascontiguousarray(z), dtype=dtype,
+                           device=resolve_device(device))
+
+
+def state_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
+                            dtype=torch.float64):
+    """The JAX package's ``ek0_filter_state_stream`` output as numpy,
+    ``(nb, T+1, nq, d+nq+1, 8, 128)`` rows ``[mean | factor | s2 in row
+    0]``, reordered into the port's filter-states stream ``(T+1, V, B)``
+    rows ``[mean (nq*d) | factor (nq*nq, row-major) | s2]`` (member
+    ``blk*1024 + sub*128 + lane``), on ``device`` (the CUDA card unless
+    given)."""
+    st = np.asarray(st)
+    if st.ndim != 6 or st.shape[2:4] != (nq, d + nq + 1):
+        raise ValueError(
+            f"expected a (nb, T+1, {nq}, {d + nq + 1}, sub, lane) stream, got "
+            f"{st.shape}"
+        )
+    nb, T1, _, W, sub, lane = st.shape
+    x = st.transpose(1, 2, 3, 0, 4, 5).reshape(T1, nq, W, nb * sub * lane)
+    rows = np.concatenate([
+        x[:, :, :d].reshape(T1, nq * d, -1),
+        x[:, :, d:d + nq].reshape(T1, nq * nq, -1),
+        x[:, :1, d + nq],
+    ], axis=1)
+    return torch.as_tensor(np.ascontiguousarray(rows), dtype=dtype,
+                           device=resolve_device(device))

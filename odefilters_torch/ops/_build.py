@@ -21,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
-SOURCES = ("ek0_pair.cu", "ek0_filter.cu")
-HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh")
+SOURCES = ("ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
+HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,26 +33,42 @@ NVCC_FLAGS = (
 # contraction, at 8192 members x 500 steps they miss the plain lls by
 # 1.8e-5 relative in float64 and 2.3e-2 in float32, the stds by 7.5e-4 and
 # 0.24, and run no faster on an H100 (scripts/torch_kernel_fma.py).
-SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",)}
+#
+# The sampler's kernels likewise: the stream's s2 carries the innovation and
+# scales the noise factor in both, so the sample paths inherit its rounding.
+# The pair's too: a static diffusion's sigma^2 is an average of the same
+# innovation statistic. Built with contraction, the pair misses its plain
+# version at 8192 x 500 by up to 1.1e-4 relative on sigma^2 and 0.18 on the
+# dynamic stds in float32 (1.4e-3 in float64), against 0 without. On an H100
+# the two builds' float32 times overlap; only the float64 backward is 10-15%
+# faster with contraction, about 1% of a solve there
+# (scripts/torch_kernel_fma.py --file ek0_pair.cu).
+SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
+                "ek0_sample.cu": ("-fmad=false",),
+                "ek0_pair.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_double)
 # C entry points and their argument types; the last is the CUDA stream.
-# ek0_pair_fwd: (m0_p, ps, stream_out, B, T, consts)
+# ek0_pair_fwd: (m0_p, ps, stream_out, sig, B, T, mode, consts)
 # ek0_pair_bwd: (stream_in, out, B, T, consts)
 # ek0_filter: (m0_p, ps, us, var, lls, sig, B, T, mode, consts)
 # ek0_filter_grad_fwd: (m0_p, ps, us, stds, lls, stream_out, B, T, consts)
 # ek0_filter_grad_bwd: (stream_in, ps, dus, dstds, dlls, dm0_p, dps, B, T,
 #                       consts)
+# ek0_filter_states: (m0_p, ps, stream_out, B, T, consts)
+# ek0_sampler: (stream_in, normals, out, B, T, S, consts)
 ENTRIES = {}
 for _s in ("f32", "f64"):
     ENTRIES.update({
-        f"ek0_pair_fwd_fhn_{_s}": (_P, _P, _P, _I, _I, _D, _P),
+        f"ek0_pair_fwd_fhn_{_s}": (_P,) * 4 + (_I, _I, _I, _D, _P),
         f"ek0_pair_bwd_{_s}": (_P, _P, _I, _I, _D, _P),
         f"ek0_filter_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
         f"ek0_filter_grad_fwd_fhn_{_s}": (_P,) * 6 + (_I, _I, _D, _P),
         f"ek0_filter_grad_bwd_fhn_{_s}": (_P,) * 7 + (_I, _I, _D, _P),
+        f"ek0_filter_states_fhn_{_s}": (_P, _P, _P, _I, _I, _D, _P),
+        f"ek0_sampler_{_s}": (_P, _P, _P, _I, _I, _I, _D, _P),
     })
 
 

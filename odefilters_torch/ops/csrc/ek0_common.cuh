@@ -1,7 +1,8 @@
 // Device helpers shared by the fused EK0 kernels (ek0_pair.cu,
-// ek0_filter.cu): the constants, the packed stream row, and the collapsed
-// EK0 filter step in the order of operations of its plain PyTorch version
-// (odefilters_torch/ops/ek0_pair.py: ek0_step_core).
+// ek0_filter.cu, ek0_sample.cu): the constants, the packed stream row, the
+// collapsed EK0 filter step in the order of operations of its plain PyTorch
+// version (odefilters_torch/ops/ek0_pair.py: ek0_step_core) and the static
+// diffusions' running estimates (ek0_pair.py: static_local_update).
 //
 // One thread holds one ensemble member. Every index loop is unrolled at
 // compile time, so the structural zeros of the measured block (row and
@@ -241,6 +242,53 @@ __device__ __forceinline__ void ek0_step(const FwdConsts<S, NQ>& c,
       v.C_new[i][l] = v.Cp[i][l] - v.kg[i] * v.kg[l] * v.s;
       v.C_new[l][i] = v.C_new[i][l];
     }
+  }
+}
+
+// diffusion models (the C entry points' mode argument)
+enum Mode { DYNAMIC = 0, FIXED = 1, FIXED_MAP = 2, FIXED_MV = 3 };
+
+// Running static-diffusion estimate after one more step (kf previous
+// steps): the MLE (fixed: scalar, fixedMV: per dimension) or the online
+// InverseGamma(1/2, 1/2) MAP (fixedMAP). Scalar models use sig[0].
+template <int MODE, typename S, int D>
+__device__ __forceinline__ void static_update(S (&sig)[D], S kf, S zz,
+                                              const S (&z)[D], S inv_s) {
+  const S kmax = kf < S(1) ? S(1) : kf;
+  if (MODE == FIXED_MV) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const S local = z[j] * z[j] * inv_s;
+      const S cand = sig[j] + (local - sig[j]) / kmax;
+      sig[j] = kf == S(0) ? local : cand;
+    }
+  } else if (MODE == FIXED) {
+    const S local = zz * inv_s * (S(1) / S(D));
+    const S cand = sig[0] + (local - sig[0]) / kmax;
+    sig[0] = kf == S(0) ? local : cand;
+  } else if (MODE == FIXED_MAP) {
+    const S alpha = S(0.5), beta = S(0.5);
+    const S local = zz * inv_s * (S(1) / S(D));
+    const S N = kf + S(1);
+    const S den = alpha + N * S(D) * S(0.5) + S(1);
+    const S first = (beta + S(0.5) * local) / den;
+    const S res_prev =
+        (sig[0] * (alpha + (N - S(1)) * S(D) * S(0.5) + S(1)) - beta) * S(2);
+    const S later = (beta + S(0.5) * (res_prev + local)) / den;
+    sig[0] = kf == S(0) ? first : later;
+  }
+}
+
+// The final static estimate of member b: sig (D, B) under fixedMV, else
+// (B,); nothing under the dynamic diffusion.
+template <int MODE, typename S, int D>
+__device__ __forceinline__ void store_sig(S* __restrict__ out, int b,
+                                          size_t sB, const S (&sig)[D]) {
+  if (MODE == FIXED_MV) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) out[j * sB + b] = sig[j];
+  } else if (MODE != DYNAMIC) {
+    out[b] = sig[0];
   }
 }
 

@@ -9,9 +9,6 @@
 
 namespace ek0 {
 
-// diffusion models of the primal filter (the C entry points' mode)
-enum Mode { DYNAMIC = 0, FIXED = 1, FIXED_MAP = 2, FIXED_MV = 3 };
-
 constexpr double LOG_2PI = 1.8378770664093453;  // log(2 pi)
 
 // per-member data log-likelihood increment log N(z; 0, s I_D)
@@ -19,37 +16,6 @@ template <typename S, int D>
 __device__ __forceinline__ S ll_increment(S zz, S s, S inv_s) {
   return S(-0.5) *
          (zz * inv_s + S(D) * (log_(floor_at(s, S(1e-30))) + S(LOG_2PI)));
-}
-
-// Running static-diffusion estimate after one more step (kf previous
-// steps): the MLE (fixed: scalar, fixedMV: per dimension) or the online
-// InverseGamma(1/2, 1/2) MAP (fixedMAP). Scalar models use sig[0].
-template <int MODE, typename S, int D>
-__device__ __forceinline__ void static_update(S (&sig)[D], S kf, S zz,
-                                              const S (&z)[D], S inv_s) {
-  const S kmax = kf < S(1) ? S(1) : kf;
-  if (MODE == FIXED_MV) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const S local = z[j] * z[j] * inv_s;
-      const S cand = sig[j] + (local - sig[j]) / kmax;
-      sig[j] = kf == S(0) ? local : cand;
-    }
-  } else if (MODE == FIXED) {
-    const S local = zz * inv_s * (S(1) / S(D));
-    const S cand = sig[0] + (local - sig[0]) / kmax;
-    sig[0] = kf == S(0) ? local : cand;
-  } else if (MODE == FIXED_MAP) {
-    const S alpha = S(0.5), beta = S(0.5);
-    const S local = zz * inv_s * (S(1) / S(D));
-    const S N = kf + S(1);
-    const S den = alpha + N * S(D) * S(0.5) + S(1);
-    const S first = (beta + S(0.5) * local) / den;
-    const S res_prev =
-        (sig[0] * (alpha + (N - S(1)) * S(D) * S(0.5) + S(1)) - beta) * S(2);
-    const S later = (beta + S(0.5) * (res_prev + local)) / den;
-    sig[0] = kf == S(0) ? first : later;
-  }
 }
 
 // Primal filter of member b: us (T+1, D, B), raw variances C[0][0]
@@ -86,12 +52,7 @@ __device__ __forceinline__ void filter_member(
     commit<S, NQ, D>(v, m, C);
   }
   lls[b] = ll;
-  if (MODE == FIXED_MV) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) sig_out[j * sB + b] = sig[j];
-  } else if (MODE != DYNAMIC) {
-    sig_out[b] = sig[0];
-  }
+  store_sig<MODE, S, D>(sig_out, b, sB, sig);
 }
 
 // The gradient's forward for member b: the dynamic filter with

@@ -56,12 +56,14 @@ struct BwdConsts {
 }  // namespace
 
 // Forward filter: writes row 0 (the exact initial state, s2 = 1) and then
-// one packed row per step into st (T+1, V, B).
-template <typename S, int NQ, class F>
+// one packed row per step into st (T+1, V, B). Under a static diffusion
+// (MODE != DYNAMIC) it filters with the unscaled prior, streams s2 = 1 and
+// writes the calibrated sigma^2 into sig ((B,), or (D, B) for fixedMV).
+template <typename S, int NQ, class F, int MODE>
 __global__ void __launch_bounds__(THREADS)
     ek0_pair_fwd_kernel(const S* __restrict__ m0, const S* __restrict__ ps,
-                        S* __restrict__ st, int B, int T,
-                        FwdConsts<S, NQ> c) {
+                        S* __restrict__ st, S* __restrict__ sig_out, int B,
+                        int T, FwdConsts<S, NQ> c) {
   constexpr int D = F::D;
   constexpr int V = Layout<NQ, D>::V;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -71,16 +73,21 @@ __global__ void __launch_bounds__(THREADS)
   S p[F::NP], m[NQ][D], C[NQ][NQ];
   ek0::load_member<S, NQ, F::NP, D>(m0, ps, b, sB, p, m, C);
   ek0::store_row<S, NQ, D>(st, b, sB, m, C, S(1));
+  S sig[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) sig[j] = S(0);
 
   for (int k = 0; k < T; ++k) {
     // t_{k+1} in the working dtype, never accumulated
     const S t = c.t0 + c.dt * S(k + 1);
     ek0::StepVals<S, NQ, D> v;
-    ek0::ek0_step<S, NQ, F, false>(c, p, t, m, C, v);
+    ek0::ek0_step<S, NQ, F, MODE != ek0::DYNAMIC>(c, p, t, m, C, v);
+    ek0::static_update<MODE, S, D>(sig, S(k), v.zz, v.z, v.inv_s);
     ek0::commit<S, NQ, D>(v, m, C);
     ek0::store_row<S, NQ, D>(st, (size_t)(k + 1) * V * sB + b, sB, m, C,
                              v.s2);
   }
+  ek0::store_sig<MODE, S, D>(sig_out, b, sB, sig);
 }
 
 // Backward smoother: reads st from row T down to 0 and writes out
@@ -254,14 +261,39 @@ __global__ void __launch_bounds__(THREADS)
 
 namespace {
 
-template <typename S, int NQ, class F>
-int launch_fwd(const void* m0, const void* ps, void* st, int B, int T,
-               const double* k, void* stream) {
-  if (B < 1 || T < 0) return (int)cudaErrorInvalidValue;
+template <typename S, int NQ, class F, int MODE>
+void launch_fwd_mode(const void* m0, const void* ps, void* st, void* sig,
+                     int B, int T, const FwdConsts<S, NQ>& c,
+                     cudaStream_t stream) {
   const int blocks = (B + THREADS - 1) / THREADS;
-  ek0_pair_fwd_kernel<S, NQ, F><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const S*)m0, (const S*)ps, (S*)st, B, T,
-      ek0::read_fwd_consts<S, NQ>(k));
+  ek0_pair_fwd_kernel<S, NQ, F, MODE><<<blocks, THREADS, 0, stream>>>(
+      (const S*)m0, (const S*)ps, (S*)st, (S*)sig, B, T, c);
+}
+
+template <typename S, int NQ, class F>
+int launch_fwd(const void* m0, const void* ps, void* st, void* sig, int B,
+               int T, int mode, const double* k, void* stream) {
+  if (B < 1 || T < 0) return (int)cudaErrorInvalidValue;
+  if (mode != ek0::DYNAMIC && sig == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const FwdConsts<S, NQ> c = ek0::read_fwd_consts<S, NQ>(k);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case ek0::DYNAMIC:
+      launch_fwd_mode<S, NQ, F, ek0::DYNAMIC>(m0, ps, st, sig, B, T, c, s);
+      break;
+    case ek0::FIXED:
+      launch_fwd_mode<S, NQ, F, ek0::FIXED>(m0, ps, st, sig, B, T, c, s);
+      break;
+    case ek0::FIXED_MAP:
+      launch_fwd_mode<S, NQ, F, ek0::FIXED_MAP>(m0, ps, st, sig, B, T, c, s);
+      break;
+    case ek0::FIXED_MV:
+      launch_fwd_mode<S, NQ, F, ek0::FIXED_MV>(m0, ps, st, sig, B, T, c, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -291,16 +323,22 @@ int launch_bwd(const void* st, void* out, int B, int T, const double* k,
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4).
+// The forward's mode is the diffusion (ek0::Mode); sig may be null under
+// the dynamic one.
 extern "C" {
 
-int ek0_pair_fwd_fhn_f32(const void* m0, const void* ps, void* st, int B,
-                         int T, const double* consts, void* stream) {
-  return launch_fwd<float, 4, Fhn<float>>(m0, ps, st, B, T, consts, stream);
+int ek0_pair_fwd_fhn_f32(const void* m0, const void* ps, void* st, void* sig,
+                         int B, int T, int mode, const double* consts,
+                         void* stream) {
+  return launch_fwd<float, 4, Fhn<float>>(m0, ps, st, sig, B, T, mode, consts,
+                                          stream);
 }
 
-int ek0_pair_fwd_fhn_f64(const void* m0, const void* ps, void* st, int B,
-                         int T, const double* consts, void* stream) {
-  return launch_fwd<double, 4, Fhn<double>>(m0, ps, st, B, T, consts, stream);
+int ek0_pair_fwd_fhn_f64(const void* m0, const void* ps, void* st, void* sig,
+                         int B, int T, int mode, const double* consts,
+                         void* stream) {
+  return launch_fwd<double, 4, Fhn<double>>(m0, ps, st, sig, B, T, mode,
+                                            consts, stream);
 }
 
 int ek0_pair_bwd_f32(const void* st, void* out, int B, int T,

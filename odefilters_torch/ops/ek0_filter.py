@@ -6,7 +6,7 @@ that replace the JAX package's Pallas filter and its custom VJP.
 this module                            ``odefilters/ops/pallas_kernels.py``
 =====================================  ======================================
 ``pair_constants`` (``ek0_pair``)      ``_ek0_consts`` (IBM prior)
-``static_local_update``                ``_static_local_update``
+``static_local_update`` (``ek0_pair``) ``_static_local_update``
 ``ek0_step_filter``                    ``_ek0_step_lists(collapsed=True,
                                        want_outputs=True)``
 ``ek0_step_filter_triu``               the same on the stream's covariance
@@ -57,42 +57,9 @@ import torch
 
 from odefilters_torch.ops import _launch
 from odefilters_torch.ops import ek0_pair as ep
+from odefilters_torch.ops.ek0_pair import static_local_update
 
 _LOG_2PI = math.log(2.0 * math.pi)
-STATIC_DIFFUSIONS = ("fixed", "fixedMAP", "fixedMV")
-# static diffusion -> the C entry points' mode argument (0 is dynamic)
-_MODES = {None: 0, "fixed": 1, "fixedMAP": 2, "fixedMV": 3}
-
-
-def static_local_update(static_diff: str, calib, zz, z, inv_s, d: int):
-    """Running update of a static diffusion's per-member estimate from one
-    step's innovation statistic ``z^T S^-1 z`` (S = s I_d).
-
-    ``calib = (sig, k)``: the running estimate (a ``(B,)`` tensor, or a
-    list of d for ``fixedMV``) and the count of previous steps as a float
-    tensor. Returns the updated ``(sig, k + 1)``."""
-    sig, kf = calib
-
-    def fixed_run(prev, local):
-        cand = prev + (local - prev) / torch.clamp(kf, min=1.0)
-        return torch.where(kf == 0.0, local, cand)
-
-    if static_diff == "fixedMV":
-        sig_new = [fixed_run(sig[j], z[j] * z[j] * inv_s) for j in range(d)]
-    elif static_diff == "fixed":
-        sig_new = fixed_run(sig, zz * inv_s / d)
-    elif static_diff == "fixedMAP":
-        # InverseGamma(1/2, 1/2) MAP, updated online
-        local = zz * inv_s / d
-        alpha, beta = 0.5, 0.5
-        N = kf + 1.0
-        first = (beta + 0.5 * local) / (alpha + N * d / 2 + 1)
-        res_prev = (sig * (alpha + (N - 1.0) * d / 2 + 1) - beta) * 2.0
-        later = (beta + 0.5 * (res_prev + local)) / (alpha + N * d / 2 + 1)
-        sig_new = torch.where(kf == 0.0, first, later)
-    else:
-        raise ValueError(f"unknown static diffusion {static_diff!r}")
-    return sig_new, kf + 1.0
 
 
 def _filter_step(m, C, p, t_new, *, f, At, Qt, pinv0, pinv1, d, nq,
@@ -305,7 +272,7 @@ def ek0_filter(
                    f"ek0_filter_{field}_{_launch.suffix(m0_p.dtype)}",
                    m0_p.data_ptr(), ps.data_ptr(), us.data_ptr(), var.data_ptr(),
                    lls.data_ptr(), None if sig is None else sig.data_ptr(), B, T,
-                   _MODES[static_diff],
+                   ep.MODES[static_diff],
                    _launch.host_consts(At, Qt, scalars=(pinv0, pinv1, t0, dt)))
     if static_diff is None:
         return us, var, lls
@@ -452,12 +419,7 @@ def ek0_fused_filter(
     whose stds are then ``(T+1, d, B)``), and the stds carry the exit
     rescale ``stds sqrt(sigma2)``. Static models are forward-only.
     """
-    static = None if diffusion == "dynamic" else str(diffusion)
-    if static is not None and static not in STATIC_DIFFUSIONS:
-        raise NotImplementedError(
-            f"diffusion={diffusion!r}: the fused fixed-grid filter supports "
-            "dynamic / fixed / fixedMAP / fixedMV"
-        )
+    static = ep.check_diffusion(diffusion)
     _launch.check_ported(prior=prior, second_order=second_order, mesh=mesh)
     T = int(n_steps)
     At, Qt, _, p = ep.pair_constants(q, dt)

@@ -5,6 +5,7 @@ wrappers of the two CUDA kernels that replace the JAX package's Pallas pair.
 this module                         ``odefilters/ops/pallas_kernels.py``
 ==================================  =========================================
 ``pair_layout``                     ``_pair_layout``
+``static_local_update``             ``_static_local_update``
 ``ek0_step_core``                   ``_ek0_step_lists(collapsed=True)``
 ``list_chol_inv``                   ``_list_chol_inv``
 ``list_cho_solve_inv``              ``_list_cho_solve_inv``
@@ -34,17 +35,20 @@ other device. Each counts its kernel launches in ``.launches``.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
+from odefilters_torch.ops._blocks import _is0, _lists, _smul, _sreduce
 from odefilters_torch.ops._launch import (
     CUDA_ORDERS, check_cuda_inputs, check_field, check_ported,
     dispatch_device, host_consts, launch, suffix,
 )
 from odefilters_torch.priors import _ibm_small_np, precond_small
+
+STATIC_DIFFUSIONS = ("fixed", "fixedMAP", "fixedMV")
+# static diffusion -> the C entry points' mode argument (0 is dynamic)
+MODES = {None: 0, "fixed": 1, "fixedMAP": 2, "fixedMV": 3}
 
 
 def pair_layout(nq: int, d: int, bx: int):
@@ -56,31 +60,48 @@ def pair_layout(nq: int, d: int, bx: int):
     return triu, nq * d + len(triu) + 1
 
 
-def _is0(x):
-    """Structural zero: a Python float 0.0 entry in a list block."""
-    return isinstance(x, (int, float)) and x == 0.0
+def static_local_update(static_diff: str, calib, zz, z, inv_s, d: int):
+    """Running update of a static diffusion's per-member estimate from one
+    step's innovation statistic ``z^T S^-1 z`` (S = s I_d).
+
+    ``calib = (sig, k)``: the running estimate (a ``(B,)`` tensor, or a
+    list of d for ``fixedMV``) and the count of previous steps as a float
+    tensor. Returns the updated ``(sig, k + 1)``."""
+    sig, kf = calib
+
+    def fixed_run(prev, local):
+        cand = prev + (local - prev) / torch.clamp(kf, min=1.0)
+        return torch.where(kf == 0.0, local, cand)
+
+    if static_diff == "fixedMV":
+        sig_new = [fixed_run(sig[j], z[j] * z[j] * inv_s) for j in range(d)]
+    elif static_diff == "fixed":
+        sig_new = fixed_run(sig, zz * inv_s / d)
+    elif static_diff == "fixedMAP":
+        # InverseGamma(1/2, 1/2) MAP, updated online
+        local = zz * inv_s / d
+        alpha, beta = 0.5, 0.5
+        N = kf + 1.0
+        first = (beta + 0.5 * local) / (alpha + N * d / 2 + 1)
+        res_prev = (sig * (alpha + (N - 1.0) * d / 2 + 1) - beta) * 2.0
+        later = (beta + 0.5 * (res_prev + local)) / (alpha + N * d / 2 + 1)
+        sig_new = torch.where(kf == 0.0, first, later)
+    else:
+        raise ValueError(f"unknown static diffusion {static_diff!r}")
+    return sig_new, kf + 1.0
 
 
-def _smul(a, b):
-    if _is0(a) or _is0(b):
-        return 0.0
-    if isinstance(a, float) and a == 1.0:
-        return b
-    if isinstance(b, float) and b == 1.0:
-        return a
-    return a * b
-
-
-def _sreduce(terms):
-    live = [t for t in terms if not _is0(t)]
-    if not live:
-        return 0.0
-    return functools.reduce(lambda a, b: a + b, live)
-
-
-def _lists(M) -> list[list[float]]:
-    """A numpy constant matrix as nested Python floats (static entries)."""
-    return [[float(x) for x in row] for row in np.asarray(M)]
+def check_diffusion(diffusion: str) -> Optional[str]:
+    """The static model's name, or None for ``"dynamic"``; raise as the JAX
+    package does for any other diffusion."""
+    if diffusion == "dynamic":
+        return None
+    if diffusion not in STATIC_DIFFUSIONS:
+        raise NotImplementedError(
+            f"diffusion={diffusion!r}: the fused fixed-grid kernels support "
+            "dynamic / fixed / fixedMAP / fixedMV"
+        )
+    return str(diffusion)
 
 
 def ek0_step_core(
@@ -299,11 +320,17 @@ def unpack_row(row: torch.Tensor, nq: int, d: int, triu):
 def ek0_pair_fwd_plain(
     f: Callable, m0_p: torch.Tensor, ps: torch.Tensor, *, At, Qt,
     pinv0: float, pinv1: float, t0: float, dt: float, n_steps: int,
-) -> torch.Tensor:
+    static_diff: Optional[str] = None,
+):
     """Forward filter of the pair: ``(T+1, V, B)`` stream of packed rows
     ``[mean | active covariance triangle | s2]`` from the preconditioned
     initial means ``m0_p`` ``(nq, d, B)`` and parameters ``ps``
-    ``(n_params, B)``. Row 0 is the exact initial state with s2 = 1."""
+    ``(n_params, B)``. Row 0 is the exact initial state with s2 = 1.
+
+    Under a static diffusion the filter runs with the unscaled prior and
+    streams s2 = 1 rows; it returns ``(st, sig)`` with ``sig`` the
+    calibrated sigma^2 after the last step, ``(B,)`` or ``(d, B)`` for
+    fixedMV."""
     nq, d, B = m0_p.shape
     T = int(n_steps)
     triu, V = pair_layout(nq, d, 1)
@@ -313,15 +340,23 @@ def ek0_pair_fwd_plain(
     m = [[m0_p[i, j] for j in range(d)] for i in range(nq)]
     zero = torch.zeros_like(m[0][0])
     C = [[zero] * nq for _ in range(nq)]
-    pack_row(st[0], m, C, zero + 1.0, triu)
+    one = zero + 1.0
+    pack_row(st[0], m, C, one, triu)
+    calib = ([zero] * d if static_diff == "fixedMV" else zero, zero)
     ts = step_times(t0, dt, T, dtype, device)
     for k in range(T):
-        m, C, s2 = ek0_step_core(
+        m, C, s2, zz, z, _, inv_s = ek0_step_core(
             m, C, ps, ts[k], f=f, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1,
-            d=d, nq=nq,
-        )[:3]
+            d=d, nq=nq, static=static_diff is not None,
+        )
+        if static_diff is not None:
+            calib = static_local_update(static_diff, calib, zz, z, inv_s, d)
+            s2 = one
         pack_row(st[k + 1], m, C, s2, triu)
-    return st
+    if static_diff is None:
+        return st
+    sig = calib[0]
+    return st, torch.stack(sig) if static_diff == "fixedMV" else sig
 
 
 def ek0_pair_bwd_plain(
@@ -363,27 +398,33 @@ def ek0_pair_bwd_plain(
 def ek0_pair_fwd(
     f: Callable, field: Optional[str], m0_p: torch.Tensor, ps: torch.Tensor,
     *, At, Qt, pinv0: float, pinv1: float, t0: float, dt: float,
-    n_steps: int,
-) -> torch.Tensor:
+    n_steps: int, static_diff: Optional[str] = None,
+):
     """The pair's forward filter: `ek0_pair_fwd_plain` on CPU tensors, the
     CUDA kernel ``ek0_pair_fwd_kernel`` on CUDA tensors (vector field
-    ``field``, see ``_launch.CUDA_FIELDS``)."""
+    ``field``, see ``_launch.CUDA_FIELDS``). Returns the stream, and
+    ``(st, sig)`` under a static diffusion."""
     if dispatch_device("ek0_pair_fwd", m0_p) == "cpu":
         return ek0_pair_fwd_plain(
             f, m0_p, ps, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1, t0=t0,
-            dt=dt, n_steps=n_steps,
+            dt=dt, n_steps=n_steps, static_diff=static_diff,
         )
     nq, d, B = m0_p.shape
     check_field("ek0_pair_fwd", field, nq, d, B, ps)
     check_cuda_inputs("ek0_pair_fwd", {"m0_p": m0_p, "ps": ps}, m0_p.dtype)
     T = int(n_steps)
     _, V = pair_layout(nq, d, 1)
-    st = torch.empty((T + 1, V, B), dtype=m0_p.dtype, device=m0_p.device)
+    new = dict(dtype=m0_p.dtype, device=m0_p.device)
+    st = torch.empty((T + 1, V, B), **new)
+    sig = None
+    if static_diff is not None:
+        sig = torch.empty((d, B) if static_diff == "fixedMV" else (B,), **new)
     launch(ek0_pair_fwd, m0_p.device,
            f"ek0_pair_fwd_{field}_{suffix(m0_p.dtype)}",
-           m0_p.data_ptr(), ps.data_ptr(), st.data_ptr(), B, T,
+           m0_p.data_ptr(), ps.data_ptr(), st.data_ptr(),
+           None if sig is None else sig.data_ptr(), B, T, MODES[static_diff],
            host_consts(At, Qt, scalars=(pinv0, pinv1, t0, dt)))
-    return st
+    return st if sig is None else (st, sig)
 
 
 ek0_pair_fwd.launches = 0
@@ -450,15 +491,15 @@ def ek0_fused_solve(
     ``m0``: ``(q+1, d, B)`` unpreconditioned Taylor initial means; ``ps``:
     ``(n_params, B)``. Returns ``(us, stds)``, the smoothed posterior means
     and stds of the solution, shapes ``(T+1, d, B)`` and ``(T+1, B)``.
+
+    ``diffusion``: ``"dynamic"``, or a static model ``"fixed"`` /
+    ``"fixedMAP"`` / ``"fixedMV"``: the pair then runs on the unscaled prior
+    and returns ``(us, stds, sigma2)``, the calibrated per-member diffusion
+    ``(B,)`` (``(d, B)`` for fixedMV, whose stds are then
+    ``(T+1, d, B)``), with the stds rescaled by ``sqrt(sigma2)`` at exit.
     """
     check_ported(prior=prior, second_order=second_order, mesh=mesh)
-    if diffusion != "dynamic":
-        raise NotImplementedError(
-            f"diffusion={diffusion!r} on the filter + smoother pair is not "
-            "ported yet: the pair's static-diffusion variant waits in "
-            "ROADMAP.md queue 1 ('Widen the pair'); the filter alone "
-            "(smooth=False) runs the static models"
-        )
+    static = check_diffusion(diffusion)
     if not _bwd_plain:
         raise NotImplementedError(
             "the square-root backward (_bwd_plain=False) is not ported yet "
@@ -473,13 +514,25 @@ def ek0_fused_solve(
     st = ek0_pair_fwd(
         f, field, m0_p, ps, At=At, Qt=Qt, pinv0=pinv0,
         pinv1=float(1.0 / p[1]), t0=float(t0), dt=float(dt), n_steps=T,
+        static_diff=static,
     )
+    if static is not None:
+        st, sig = st
     jit_eps = 1e-6 if m0.dtype == torch.float32 else 1e-12
     out = ek0_pair_bwd(st, nq=nq, d=d, At=At, Qt=Qt, QLt=QLt, pinv0=pinv0,
                        jitter=jit_eps)
     us = out[:, :d]
     stds = pinv0 * torch.sqrt(torch.clamp(out[:, d], min=0.0))
-    return us, stds
+    if static is None:
+        return us, stds
+    # exit rescale: the smoother ran on sigma^2 = 1 covariances, and a
+    # uniform scale commutes with the RTS recursion (the gain is
+    # scale-invariant), so scaling the stds is smoothing the rescaled states
+    if static == "fixedMV":
+        stds = stds[:, None, :] * torch.sqrt(sig)[None]
+    else:
+        stds = stds * torch.sqrt(sig)[None]
+    return us, stds, sig
 
 
 def solve_ensemble_ek0_smooth(
@@ -496,8 +549,8 @@ def solve_ensemble_ek0_smooth(
     diffusion: str = "dynamic",
 ):
     """Taylor init + the fused filter + the fused RTS smoother over an
-    ensemble: ``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``. Returns
-    ``(us, stds)`` as `ek0_fused_solve`, which checks the options."""
+    ensemble: ``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``. Returns what
+    `ek0_fused_solve` returns; it checks the options."""
     from odefilters_torch.taylor import taylor_coefficients
 
     t0, t1 = tspan

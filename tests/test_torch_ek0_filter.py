@@ -379,10 +379,22 @@ def test_front_door_static_models(static):
 
 
 def test_smoothing_static_model_names_the_pair_variant():
+    """``smooth=True`` with a static model runs the pair's static variant,
+    not the filter: the front door returns exactly what
+    ``ek0_fused_solve(diffusion=...)`` returns, and no lls."""
+    from odefilters_torch.taylor import taylor_coefficients
+
     prob, u0s, ps = _door_inputs(B=4)
-    with pytest.raises(NotImplementedError, match="Widen the pair"):
-        odt.solve_ensemble(prob, odt.EK0(order=Q, diffusionmodel="fixedMAP"),
-                           u0s, ps, n_save=N_STEPS)
+    sol = odt.solve_ensemble(prob, odt.EK0(order=Q, diffusionmodel="fixedMAP"),
+                             u0s, ps, n_save=N_STEPS)
+    pt = ps.T.contiguous()
+    m0 = torch.stack(taylor_coefficients(prob.f, u0s.T.contiguous(), pt,
+                                         TSPAN[0], Q))
+    us, stds, sig = ep.ek0_fused_solve(prob.f, m0, pt, TSPAN[0], _dt(),
+                                       N_STEPS, Q, diffusion="fixedMAP")
+    assert sol.lls is None
+    for got, want in zip((sol.us, sol.stds, sol.diffusions), (us, stds, sig)):
+        assert torch.equal(got, want)
 
 
 def _wrapper_args(device, B=8, T=5):

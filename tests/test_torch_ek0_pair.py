@@ -173,6 +173,89 @@ def test_fused_solve_matches_pallas_interpret(pair_inputs, pallas_pair):
     np.testing.assert_allclose(stds.numpy(), pallas_pair[1], rtol=1e-8, atol=1e-12)
 
 
+STATIC = ("fixed", "fixedMAP", "fixedMV")
+
+
+@pytest.fixture(scope="module")
+def pallas_static_pair(pair_inputs):
+    """The JAX pair under each static diffusion, in interpret mode:
+    ``{diffusion: (us, stds, sigma2)}``."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    jprob, _, ps, m0 = pair_inputs
+    dt = (TSPAN[1] - TSPAN[0]) / N_STEPS
+    out = {}
+    with pltpu.force_tpu_interpret_mode():
+        for diffusion in STATIC:
+            res = pk.ek0_fused_solve(jprob.f, jnp.asarray(m0),
+                                     jnp.asarray(ps.T), TSPAN[0], dt, N_STEPS,
+                                     Q, diffusion=diffusion)
+            out[diffusion] = [np.asarray(x) for x in res]
+    return out
+
+
+@pytest.mark.parametrize("diffusion", STATIC)
+def test_static_fused_solve_matches_pallas_interpret(pair_inputs,
+                                                     pallas_static_pair,
+                                                     diffusion):
+    """The static pair (unscaled-prior filter streaming s2 = 1, smoother,
+    exit rescale by sqrt(sigma^2)) against the JAX pair, at the dynamic
+    pair's tolerances for us and stds and rtol 1e-9 for sigma^2 (measured
+    2.7e-15, 5.8e-13 and 8.4e-13 relative at most)."""
+    _, _, ps, m0 = pair_inputs
+    dt = (TSPAN[1] - TSPAN[0]) / N_STEPS
+    us, stds, sig = ep.ek0_fused_solve(
+        odt.models.library.fitzhugh_nagumo_f, torch.from_numpy(m0),
+        torch.from_numpy(np.ascontiguousarray(ps.T)), TSPAN[0], dt, N_STEPS, Q,
+        diffusion=diffusion,
+    )
+    ref = pallas_static_pair[diffusion]
+    shape = (D, B_PAIR) if diffusion == "fixedMV" else (B_PAIR,)
+    assert sig.shape == shape and stds.shape == (N_STEPS + 1,) + shape
+    np.testing.assert_allclose(us.numpy(), ref[0], rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(stds.numpy(), ref[1], rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(sig.numpy(), ref[2], rtol=1e-9)
+
+
+@pytest.mark.parametrize("diffusion", STATIC)
+def test_static_pair_forward_calibrates_as_the_filter(diffusion):
+    """The pair's static forward runs the filter's step and running
+    estimate: its sigma^2 equals the filter's bit for bit, and its stream
+    carries s2 = 1 on every row."""
+    from odefilters_torch.ops import ek0_filter as ef
+
+    rng = np.random.default_rng(6)
+    prob = odt.models.fitzhugh_nagumo(device="cpu")
+    At, Qt, _, p = ep.pair_constants(Q, 0.04)
+    kw = dict(At=At, Qt=Qt, pinv0=float(1 / p[0]), pinv1=float(1 / p[1]),
+              t0=0.0, dt=0.04, n_steps=20, static_diff=diffusion)
+    m0 = torch.from_numpy(rng.standard_normal((NQ, D, 16)) * 1e-2)
+    ps = prob.p[:, None].expand(4, 16).contiguous()
+    st, sig = ep.ek0_pair_fwd(prob.f, "fhn", m0, ps, **kw)
+    sig_f = ef.ek0_filter_plain(prob.f, m0, ps, **kw)[3]
+    assert torch.equal(sig, sig_f)
+    assert (st[:, -1] == 1.0).all()
+
+
+@pytest.mark.parametrize("diffusion", STATIC)
+def test_front_door_static_smoother(diffusion):
+    """``solve_ensemble`` with a static model on the pair: ``diffusions``
+    ``(B,)`` or ``(d, B)`` (fixedMV, whose stds are ``(T+1, d, B)``), no
+    lls, stds 0 at t0 and positive after."""
+    prob, u0s, ps = _ensemble(B=10)
+    u0s = u0s + 0.05 * torch.from_numpy(
+        np.random.default_rng(7).standard_normal((10, D)))
+    sol = odt.solve_ensemble(prob, odt.EK0(order=Q, diffusionmodel=diffusion),
+                             u0s, ps, n_save=N_STEPS)
+    shape = (D, 10) if diffusion == "fixedMV" else (10,)
+    assert sol.lls is None
+    assert sol.diffusions.shape == shape and (sol.diffusions > 0).all()
+    assert sol.us.shape == (N_STEPS + 1, D, 10)
+    assert sol.stds.shape == (N_STEPS + 1,) + shape
+    assert torch.isfinite(sol.us).all() and torch.isfinite(sol.stds).all()
+    assert (sol.stds[0] == 0).all() and (sol.stds[1:] > 0).all()
+
+
 @pytest.fixture(scope="module")
 def port_solution(pair_inputs):
     """The port's front door on the perturbed ensemble (CPU, f64)."""
@@ -262,7 +345,10 @@ def _ensemble(B=8):
     [
         (odt.EK0(order=Q), dict(adaptive=True), "adaptive"),
         (odt.EK1(order=Q), {}, "EK1"),
-        (odt.EK0(order=Q, diffusionmodel="fixed"), {}, "fixed"),
+        # the fixed-grid pair runs the static models; the adaptive kernels
+        # never take them, as in the JAX package
+        (odt.EK0(order=Q, diffusionmodel="fixed"), dict(adaptive=True),
+         "'fixed'"),
         (odt.EK0(order=Q, smooth=False, diffusionmodel="dynamicMV"), {},
          "dynamicMV"),
         (odt.EK0(order=Q), dict(mesh=object()), "mesh"),
@@ -284,7 +370,9 @@ def test_second_order_problem_raises():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(prior="ioup"), dict(second_order=True), dict(diffusion="fixedMAP"),
+    # static_diffusion: the pair runs fixed / fixedMAP / fixedMV; any other
+    # diffusion raises, as in the JAX package
+    [dict(prior="ioup"), dict(second_order=True), dict(diffusion="dynamicMV"),
      dict(mesh=object()), dict(_bwd_plain=False)],
     ids=["prior", "second_order", "static_diffusion", "mesh", "sqrt_backward"],
 )
