@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
-paths through the front doors ``odefilters_torch.solve_ensemble`` and
-``odefilters_torch.sample_ensemble`` at the headline width
-(FitzHugh-Nagumo, EK0(3), IBM prior, 8192 members, 500 uniform steps over
-(0, 20)) through them: the filter + RTS smoother pair (dynamic and static
-diffusions), the filter with its per-member log-likelihood and that
-likelihood's gradient by ``torch.autograd``, and the joint-posterior
-sampler. It checks float32 against float64 on the worst lanes, float64
+paths through the front doors ``odefilters_torch.solve_ensemble``,
+``odefilters_torch.sample_ensemble`` and ``odefilters_torch.ieks_ensemble``
+at the headline width (FitzHugh-Nagumo, EK0(3) and EK1(3), IBM prior, 8192
+members, 500 uniform steps over (0, 20)): with EK0 the filter + RTS
+smoother pair (dynamic and static diffusions), the filter with its
+per-member log-likelihood and that likelihood's gradient by
+``torch.autograd``, and the joint-posterior sampler; with EK1 the filter
+with and without the smoother (dynamic, fixed, fixedMAP), the sampler and
+the ensemble IEKS. It checks float32 against float64 on the worst lanes, float64
 against an independent high-accuracy integrator, the float64 gradient
 against a finite difference, the sampler's calibration, and times each
 path, each kernel and the plain versions with CUDA events.
@@ -59,10 +61,28 @@ Phases:
      static mode against its plain version at 1000 x 60 (float64,
      float32) and 8192 x 500 (float32); ``solve_ensemble`` at 8192 x 500
      with ``diffusions``, float32 against float64 on the worst lane; the
-     static forward's timing.
+     static forward's timing;
+ 15. the EK1 kernels vs plain in float64 at the shape of phase 3 with
+     S = 3 numpy normals: the filter kernel (its means directly, its
+     stream through the plain smoother; with a linearization trajectory;
+     fixed and fixedMAP with their sigma^2), the smoother kernel and the
+     sampler kernel on the plain stream;
+ 16. the same in float32;
+ 17. the EK1 paths at 8192 x 500, float32 and float64, with the kernels'
+     launch counts: ``solve_ensemble`` with EK1 in each mode (smoother or
+     filter only; dynamic, fixed, fixedMAP), ``sample_ensemble`` at S = 1
+     and 8, ``ieks_ensemble`` at 1 sweep (the EK1 smoothed solution
+     exactly) and 3; float32 against float64 (``EK1_F32_US_LIMIT``);
+     float64 smoothed and IEKS means against DOP853; zero normals through
+     the sampler kernel against the smoother kernel's means on the same
+     stream (exactly); the calibration of one member tiled across the
+     lanes (float64);
+ 18. the EK1 kernels against their plain versions at 8192 x 500 in
+     float32 (S = 8 normals from ``torch.randn``), then the timings of each
+     kernel, each EK1 front door and each plain version once.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the seven kernels with their launches on their
+the line before it lists the ten kernels with their launches on their
 path, errors, times, plain times and bounds (``bound_ms``: the larger of
 the bytes each must move over 3.35 TB/s and the operations its plain
 version does, counted per step under a dispatch mode, over 67 TFLOP/s of
@@ -70,8 +90,11 @@ float32; H100 SXM data sheet). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
-for the adjoint (phase 9). The sampler's times, plain time and bound are
-those at S = 8.
+for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18,
+S = 8; the filter kernel's means, and its stream through the smoother
+kernel). The samplers' times, plain times and bounds are those at S = 8.
+The EK1 launches are those of ``solve_ensemble(EK1)`` (filter, smoother)
+and ``sample_ensemble(EK1, S=8)`` (sampler) in float32.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -108,7 +131,11 @@ against the pair's smoothed means (``ZERO_NORMALS_LIMIT``). The
 calibration holds the empirical mean of 8192 samples of one posterior
 within 5 standard errors of the smoothed mean at every (t, dim), and the
 empirical std within 5% of the smoothed std where that exceeds 1e-8 (the
-standard error of a std estimated from 8192 samples is ~0.8%).
+standard error of a std estimated from 8192 samples is ~0.8%). The EK1
+kernels are built without FMA contraction too and are held like the
+sampler's: the filter's means, sigma^2 and filter stds directly, its
+stream through the smoother, the smoother's and the sampler's outputs
+directly.
 
 Every phase that fails is reported; the script then exits nonzero and
 prints no result. Without a CUDA card it exits nonzero at once. It never
@@ -139,6 +166,9 @@ SOURCE = {
     "ek0_filter_grad_bwd": "odefilters_torch/ops/csrc/ek0_filter.cu",
     "ek0_filter_states": "odefilters_torch/ops/csrc/ek0_sample.cu",
     "ek0_sampler": "odefilters_torch/ops/csrc/ek0_sample.cu",
+    "ek1_filter_states": "odefilters_torch/ops/csrc/ek1_fused.cu",
+    "ekd_smoother": "odefilters_torch/ops/csrc/ek1_fused.cu",
+    "ekd_sampler": "odefilters_torch/ops/csrc/ek1_fused.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -148,8 +178,12 @@ REPLACES = {
     "ek0_filter_grad_bwd": "odefilters/ops/pallas_kernels.py:586",
     "ek0_filter_states": "odefilters/ops/pallas_kernels.py:3679",
     "ek0_sampler": "odefilters/ops/pallas_kernels.py:4657",
+    "ek1_filter_states": "odefilters/ops/pallas_kernels.py:5224",
+    "ekd_smoother": "odefilters/ops/pallas_kernels.py:5338",
+    "ekd_sampler": "odefilters/ops/pallas_kernels.py:5486",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
+EK1_STATIC = ("fixed", "fixedMAP")
 S_CHECK, S_MAIN = 3, 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -328,18 +362,85 @@ class Filter:
         return self.pinv0 * torch.sqrt(torch.clamp(var, min=1e-30))
 
 
+class EK1Case:
+    """The EK1 kernels' arguments for one ensemble (the inputs of `Pair`),
+    S standard normals ``(T+1, S, D, B)`` (numpy from a seed, or
+    ``torch.randn`` on the card), and both versions of each kernel."""
+
+    def __init__(self, B, T, dtype, tspan, S=None, numpy_normals=True):
+        from odefilters_torch import convert
+        from odefilters_torch.ops import ek1_fused as e1
+
+        self.e1 = e1
+        pair = Pair(B, T, dtype, tspan)
+        self.prob, self.m0_p, self.ps = pair.prob, pair.m0_p, pair.ps
+        kw = pair.fwd_kw
+        At, QLt, _, pinv0, pinv1 = e1._consts(Q, kw["dt"])
+        self.pinv0 = pinv0
+        self.kw = dict(At=At, QLt=QLt, pinv0=pinv0, pinv1=pinv1, t0=kw["t0"],
+                       dt=kw["dt"], n_steps=T)
+        self.skw = dict(At=At, QLt=QLt, pinv0=pinv0, nq=Q + 1, d=2)
+        self.lay = e1.stream_layout(Q + 1, 2)
+        self.z = None
+        shape = (T + 1, S, 2 * (Q + 1), B)
+        if S is not None and numpy_normals:
+            z = np.random.default_rng(2).standard_normal(shape)
+            self.z = convert.ek1_normals_from_numpy(z, device=DEVICE, dtype=dtype)
+        elif S is not None:
+            g = torch.Generator(device=DEVICE).manual_seed(2)
+            self.z = torch.randn(shape, generator=g, dtype=dtype, device=DEVICE)
+
+    def states_kernel(self, **kw):
+        return self.e1.ek1_filter_states(self.prob.f, self.prob.jac,
+                                         self.prob.field, self.m0_p, self.ps,
+                                         **self.kw, **kw)
+
+    def states_plain(self, **kw):
+        return self.e1.ek1_filter_states_plain(self.prob.f, self.prob.jac,
+                                               self.m0_p, self.ps, **self.kw,
+                                               **kw)
+
+    def smoother_kernel(self, st):
+        return self.e1.ekd_smoother(st, **self.skw)
+
+    def smoother_plain(self, st):
+        return self.e1.ekd_smoother_plain(st, **self.skw)
+
+    def sampler_kernel(self, st, z=None):
+        return self.e1.ekd_sampler(st, self.z if z is None else z, **self.skw)
+
+    def sampler_plain(self, st, z=None):
+        return self.e1.ekd_sampler_plain(st, self.z if z is None else z,
+                                         **self.skw)
+
+    def means(self, st):
+        return st[:, self.lay["m"]]
+
+    def filter_solution(self, st):
+        """The filter-only epilogue of ``ek1_fused_solve``: the solution
+        means and per-dimension stds from the stream's mean and L rows."""
+        D = 2 * (Q + 1)
+        L = st[:, self.lay["L"]].reshape(st.shape[0], D, D, -1)[:, :2]
+        return (self.pinv0 * st[:, :2],
+                self.pinv0 * torch.sqrt(torch.sum(L ** 2, dim=2)))
+
+
 def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
+    from odefilters_torch.ops import ek1_fused as e1
 
     return {"ek0_pair_fwd": ep.ek0_pair_fwd, "ek0_pair_bwd": ep.ek0_pair_bwd,
             "ek0_filter": ef.ek0_filter,
             "ek0_filter_grad_fwd": ef.ek0_filter_grad_fwd,
             "ek0_filter_grad_bwd": ef.ek0_filter_grad_bwd,
             "ek0_filter_states": es.ek0_filter_states,
-            "ek0_sampler": es.ek0_sampler}
+            "ek0_sampler": es.ek0_sampler,
+            "ek1_filter_states": e1.ek1_filter_states,
+            "ekd_smoother": e1.ekd_smoother,
+            "ekd_sampler": e1.ekd_sampler}
 
 
 def reset_counts():
@@ -449,7 +550,7 @@ def bound(nbytes, ops_per_step, B, T):
 
 def kernel_bounds(B, T, dtype, S):
     """{name: (bound_ms, bound_by, operations per step and member)} of the
-    seven kernels at (B, T), the sampler at S samples: each reads its
+    ten kernels at (B, T), the samplers at S samples: each reads its
     inputs once and writes its outputs once."""
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
@@ -457,6 +558,23 @@ def kernel_bounds(B, T, dtype, S):
 
     nq, d, n_p, V = Q + 1, 2, 4, 15
     V_states = es.states_width(nq, d)
+    one1 = EK1Case(1, 2, dtype, (0.0, 2 * (TSPAN_MAIN[1] - TSPAN_MAIN[0]) / T_MAIN))
+    kw1 = {k: v for k, v in one1.kw.items() if k != "n_steps"}
+    V_ek1, D = one1.lay["V"], nq * d
+
+    def ek1_stream(T1):
+        return one1.e1.ek1_filter_states_plain(one1.prob.f, one1.prob.jac,
+                                               one1.m0_p, one1.ps,
+                                               n_steps=T1, **kw1)
+
+    def ekd_sampler(T1):
+        st = ek1_stream(T1)
+        z = torch.ones((T1 + 1, S, D, 1), dtype=dtype, device=DEVICE)
+        return lambda: one1.sampler_plain(st, z)
+
+    def ekd_smoother(T1):
+        st = ek1_stream(T1)
+        return lambda: one1.smoother_plain(st)
     one = Filter(1, 2, dtype, (0.0, 2 * (TSPAN_MAIN[1] - TSPAN_MAIN[0]) / T_MAIN))
     f, m0, ps = one.f, one.m0_p, one.ps
     kw = {k: v for k, v in one.kw.items() if k != "n_steps"}
@@ -497,10 +615,14 @@ def kernel_bounds(B, T, dtype, S):
             lambda T1: lambda: es.ek0_filter_states_plain(
                 f, m0, ps, n_steps=T1, **skw)),
         "ek0_sampler": count_ops(sampler),
+        "ek1_filter_states": count_ops(lambda T1: lambda: ek1_stream(T1)),
+        "ekd_smoother": count_ops(ekd_smoother),
+        "ekd_sampler": count_ops(ekd_sampler),
     }
     # elements moved: initial state and parameters, stream, per-step rows
     init, stream, rows = (nq * d + n_p) * B, (T + 1) * V * B, (T + 1) * B
     states = (T + 1) * V_states * B
+    ek1_states = (T + 1) * V_ek1 * B
     elems = {
         "ek0_pair_fwd": init + stream,
         "ek0_pair_bwd": stream + rows * (d + 1),
@@ -509,6 +631,9 @@ def kernel_bounds(B, T, dtype, S):
         "ek0_filter_grad_bwd": stream + n_p * B + rows * (d + 1) + B + init,
         "ek0_filter_states": init + states,
         "ek0_sampler": states + rows * S * nq * d + rows * S * d,
+        "ek1_filter_states": init + ek1_states,
+        "ekd_smoother": ek1_states + rows * 2 * d,
+        "ekd_sampler": ek1_states + rows * S * D + rows * S * d,
     }
     item = torch.tensor([], dtype=dtype).element_size()
     return {name: bound(elems[name] * item, ops[name], B, T) + (ops[name],)
@@ -912,6 +1037,320 @@ def static_path(odt, card):
         say(f"   ek0_pair_fwd ({static or 'dynamic'}) {f_ms:.4f} ms")
 
 
+def ek1_vs_plain(label, c, rtol, atol):
+    """Phases 15-16: the filter kernel against the plain filter (its means
+    directly, its stream through the plain smoother; with a linearization
+    trajectory; fixed and fixedMAP with their sigma^2), the smoother kernel
+    and the sampler kernel on the plain stream against their plain
+    versions."""
+    st_p, st_k = c.states_plain(), c.states_kernel()
+    torch.cuda.synchronize()
+    name = f"{label} ek1_filter_states_kernel"
+    close(f"{name}, means", c.means(st_k), c.means(st_p), rtol, atol)
+    say(f"   {name}: stream, largest scaled |kernel - plain| "
+        f"{scaled_stream_diff(st_k, st_p):.3e} (reported, not held)")
+    st_f = c.states_kernel(smooth=False)
+    torch.cuda.synchronize()
+    check(torch.equal(st_f, st_k[:, :st_f.shape[1]]),
+          f"{name}: the filter-only stream ({st_f.shape[1]} rows) is the "
+          "smoothing stream's first rows exactly")
+    us_p, sd_p = c.smoother_plain(st_p)
+    us_f, sd_f = c.smoother_plain(st_k)
+    close(f"{name}, us through the plain smoother", us_f, us_p, rtol, atol)
+    close(f"{name}, stds through the plain smoother", sd_f, sd_p, rtol, atol)
+    us_k, sd_k = c.smoother_kernel(st_p)
+    torch.cuda.synchronize()
+    close(f"{label} ekd_smoother_kernel on the plain stream, us", us_k, us_p,
+          rtol, atol)
+    close(f"{label} ekd_smoother_kernel on the plain stream, stds", sd_k, sd_p,
+          rtol, atol)
+    x_k = c.sampler_kernel(st_p)
+    torch.cuda.synchronize()
+    close(f"{label} ekd_sampler_kernel on the plain stream, samples (S="
+          f"{c.z.shape[1]})", x_k, c.sampler_plain(st_p), rtol, atol)
+    lin = us_p.contiguous()
+    st_lp, st_lk = c.states_plain(lin=lin), c.states_kernel(lin=lin)
+    torch.cuda.synchronize()
+    for what, got, ref in zip(("us", "stds"), c.filter_solution(st_lk),
+                              c.filter_solution(st_lp)):
+        close(f"{name} with a linearization trajectory, filter {what}", got,
+              ref, rtol, atol)
+    for static in EK1_STATIC:
+        (st_sp, sig_p), (st_sk, sig_k) = (
+            c.states_plain(static_diff=static, smooth=False),
+            c.states_kernel(static_diff=static, smooth=False))
+        torch.cuda.synchronize()
+        close(f"{name} ({static}), sigma^2", sig_k, sig_p, rtol, atol)
+        for what, got, ref in zip(("us", "stds"), c.filter_solution(st_sk),
+                                  c.filter_solution(st_sp)):
+            close(f"{name} ({static}), filter {what}", got, ref, rtol, atol)
+
+
+# EK1 float32 against float64 at 8192 x 500: the means are held at ten
+# times the CPU plain path's figure (scripts/torch_residual_census.py
+# --only ek1: smoothed means 9.966e-06, stds 2.979e-07 with no entry outside
+# the worst-lane criterion of phase 5, at which the smoothed stds are held).
+EK1_F32_US_LIMIT = 1e-4
+# The EK1 modes the front door runs: (smooth, diffusion)
+EK1_MODES = [(s, m) for m in ("dynamic",) + EK1_STATIC for s in (True, False)]
+
+
+def ek1_front_doors(odt, dtype):
+    """Phase 17 for one dtype: ``solve_ensemble`` in each EK1 mode,
+    ``sample_ensemble`` at S = 1 and S_MAIN and ``ieks_ensemble`` (1 and 3
+    sweeps), each with the counts set to 0 just before and read just after.
+    Returns the solutions by mode, the IEKS solution and the launches of the
+    main paths' runs (the smoothed dynamic solve, the sampler at S_MAIN)."""
+    names = ("ek1_filter_states", "ekd_smoother", "ekd_sampler")
+    label = str(dtype)[6:]
+    prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_MAIN)
+    sols, launches = {}, {}
+    grid = (T_MAIN + 1, 2, B_MAIN)
+    for smooth, model in EK1_MODES:
+        alg = odt.EK1(order=Q, smooth=smooth, diffusionmodel=model)
+        reset_counts()
+        sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN)
+        torch.cuda.synchronize()
+        counts = read_counts(*names)
+        if smooth and model == "dynamic":
+            launches.update({n: counts[n] for n in names[:2]})
+        static = model != "dynamic"
+        ok = (counts == {"ek1_filter_states": 1, "ekd_smoother": int(smooth),
+                         "ekd_sampler": 0}
+              and tuple(sol.us.shape) == tuple(sol.stds.shape) == grid
+              and sol.lls is None
+              and (tuple(sol.diffusions.shape) == (B_MAIN,) if static
+                   else sol.diffusions is None)
+              and all(bool(torch.isfinite(x).all()) for x in
+                      (sol.us, sol.stds) + ((sol.diffusions,) if static else ())))
+        check(ok, f"{label} EK1(smooth={smooth}, {model}): launches {counts}, "
+              f"us {tuple(sol.us.shape)}, stds {tuple(sol.stds.shape)}, "
+              f"diffusions "
+              f"{None if sol.diffusions is None else tuple(sol.diffusions.shape)}"
+              ", finite")
+        sols[(smooth, model)] = sol
+    for S in (1, S_MAIN):
+        g = torch.Generator(device=DEVICE).manual_seed(S)
+        reset_counts()
+        us = odt.sample_ensemble(prob, odt.EK1(order=Q), u0s, ps, generator=g,
+                                 n_steps=T_MAIN, n_samples=S)
+        torch.cuda.synchronize()
+        counts = read_counts(*names)
+        if S == S_MAIN:
+            launches["ekd_sampler"] = counts["ekd_sampler"]
+        want = grid if S == 1 else (T_MAIN + 1, S, 2, B_MAIN)
+        check(counts == {"ek1_filter_states": 1, "ekd_smoother": 0,
+                         "ekd_sampler": 1}
+              and tuple(us.shape) == want and bool(torch.isfinite(us).all()),
+              f"{label} sample_ensemble(EK1) S={S}: launches {counts}, "
+              f"samples {tuple(us.shape)}, finite")
+        del us
+    ieks = {}
+    for k in (1, 3):
+        reset_counts()
+        ieks[k] = odt.ieks_ensemble(prob, odt.IEKS(order=Q), u0s, ps,
+                                    n_steps=T_MAIN, iterations=k)
+        torch.cuda.synchronize()
+        counts = read_counts(*names)
+        check(counts == {"ek1_filter_states": k, "ekd_smoother": k,
+                         "ekd_sampler": 0}
+              and tuple(ieks[k].us.shape) == tuple(ieks[k].stds.shape) == grid
+              and bool(torch.isfinite(ieks[k].us).all()
+                       and torch.isfinite(ieks[k].stds).all()),
+              f"{label} ieks_ensemble({k} sweeps): launches {counts}, finite")
+    ref = sols[(True, "dynamic")]
+    check(torch.equal(ieks[1].us, ref.us) and torch.equal(ieks[1].stds, ref.stds),
+          f"{label} ieks_ensemble, one sweep: the EK1 smoothed solution exactly")
+    say(f"   {label} ieks_ensemble: max |us(3 sweeps) - us(1 sweep)| "
+        f"{float((ieks[3].us - ref.us).abs().max()):.3e} (reported)")
+    return sols, ieks[3], launches
+
+
+def ek1_path(odt, card):
+    """Phase 17: the three EK1 front doors at 8192 x 500 in float32 and
+    float64 with their launches; float32 against float64; float64 means
+    against DOP853; zero normals against the smoothed means; the sampler's
+    calibration. Returns the launches of the main paths' runs (float32)."""
+    sols, ieks, launches = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        sols[dtype], ieks[dtype], counts = ek1_front_doors(odt, dtype)
+        if dtype == torch.float32:
+            launches = counts
+    say(f"   launches in the main paths' runs (float32): {launches}")
+    s32, s64 = sols[torch.float32], sols[torch.float64]
+    worst = {}
+    for mode in EK1_MODES:
+        name = f"EK1(smooth={mode[0]}, {mode[1]}) f32 vs f64"
+        if mode == (True, "dynamic"):
+            worst[mode] = worst_lane(name, s32[mode].us, s32[mode].stds,
+                                     s64[mode].us, s64[mode].stds)[2]
+            continue
+        dus = (s32[mode].us.double() - s64[mode].us).abs()
+        dsd = (s32[mode].stds.double() - s64[mode].stds).abs()
+        outside = int((dsd > 1e-3 * s64[mode].stds.abs() + 1e-6).sum())
+        worst[mode] = int(dus.amax(dim=(0, 1)).argmax())
+        check(float(dus.max()) <= EK1_F32_US_LIMIT,
+              f"{name}: max |dus| {float(dus.max()):.3e} <= "
+              f"{EK1_F32_US_LIMIT:g} (worst member {worst[mode]})")
+        text = (f"max |dstd| {float(dsd.max()):.3e}, {outside} entries outside "
+                "1e-3 |std| + 1e-6")
+        if mode[1] != "dynamic":
+            rel = (s32[mode].diffusions.double() - s64[mode].diffusions).abs()
+            text += (f"; sigma^2 largest relative difference "
+                     f"{float((rel / s64[mode].diffusions).max()):.3e}")
+        say(f"   {name}: {text} (reported)")
+    dus = float((ieks[torch.float32].us.double() - ieks[torch.float64].us)
+                .abs().max())
+    check(dus <= EK1_F32_US_LIMIT, f"ieks_ensemble (3 sweeps) f32 vs f64: max "
+          f"|dus| {dus:.3e} <= {EK1_F32_US_LIMIT:g}")
+
+    ts = np.linspace(*TSPAN_MAIN, T_MAIN + 1)
+    prob64, u0s64, ps64 = inputs(B_MAIN, torch.float64, TSPAN_MAIN)
+    u0_np, p_np = u0s64.cpu().numpy(), ps64.cpu().numpy()
+    members = sorted({0, 17, worst[(True, "dynamic")], B_MAIN - 1})
+    refs = {k: reference_solution(u0_np[k], p_np[k], ts) for k in members}
+
+    def ref_err(us):
+        us = us.cpu().numpy()
+        return max(float(np.abs(us[:, :, k] - refs[k]).max()) for k in members)
+
+    for what, us in (("EK1 smoothed", s64[(True, "dynamic")].us),
+                     ("IEKS (3 sweeps)", ieks[torch.float64].us)):
+        e = ref_err(us)
+        check(e <= 1e-5, f"f64 {what} means vs DOP853 (members {members}): "
+              f"max |dus| {e:.3e} <= 1e-5")
+    say(f"   f64 vs DOP853 (reported): EK1 filter means "
+        f"{ref_err(s64[(False, 'dynamic')].us):.3e}, fixedMAP smoothed means "
+        f"{ref_err(s64[(True, 'fixedMAP')].us):.3e}")
+    del sols, ieks, s32, s64
+
+    # zero normals: the sampler is the smoother's mean recursion over the
+    # same stream, operation for operation
+    for dtype in (torch.float64, torch.float32):
+        c = EK1Case(B_MAIN, T_MAIN, dtype, TSPAN_MAIN)
+        st = c.states_kernel()
+        zeros = torch.zeros((T_MAIN + 1, 1, 2 * (Q + 1), B_MAIN), dtype=dtype,
+                            device=DEVICE)
+        x0 = c.sampler_kernel(st, zeros)[:, 0]
+        us = c.smoother_kernel(st)[0]
+        torch.cuda.synchronize()
+        check(torch.equal(x0, us), f"{str(dtype)[6:]} EK1 zero normals: the "
+              f"sampler kernel's path equals the smoother kernel's means "
+              f"exactly (max |dus| {float((x0 - us).abs().max()):.3e})")
+        del c, st
+
+    # one member's posterior, tiled across the lanes: 8192 samples
+    prob1, _, _ = inputs(1, torch.float64, TSPAN_MAIN)
+    u0t = prob1.u0[None].expand(B_MAIN, 2).contiguous()
+    pt = prob1.p[None].expand(B_MAIN, 4).contiguous()
+    alg = odt.EK1(order=Q)
+    us = odt.sample_ensemble(prob1, alg, u0t, pt, n_steps=T_MAIN,
+                             generator=torch.Generator(device=DEVICE).manual_seed(11))
+    ref = odt.solve_ensemble(prob1, alg, u0t[:1], pt[:1], n_save=T_MAIN)
+    mean_s, std_s = ref.us[:, :, 0], ref.stds[:, :, 0]
+    se = std_s / B_MAIN ** 0.5
+    dmean = (us.mean(dim=2) - mean_s).abs()
+    n_out = int((dmean >= 5.0 * se + 1e-12).sum())
+    check(n_out == 0, f"EK1 calibration (f64, {B_MAIN} samples of one member): "
+          f"empirical mean within 5 standard errors of the smoothed mean at "
+          f"every (t, dim); {n_out} outside, largest |dmean| / se "
+          f"{float((dmean / se.clamp(min=1e-300))[1:].max()):.3f}")
+    mask = std_s > 1e-8
+    ratio = us.std(dim=2, correction=0)[mask] / std_s[mask]
+    worst_ratio = float((ratio - 1.0).abs().max())
+    check(worst_ratio <= 0.05, f"EK1 calibration: |std ratio - 1| "
+          f"{worst_ratio:.4f} <= 0.05 where the smoothed std > 1e-8 "
+          f"({int(mask.sum())} entries)")
+    return launches
+
+
+def ek1_timing(odt, card):
+    """Phase 18: the EK1 kernels against their plain versions at 8192 x 500
+    in float32 (normals from ``torch.randn``, S = S_MAIN), then the timings
+    of each kernel, each front door and each plain version once. Returns
+    the kernels' (ms, plain ms, max |kernel - plain|)."""
+    c = EK1Case(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN, S_MAIN,
+                numpy_normals=False)
+    st_p, states_plain_ms = once(c.states_plain)
+    (us_pp, sd_pp), smoother_plain_ms = once(lambda: c.smoother_plain(st_p))
+    x_pp, sampler_plain_ms = once(lambda: c.sampler_plain(st_p))
+    st_k = c.states_kernel()
+    us_kp, sd_kp = c.smoother_kernel(st_p)
+    us_kk, sd_kk = c.smoother_kernel(st_k)
+    x_kp = c.sampler_kernel(st_p)
+    torch.cuda.synchronize()
+    head = f"f32 at {B_MAIN} x {T_MAIN}"
+    rtol, atol = 1e-4, 1e-6
+    err = {
+        "ek1_filter_states": max(
+            close(f"{head} ek1_filter_states_kernel, means", c.means(st_k),
+                  c.means(st_p), rtol, atol),
+            close(f"{head} ek1_filter_states_kernel, us through the smoother "
+                  "kernel", us_kk, us_kp, rtol, atol),
+            close(f"{head} ek1_filter_states_kernel, stds through the smoother "
+                  "kernel", sd_kk, sd_kp, rtol, atol)),
+        "ekd_smoother": max(
+            close(f"{head} ekd_smoother_kernel on the plain stream, us", us_kp,
+                  us_pp, rtol, atol),
+            close(f"{head} ekd_smoother_kernel on the plain stream, stds",
+                  sd_kp, sd_pp, rtol, atol)),
+        "ekd_sampler": close(
+            f"{head} ekd_sampler_kernel on the plain stream, samples (S="
+            f"{S_MAIN})", x_kp, x_pp, rtol, atol),
+    }
+    del x_pp, x_kp, us_kk, sd_kk, us_pp, sd_pp
+
+    say(f"   timing, float32, B={B_MAIN}, T={T_MAIN}: CUDA events; card: {card}")
+    z1 = c.z[:, :1].contiguous()
+    ms = {"ek1_filter_states": time_ms(c.states_kernel, warmup=3, iters=20),
+          "ekd_smoother": time_ms(lambda: c.smoother_kernel(st_p), warmup=3,
+                                  iters=20),
+          "ekd_sampler": time_ms(lambda: c.sampler_kernel(st_p), warmup=3,
+                                 iters=20)}
+    extra = {
+        "ek1_filter_states (filter only)": lambda: c.states_kernel(smooth=False),
+        "ek1_filter_states (fixedMAP, filter only)":
+            lambda: c.states_kernel(static_diff="fixedMAP", smooth=False),
+        "ek1_filter_states (linearization trajectory)":
+            lambda: c.states_kernel(lin=us_kp),
+        "ekd_sampler S=1": lambda: c.sampler_kernel(st_p, z1),
+    }
+    for name, k_ms in ms.items():
+        say(f"   {name} kernel {k_ms:.4f} ms")
+    for name, fn in extra.items():
+        say(f"   {name} kernel {time_ms(fn, warmup=3, iters=20):.4f} ms")
+    say(f"   plain (once): ek1_filter_states {states_plain_ms:.1f} ms, "
+        f"ekd_smoother {smoother_plain_ms:.1f} ms, ekd_sampler S={S_MAIN} "
+        f"{sampler_plain_ms:.1f} ms")
+    del c, st_p, st_k
+    prob, u0s, ps = inputs(B_MAIN, torch.float32, TSPAN_MAIN)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    doors = {
+        "solve_ensemble(EK1)": lambda: odt.solve_ensemble(
+            prob, odt.EK1(order=Q), u0s, ps, n_save=T_MAIN),
+        "solve_ensemble(EK1(smooth=False))": lambda: odt.solve_ensemble(
+            prob, odt.EK1(order=Q, smooth=False), u0s, ps, n_save=T_MAIN),
+        "solve_ensemble(EK1(diffusionmodel='fixedMAP'))":
+            lambda: odt.solve_ensemble(
+                prob, odt.EK1(order=Q, diffusionmodel="fixedMAP"), u0s, ps,
+                n_save=T_MAIN),
+        "sample_ensemble(EK1) S=1": lambda: odt.sample_ensemble(
+            prob, odt.EK1(order=Q), u0s, ps, generator=g, n_steps=T_MAIN),
+        f"sample_ensemble(EK1) S={S_MAIN}": lambda: odt.sample_ensemble(
+            prob, odt.EK1(order=Q), u0s, ps, generator=g, n_steps=T_MAIN,
+            n_samples=S_MAIN),
+        "ieks_ensemble(IEKS, 3 sweeps)": lambda: odt.ieks_ensemble(
+            prob, odt.IEKS(order=Q), u0s, ps, n_steps=T_MAIN, iterations=3),
+    }
+    for name, fn in doors.items():
+        d_ms = time_ms(fn, warmup=2, iters=10)
+        say(f"   {name}: {d_ms:.3f} ms = {B_MAIN / d_ms * 1e3:.0f} members/s")
+    plain_ms = {"ek1_filter_states": states_plain_ms,
+                "ekd_smoother": smoother_plain_ms,
+                "ekd_sampler": sampler_plain_ms}
+    return ms, plain_ms, err
+
+
 def main() -> int:
     say("== 1. environment")
     if not torch.cuda.is_available():
@@ -1169,26 +1608,47 @@ def main() -> int:
         f"B={B_MAIN}, T={T_MAIN}")
     static_path(odt, card)
 
+    say(f"== 15. EK1 kernels vs plain, float64, B={B_CHECK}, T={T_CHECK}, "
+        f"S={S_CHECK}")
+    ek1_vs_plain("f64", EK1Case(B_CHECK, T_CHECK, torch.float64, TSPAN_CHECK,
+                                S_CHECK), rtol=1e-10, atol=1e-12)
+
+    say(f"== 16. EK1 kernels vs plain, float32, B={B_CHECK}, T={T_CHECK}, "
+        f"S={S_CHECK}")
+    ek1_vs_plain("f32", EK1Case(B_CHECK, T_CHECK, torch.float32, TSPAN_CHECK,
+                                S_CHECK), rtol=1e-4, atol=1e-6)
+
+    say(f"== 17. the EK1 paths: solve_ensemble(EK1), sample_ensemble(EK1), "
+        f"ieks_ensemble, B={B_MAIN}, T={T_MAIN}, tspan={TSPAN_MAIN}")
+    launches.update(ek1_path(odt, card))
+
+    say(f"== 18. the EK1 kernels vs plain and timing, float32, B={B_MAIN}, "
+        f"T={T_MAIN}, S={S_MAIN}")
+    e_ms, e_plain_ms, e_err = ek1_timing(odt, card)
+
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
     bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32, S_MAIN)
     for name, (b_ms, b_by, ops) in bounds.items():
         say(f"   {name}: {ops} operations per step and member; bound "
             f"{b_ms:.4f} ms by {b_by}")
-    b_ms, b_by, ops = kernel_bounds(B_MAIN, T_MAIN, torch.float32, 1)["ek0_sampler"]
-    say(f"   ek0_sampler at S=1: {ops} operations per step and member; bound "
-        f"{b_ms:.4f} ms by {b_by}")
+    bounds1 = kernel_bounds(B_MAIN, T_MAIN, torch.float32, 1)
+    for name in ("ek0_sampler", "ekd_sampler"):
+        b_ms, b_by, ops = bounds1[name]
+        say(f"   {name} at S=1: {ops} operations per step and member; bound "
+            f"{b_ms:.4f} ms by {b_by}")
 
     if failures:
         say(f"chip_smoke: {len(failures)} check(s) failed:")
         for f in failures:
             say(f"  - {f}")
         return 1
-    ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms}
+    ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
+          **e_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
-                **f_plain_ms, **s_plain_ms}
+                **f_plain_ms, **s_plain_ms, **e_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
-            **s_err}
+            **s_err, **e_err}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -1,9 +1,10 @@
 """Solver configurations for the PyTorch port (counterpart of
 ``odefilters/algorithms.py``).
 
-Frozen dataclasses validated as the JAX package validates them. ``EK1`` is
-a configuration only: no PyTorch solver runs it yet (ROADMAP.md queue 1,
-slices 3-4), and the ensemble front door rejects it by name.
+Frozen dataclasses validated as the JAX package validates them. The fused
+fixed-grid ensemble solves run ``EK0`` and ``EK1`` (and ``IEKS`` through
+``ieks_ensemble``); the sequential dense solver is not ported yet
+(ROADMAP.md queue 1, slice 3).
 """
 
 from __future__ import annotations
@@ -60,3 +61,18 @@ class EK1(AbstractEK):
     @property
     def is_ek1(self) -> bool:
         return True
+
+
+@dataclasses.dataclass(frozen=True)
+class IEKS(EK1):
+    """Iterated extended Kalman smoothing: each outer iteration re-solves
+    with the EK1 linearized at the previous smoothed mean
+    (``odefilters_torch.ieks_ensemble``). ``smooth`` is forced True."""
+
+    order: int = 1
+    smooth: bool = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not self.smooth:
+            raise ValueError("IEKS requires smooth=True")

@@ -78,3 +78,41 @@ def state_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
     ], axis=1)
     return torch.as_tensor(np.ascontiguousarray(rows), dtype=dtype,
                            device=resolve_device(device))
+
+
+def ek1_normals_from_numpy(z, *, device="cuda", dtype=torch.float64):
+    """The EK1 sampler's standard normals, a ``(T+1, S, D, B)`` numpy array
+    (the layout of the JAX package's ``ek1_fused_sample``, D = d(q+1)), as
+    a contiguous tensor on ``device`` (the CUDA card unless given)."""
+    z = np.asarray(z)
+    if z.ndim != 4:
+        raise ValueError(f"EK1 normals must be (T+1, S, D, B), got {z.shape}")
+    return torch.as_tensor(np.ascontiguousarray(z), dtype=dtype,
+                           device=resolve_device(device))
+
+
+def ek1_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
+                          dtype=torch.float64):
+    """The JAX package's EK1 filter stream (``ek1_fused_solve(...,
+    _debug=True)``) as numpy, ``(nb, T+1, D, W, 8, 128)`` with row r
+    ``[L row r (D) | m[r] | s2 (row 0 only) | tril(Lp) row r (W = 2D+2
+    only)]``, reordered into the port's stream ``(T+1, V, B)`` rows
+    ``[m (D) | L (D*D, row-major) | s2 | tril(Lp) row by row]``
+    (``ops.ek1_fused.stream_layout``; member ``blk*1024 + sub*128 +
+    lane``), on ``device`` (the CUDA card unless given)."""
+    st = np.asarray(st)
+    D = d * nq
+    if st.ndim != 6 or st.shape[2] != D or st.shape[3] not in (D + 2,
+                                                              2 * D + 2):
+        raise ValueError(
+            f"expected a (nb, T+1, {D}, {D + 2} or {2 * D + 2}, sub, lane) "
+            f"EK1 stream, got {st.shape}"
+        )
+    nb, T1, _, W, sub, lane = st.shape
+    x = st.transpose(1, 2, 3, 0, 4, 5).reshape(T1, D, W, nb * sub * lane)
+    parts = [x[:, :, D], x[:, :, :D].reshape(T1, D * D, -1), x[:, :1, D + 1]]
+    if W == 2 * D + 2:
+        parts.append(np.stack([x[:, r, D + 2 + c] for r in range(D)
+                               for c in range(r + 1)], axis=1))
+    return torch.as_tensor(np.ascontiguousarray(np.concatenate(parts, axis=1)),
+                           dtype=dtype, device=resolve_device(device))

@@ -27,11 +27,25 @@ def fitzhugh_nagumo_f(u, p, t):
     return torch.stack([dv, dw])
 
 
+def fitzhugh_nagumo_jac(u, p, t):
+    """Jacobian of `fitzhugh_nagumo_f` in ``u``, ``(d, d)`` or ``(d, d, B)``,
+    built with stack and broadcast like the JAX package's (``v**2`` as
+    ``v * v``); the CUDA field's ``jac`` uses the same order."""
+    a, b, tinv, izero = p
+    v = u[0]
+    o = torch.ones_like(v)
+    return torch.stack([
+        torch.stack([1 - v * v, -o]),
+        torch.stack([tinv * o, -tinv * b * o]),
+    ])
+
+
 def fitzhugh_nagumo(
     u0=(-1.0, 1.0), p=(0.7, 0.8, 1 / 12.5, 0.5), tspan=(0.0, 20.0), *,
     device="cuda", dtype=None,
 ) -> ODEProblem:
     """FitzHugh-Nagumo neuron model, as ``odefilters.models.fitzhugh_nagumo``,
     on the CUDA card unless ``device`` names another."""
-    return ode_problem(fitzhugh_nagumo_f, u0, tspan, p=p, field="fhn",
-                       device=device, dtype=dtype)
+    return ode_problem(fitzhugh_nagumo_f, u0, tspan, p=p,
+                       jac=fitzhugh_nagumo_jac, field="fhn", device=device,
+                       dtype=dtype)

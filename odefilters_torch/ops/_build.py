@@ -21,8 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
-SOURCES = ("ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
-HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh")
+SOURCES = ("ek1_fused.cu", "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
+HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
+           "ek1_fused.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,9 +44,13 @@ NVCC_FLAGS = (
 # the two builds' float32 times overlap; only the float64 backward is 10-15%
 # faster with contraction, about 1% of a solve there
 # (scripts/torch_kernel_fma.py --file ek0_pair.cu).
+#
+# The EK1 kernels likewise: their stream's s2 and the static models'
+# sigma^2 are the same innovation statistic.
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
-                "ek0_pair.cu": ("-fmad=false",)}
+                "ek0_pair.cu": ("-fmad=false",),
+                "ek1_fused.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +64,10 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                       consts)
 # ek0_filter_states: (m0_p, ps, stream_out, B, T, consts)
 # ek0_sampler: (stream_in, normals, out, B, T, S, consts)
+# ek1_filter_states: (m0_p, ps, lin, stream_out, sig, B, T, mode, smooth,
+#                     consts)
+# ekd_smoother: (stream_in, us, stds, B, T, consts)
+# ekd_sampler: (stream_in, normals, out, B, T, S, consts)
 ENTRIES = {}
 for _s in ("f32", "f64"):
     ENTRIES.update({
@@ -69,6 +78,9 @@ for _s in ("f32", "f64"):
         f"ek0_filter_grad_bwd_fhn_{_s}": (_P,) * 7 + (_I, _I, _D, _P),
         f"ek0_filter_states_fhn_{_s}": (_P, _P, _P, _I, _I, _D, _P),
         f"ek0_sampler_{_s}": (_P, _P, _P, _I, _I, _I, _D, _P),
+        f"ek1_filter_states_fhn_{_s}": (_P,) * 5 + (_I,) * 4 + (_D, _P),
+        f"ekd_smoother_{_s}": (_P, _P, _P, _I, _I, _D, _P),
+        f"ekd_sampler_{_s}": (_P, _P, _P, _I, _I, _I, _D, _P),
     })
 
 

@@ -18,6 +18,9 @@ from odefilters_torch.ops import _build
 
 # CUDA vector fields the kernels are instantiated for: name -> (d, n_params).
 CUDA_FIELDS = {"fhn": (2, 4)}
+# The fields whose functor also has a Jacobian ``jac`` (the EK1 kernels
+# evaluate it in the kernel).
+CUDA_JAC_FIELDS = frozenset({"fhn"})
 # The kernels are instantiated for this order only (nq = 4).
 CUDA_ORDERS = (3,)
 
@@ -48,13 +51,19 @@ def check_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype):
 
 
 def check_field(name: str, field: Optional[str], nq: int, d: int, B: int,
-                ps: torch.Tensor) -> None:
+                ps: torch.Tensor, need_jac: bool = False) -> None:
     """Raise unless the kernels are built for vector field ``field`` at
-    order ``nq - 1``, with ``ps`` of shape ``(n_params, B)``."""
+    order ``nq - 1``, with ``ps`` of shape ``(n_params, B)``, and (with
+    ``need_jac``) the field has a CUDA Jacobian."""
     if field not in CUDA_FIELDS:
         raise NotImplementedError(
             f"no CUDA vector field {field!r}; the kernels are built for "
             f"{sorted(CUDA_FIELDS)}"
+        )
+    if need_jac and field not in CUDA_JAC_FIELDS:
+        raise NotImplementedError(
+            f"{name}: the CUDA vector field {field!r} has no Jacobian; the "
+            f"EK1 kernels evaluate one in the kernel ({sorted(CUDA_JAC_FIELDS)})"
         )
     d_f, n_params = CUDA_FIELDS[field]
     if nq - 1 not in CUDA_ORDERS or d != d_f or tuple(ps.shape) != (n_params, B):

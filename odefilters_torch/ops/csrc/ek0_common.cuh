@@ -80,6 +80,19 @@ __device__ __forceinline__ S floor_at(S x, S floor) {
   return x < floor ? floor : x;
 }
 
+// The measurement residual pb h - f (ek0_pair.py: innovation). In float
+// it is taken from the exact product in double and rounded once, as a fused
+// multiply-add forms it: the rounded product cancels against f to exactly 0
+// at the accuracy floor, and s2 = 0 leaves a backward pass a singular
+// predicted factor.
+__device__ __forceinline__ float innovation(float pb, float h, float f) {
+  return (float)((double)pb * (double)h - (double)f);
+}
+
+__device__ __forceinline__ double innovation(double pb, double h, double f) {
+  return pb * h - f;
+}
+
 template <typename S, int NQ, int D>
 __device__ __forceinline__ void store_row(S* __restrict__ st, size_t row0,
                                           size_t sB, const S (&m)[NQ][D],
@@ -174,7 +187,7 @@ template <typename S, int NQ, int D>
 struct StepVals {
   S mp[NQ][D];     // predicted mean
   S u[D];          // predicted solution pinv0 * mp[0]
-  S z[D];          // innovation pb * mp[BX] - f(u)
+  S z[D];          // innovation pb * mp[BX] - f(u), rounded once
   S zz, s2;        // |z|^2 and the step's diffusion
   S Cp[NQ][NQ];    // predicted covariance (symmetric)
   S s, inv_s;      // innovation variance pb^2 Cp[BX][BX] and its inverse
@@ -209,7 +222,7 @@ __device__ __forceinline__ void ek0_step(const FwdConsts<S, NQ>& c,
   for (int j = 0; j < D; ++j) v.u[j] = c.pinv0 * v.mp[0][j];
   F()(v.u, p, t, du);
 #pragma unroll
-  for (int j = 0; j < D; ++j) v.z[j] = pb * v.mp[BX][j] - du[j];
+  for (int j = 0; j < D; ++j) v.z[j] = innovation(pb, v.mp[BX][j], du[j]);
   v.zz = S(0);
 #pragma unroll
   for (int j = 0; j < D; ++j) v.zz += v.z[j] * v.z[j];
@@ -248,34 +261,44 @@ __device__ __forceinline__ void ek0_step(const FwdConsts<S, NQ>& c,
 // diffusion models (the C entry points' mode argument)
 enum Mode { DYNAMIC = 0, FIXED = 1, FIXED_MAP = 2, FIXED_MV = 3 };
 
+// The scalar models' running estimate after one more step (kf previous
+// steps) from the step's statistic local = z^T S^-1 z / D: the MLE (FIXED)
+// or the online InverseGamma(1/2, 1/2) MAP (FIXED_MAP), as in
+// ek0_pair.py: static_scalar_update. The EK1 filter calls it too.
+template <int MODE, typename S, int D>
+__device__ __forceinline__ void static_scalar_update(S& sig, S kf, S local) {
+  const S kmax = kf < S(1) ? S(1) : kf;
+  if (MODE == FIXED) {
+    const S cand = sig + (local - sig) / kmax;
+    sig = kf == S(0) ? local : cand;
+  } else if (MODE == FIXED_MAP) {
+    const S alpha = S(0.5), beta = S(0.5);
+    const S N = kf + S(1);
+    const S den = alpha + N * S(D) * S(0.5) + S(1);
+    const S first = (beta + S(0.5) * local) / den;
+    const S res_prev =
+        (sig * (alpha + (N - S(1)) * S(D) * S(0.5) + S(1)) - beta) * S(2);
+    const S later = (beta + S(0.5) * (res_prev + local)) / den;
+    sig = kf == S(0) ? first : later;
+  }
+}
+
 // Running static-diffusion estimate after one more step (kf previous
 // steps): the MLE (fixed: scalar, fixedMV: per dimension) or the online
 // InverseGamma(1/2, 1/2) MAP (fixedMAP). Scalar models use sig[0].
 template <int MODE, typename S, int D>
 __device__ __forceinline__ void static_update(S (&sig)[D], S kf, S zz,
                                               const S (&z)[D], S inv_s) {
-  const S kmax = kf < S(1) ? S(1) : kf;
   if (MODE == FIXED_MV) {
+    const S kmax = kf < S(1) ? S(1) : kf;
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       const S local = z[j] * z[j] * inv_s;
       const S cand = sig[j] + (local - sig[j]) / kmax;
       sig[j] = kf == S(0) ? local : cand;
     }
-  } else if (MODE == FIXED) {
-    const S local = zz * inv_s * (S(1) / S(D));
-    const S cand = sig[0] + (local - sig[0]) / kmax;
-    sig[0] = kf == S(0) ? local : cand;
-  } else if (MODE == FIXED_MAP) {
-    const S alpha = S(0.5), beta = S(0.5);
-    const S local = zz * inv_s * (S(1) / S(D));
-    const S N = kf + S(1);
-    const S den = alpha + N * S(D) * S(0.5) + S(1);
-    const S first = (beta + S(0.5) * local) / den;
-    const S res_prev =
-        (sig[0] * (alpha + (N - S(1)) * S(D) * S(0.5) + S(1)) - beta) * S(2);
-    const S later = (beta + S(0.5) * (res_prev + local)) / den;
-    sig[0] = kf == S(0) ? first : later;
+  } else if (MODE != DYNAMIC) {
+    static_scalar_update<MODE, S, D>(sig[0], kf, zz * inv_s * (S(1) / S(D)));
   }
 }
 

@@ -37,7 +37,7 @@
 // innovation at the accuracy floor and scales the noise factor in both
 // kernels, so they round op by op as their plain versions do on the card.
 // In float the filter's residual is the exact product in double, rounded
-// once (innovation, ek0_sample.cuh): a rounded product cancels to s2 = 0 now
+// once (innovation, ek0_common.cuh): a rounded product cancels to s2 = 0 now
 // and then, and such a step leaves the sampler a singular predicted factor.
 
 #include <cuda_runtime.h>

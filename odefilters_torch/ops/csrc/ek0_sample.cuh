@@ -61,52 +61,58 @@ __device__ __forceinline__ void load_states(const S* __restrict__ st,
   s2 = st[row0 + v * sB];
 }
 
-// Structural zeros of a 2NQ x NQ stack [X^T; (sqrt(s2) QLt)^T] (TRI): row
-// NQ + a is zero in the columns i < a, since QLt is lower triangular. The
-// modified Gram-Schmidt below never fills them in: a row's first live
-// column comes before any column it is updated in.
-template <int NQ, bool TRI>
+// Structural zeros of a K x N stack [X^T; (sqrt(s2) QL)^T; ...] (TRI): row
+// N + a is zero in the columns i < a, since the noise factor QL is lower
+// triangular. The modified Gram-Schmidt below never fills them in: a row's
+// first live column comes before any column it is updated in. (For EK1's
+// QL = kron(QLt, I_d), the other zeros of row N + a are filled in when
+// column a is reduced, before their own columns come: they are stored as
+// zeros and updated as any entry.)
+template <int N, bool TRI>
 __device__ __forceinline__ constexpr bool stack_zero(int k, int j) {
-  return TRI && k >= NQ && j < k - NQ;
+  return TRI && k >= N && j < k - N;
 }
 
-// Lower factor L (L L^T = M^T M) of the 2NQ x NQ stack M = v by modified
+// Lower factor L (L L^T = M^T M) of the K x N stack M = v by modified
 // Gram-Schmidt: pivots sqrt(max(ss, 1e-30)) and their reciprocals 1 / R;
-// the terms through structural zeros are skipped at compile time. v is
-// overwritten.
-template <typename S, int NQ, bool TRI>
-__device__ __forceinline__ void mgs_tril(S (&v)[2 * NQ][NQ],
-                                         S (&L)[NQ][NQ]) {
-  constexpr int K = 2 * NQ;
-  S R[NQ][NQ];
+// the terms through structural zeros are skipped at compile time. With
+// diag_sq (TRI stacks only), the square of row N + j's entry in column j,
+// the only one still untouched when column j is reduced, is taken from
+// diag_sq[j] instead (a constant squared in double: the static diffusion
+// models' stack holds the noise factor as constants). v is overwritten.
+template <typename S, int N, int K, bool TRI>
+__device__ __forceinline__ void mgs_tril(S (&v)[K][N], S (&L)[N][N],
+                                         const S* diag_sq = nullptr) {
+  S R[N][N];
   S qcol[K];
 #pragma unroll
-  for (int j = 0; j < NQ; ++j) {
+  for (int j = 0; j < N; ++j) {
     S ss = S(0);
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      if (!stack_zero<NQ, TRI>(k, j)) ss += v[k][j] * v[k][j];
+      if (!stack_zero<N, TRI>(k, j))
+        ss += (TRI && k == N + j && diag_sq) ? diag_sq[j] : v[k][j] * v[k][j];
     R[j][j] = sqrt_(floor_at(ss, S(1e-30)));
     const S inv = S(1) / R[j][j];
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      qcol[k] = stack_zero<NQ, TRI>(k, j) ? S(0) : v[k][j] * inv;
+      qcol[k] = stack_zero<N, TRI>(k, j) ? S(0) : v[k][j] * inv;
 #pragma unroll
-    for (int l = j + 1; l < NQ; ++l) {
+    for (int l = j + 1; l < N; ++l) {
       S r = S(0);
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        if (!stack_zero<NQ, TRI>(k, j)) r += qcol[k] * v[k][l];
+        if (!stack_zero<N, TRI>(k, j)) r += qcol[k] * v[k][l];
       R[j][l] = r;
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        if (!stack_zero<NQ, TRI>(k, j)) v[k][l] = v[k][l] - r * qcol[k];
+        if (!stack_zero<N, TRI>(k, j)) v[k][l] = v[k][l] - r * qcol[k];
     }
   }
 #pragma unroll
-  for (int i = 0; i < NQ; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int l = 0; l < NQ; ++l) L[i][l] = l <= i ? R[l][i] : S(0);
+    for (int l = 0; l < N; ++l) L[i][l] = l <= i ? R[l][i] : S(0);
 }
 
 // Solve L L^T x = b: forward and back substitution dividing by the pivots.
@@ -146,19 +152,6 @@ __device__ __forceinline__ void at_times(const S (&At)[NQ][NQ],
     }
 }
 
-// The measurement residual pb h - f (ek0_sample.py: innovation). In float
-// it is taken from the exact product in double and rounded once, as a fused
-// multiply-add forms it: the rounded product cancels against f to exactly 0
-// at the accuracy floor, and s2 = 0 leaves the sampler a singular predicted
-// factor.
-__device__ __forceinline__ float innovation(float pb, float h, float f) {
-  return (float)((double)pb * (double)h - (double)f);
-}
-
-__device__ __forceinline__ double innovation(double pb, double h, double f) {
-  return pb * h - f;
-}
-
 // The predicted factor Lp of [(At L)^T; (sq QLt)^T], with AtL = At L.
 template <typename S, int NQ>
 __device__ __forceinline__ void predicted_factor(const SampleConsts<S, NQ>& c,
@@ -172,7 +165,7 @@ __device__ __forceinline__ void predicted_factor(const SampleConsts<S, NQ>& c,
       v[k][i] = AtL[i][k];
       v[NQ + k][i] = i >= k ? sq * c.QLt[i][k] : S(0);
     }
-  mgs_tril<S, NQ, true>(v, Lp);
+  mgs_tril<S, NQ, 2 * NQ, true>(v, Lp);
 }
 
 // One square-root EK0 step with the dynamic diffusion from (m, L): predict
@@ -279,7 +272,7 @@ __device__ __forceinline__ void sampler_shared(const SampleConsts<S, NQ>& c,
       v[NQ + l][i] = sq * gq;
     }
   }
-  mgs_tril<S, NQ, false>(v, Lc);
+  mgs_tril<S, NQ, 2 * NQ, false>(v, Lc);
 }
 
 }  // namespace ek0

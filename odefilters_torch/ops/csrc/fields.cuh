@@ -1,9 +1,11 @@
 // Vector fields the fused EK0 pair is built for.
 //
 // Each field is a functor over one ensemble member: D (state dimension),
-// NP (parameter count), operator()(u, p, t, du), and its vector-Jacobian
+// NP (parameter count), operator()(u, p, t, du), its vector-Jacobian
 // product vjp(u, p, t, g, gu, gp), which writes gu = (df/du)^T g and adds
-// (df/dp)^T g to gp (the filter's hand-written adjoint calls it). The
+// (df/dp)^T g to gp (the filter's hand-written adjoint calls it), and its
+// Jacobian jac(u, p, t, J), J = df/du row-major D x D (the EK1 kernels
+// evaluate it in the kernel). The
 // order of operations follows the model's PyTorch form in
 // odefilters_torch/models/library.py, which the plain versions evaluate
 // and differentiate by autograd; a field is selected by the name that
@@ -39,5 +41,16 @@ struct Fhn {
     gp[1] -= g1t * w;
     gp[2] += g[1] * (v + a - b * w);
     gp[3] += g[0];
+  }
+
+  __device__ __forceinline__ void jac(const S* u, const S* p, S t,
+                                      S* J) const {
+    (void)t;
+    const S b = p[1], tinv = p[2];
+    const S v = u[0];
+    J[0] = S(1) - v * v;
+    J[1] = S(-1);
+    J[2] = tinv;
+    J[3] = -tinv * b;
   }
 };

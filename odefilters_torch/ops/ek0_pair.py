@@ -6,6 +6,9 @@ this module                         ``odefilters/ops/pallas_kernels.py``
 ==================================  =========================================
 ``pair_layout``                     ``_pair_layout``
 ``static_local_update``             ``_static_local_update``
+``innovation``                      ``z = pb * mp[bx][j] - du[j]`` of
+                                    ``_ek0_step_lists`` (float32: rounded
+                                    once)
 ``ek0_step_core``                   ``_ek0_step_lists(collapsed=True)``
 ``list_chol_inv``                   ``_list_chol_inv``
 ``list_cho_solve_inv``              ``_list_cho_solve_inv``
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from odefilters_torch.ops._blocks import _is0, _lists, _smul, _sreduce
@@ -68,18 +72,27 @@ def static_local_update(static_diff: str, calib, zz, z, inv_s, d: int):
     list of d for ``fixedMV``) and the count of previous steps as a float
     tensor. Returns the updated ``(sig, k + 1)``."""
     sig, kf = calib
-
-    def fixed_run(prev, local):
-        cand = prev + (local - prev) / torch.clamp(kf, min=1.0)
-        return torch.where(kf == 0.0, local, cand)
-
     if static_diff == "fixedMV":
-        sig_new = [fixed_run(sig[j], z[j] * z[j] * inv_s) for j in range(d)]
-    elif static_diff == "fixed":
-        sig_new = fixed_run(sig, zz * inv_s / d)
+        sig_new = [_fixed_run(sig[j], kf, z[j] * z[j] * inv_s)
+                   for j in range(d)]
+        return sig_new, kf + 1.0
+    return static_scalar_update(static_diff, calib, zz * inv_s / d, d)
+
+
+def _fixed_run(prev, kf, local):
+    cand = prev + (local - prev) / torch.clamp(kf, min=1.0)
+    return torch.where(kf == 0.0, local, cand)
+
+
+def static_scalar_update(static_diff: str, calib, local, d: int):
+    """The scalar models' running update from one step's statistic
+    ``local`` (``z^T S^-1 z / d``): the running MLE (fixed) or the online
+    InverseGamma(1/2, 1/2) MAP (fixedMAP). ``calib = (sig, k)`` as in
+    `static_local_update`; returns ``(sig, k + 1)``."""
+    sig, kf = calib
+    if static_diff == "fixed":
+        sig_new = _fixed_run(sig, kf, local)
     elif static_diff == "fixedMAP":
-        # InverseGamma(1/2, 1/2) MAP, updated online
-        local = zz * inv_s / d
         alpha, beta = 0.5, 0.5
         N = kf + 1.0
         first = (beta + 0.5 * local) / (alpha + N * d / 2 + 1)
@@ -89,6 +102,22 @@ def static_local_update(static_diff: str, calib, zz, z, inv_s, d: int):
     else:
         raise ValueError(f"unknown static diffusion {static_diff!r}")
     return sig_new, kf + 1.0
+
+
+def innovation(pb: float, h, du):
+    """The measurement residual ``pb h - du``. In float32 it is taken from
+    the exact product in float64 and rounded once, as a fused multiply-add
+    forms it: at the accuracy floor the rounded product cancels against
+    ``du`` to exactly 0 now and then (579 of the headline ensemble's
+    4,096,000 float32 steps in the pair's forward and in the filter;
+    ``scripts/torch_residual_census.py``), and a step with s2 = 0 hands a
+    backward pass a singular predicted factor: the backward sampler's f32
+    paths of such a member then miss the f64 ones by up to O(1)
+    (``scripts/torch_sampler_innovation.py``). In float64 it is the plain
+    difference."""
+    if h.dtype == torch.float32:
+        return (float(np.float32(pb)) * h.double() - du.double()).float()
+    return pb * h - du
 
 
 def check_diffusion(diffusion: str) -> Optional[str]:
@@ -130,7 +159,7 @@ def ek0_step_core(
     ]
     u_pred = torch.stack([pinv0 * mp[0][j] for j in range(d)])
     du = f(u_pred, p, t_new)
-    z = [pb * mp[b][j] - du[j] for j in range(d)]
+    z = [innovation(pb, mp[b][j], du[j]) for j in range(d)]
     zz = _sreduce([zj * zj for zj in z])
     s2 = 1.0 if static else zz / (d * hq)
     act = [a for a in range(nq) if a != b]

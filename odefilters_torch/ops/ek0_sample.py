@@ -11,7 +11,7 @@ this module                        ``odefilters/ops/pallas_kernels.py``
 ``list_mgs_tril``                  ``_list_mgs_tril(rsqrt=False)``
 ``list_cho_solve``                 ``_list_cho_solve``
 ``states_hq``                      ``hq`` of ``_ek0_filter_states_kernel``
-``innovation``                     its ``z = pb * mp[bx][j] - du[j]``
+``innovation`` (``ek0_pair``)      its ``z = pb * mp[bx][j] - du[j]``
 ``filter_states_step``             the step body of
                                    ``_ek0_filter_states_kernel``
 ``ek0_filter_states_plain`` /      ``_ek0_filter_states_kernel`` (CUDA:
@@ -59,6 +59,7 @@ import torch
 from odefilters_torch.ops import _launch
 from odefilters_torch.ops import ek0_pair as ep
 from odefilters_torch.ops._blocks import _is0, _lists, _smul, _sreduce
+from odefilters_torch.ops.ek0_pair import innovation
 
 BX = 1  # the measured derivative block of a first-order problem
 
@@ -129,20 +130,6 @@ def states_hq(QLt, pinv1: float, dtype: torch.dtype) -> float:
     precision."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     return pinv1 * pinv1 * float((np.asarray(QLt).astype(np_dtype)[BX] ** 2).sum())
-
-
-def innovation(pb: float, h, du):
-    """The measurement residual ``pb h - du``. In float32 it is taken from
-    the exact product in float64 and rounded once, as a fused multiply-add
-    forms it: at the accuracy floor the rounded product cancels against
-    ``du`` to exactly 0 now and then, and a step with s2 = 0 hands the
-    backward sampler a singular predicted factor: the f32 sample paths of
-    such a member then miss the f64 ones by up to O(1)
-    (``scripts/torch_sampler_innovation.py`` counts both). In float64 it is
-    the plain difference."""
-    if h.dtype == torch.float32:
-        return (float(np.float32(pb)) * h.double() - du.double()).float()
-    return pb * h - du
 
 
 def _times_lists(At, X, nq: int, ncol: int):

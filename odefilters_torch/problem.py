@@ -26,6 +26,10 @@ class ODEProblem:
         tspan: ``(t0, t1)``.
         p: parameters passed through to ``f`` (a tensor or None).
         f: vector field ``f(u, p, t) -> du`` on torch tensors.
+        jac: optional Jacobian ``jac(u, p, t) -> (d, d)`` of ``f`` in ``u``,
+            in the same index-and-stack style (``(d, d, B)`` on an ensemble);
+            the EK1 plain versions derive it from JVP columns when absent.
+            The EK1 kernels use the CUDA field's own Jacobian instead.
         field: name of the vector field's CUDA implementation
             (``odefilters_torch/ops/csrc/fields.cuh``), which the fused
             kernels select by; None when the problem has none, and then
@@ -38,6 +42,7 @@ class ODEProblem:
     tspan: tuple
     p: Any = None
     f: Optional[Callable] = None
+    jac: Optional[Callable] = None
     field: Optional[str] = None
     second_order: bool = False
     mass_matrix: Optional[torch.Tensor] = None
@@ -87,8 +92,8 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def ode_problem(f, u0, tspan, p=None, *, field=None, mass_matrix=None,
-                device="cuda", dtype=None) -> ODEProblem:
+def ode_problem(f, u0, tspan, p=None, *, jac=None, field=None,
+                mass_matrix=None, device="cuda", dtype=None) -> ODEProblem:
     """Convenience constructor: coerces ``u0`` and ``p`` to tensors on
     ``device`` (the CUDA card unless given; see `resolve_device`) in
     ``dtype`` (float64 unless given)."""
@@ -98,4 +103,4 @@ def ode_problem(f, u0, tspan, p=None, *, field=None, mass_matrix=None,
     if p is not None:
         p = torch.as_tensor(p, dtype=dtype, device=device)
     return ODEProblem(u0=u0, tspan=tuple(float(t) for t in tspan), p=p, f=f,
-                      field=field, mass_matrix=mass_matrix)
+                      jac=jac, field=field, mass_matrix=mass_matrix)

@@ -340,11 +340,16 @@ def _ensemble(B=8):
     return prob, prob.u0[None].expand(B, 2), prob.p[None].expand(B, 4)
 
 
+class _DiagonalEK1(odt.EK1):
+    is_diagonal_ek1 = True
+
+
 @pytest.mark.parametrize(
     "alg, kwargs, match",
     [
         (odt.EK0(order=Q), dict(adaptive=True), "adaptive"),
-        (odt.EK1(order=Q), {}, "EK1"),
+        # EK1 runs on its own kernels; DiagonalEK1 is not ported yet
+        (_DiagonalEK1(order=Q), {}, "DiagonalEK1"),
         # the fixed-grid pair runs the static models; the adaptive kernels
         # never take them, as in the JAX package
         (odt.EK0(order=Q, diffusionmodel="fixed"), dict(adaptive=True),
@@ -382,3 +387,51 @@ def test_fused_solve_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         ep.ek0_fused_solve(odt.models.fitzhugh_nagumo(device="cpu").f, m0, ps,
                            0.0, 0.1, 5, Q, **kwargs)
+
+
+@pytest.mark.parametrize("path", ["pair", "filter"])
+def test_float32_residual_rounded_once(monkeypatch, path):
+    """Member 3612 of the headline ensemble (u0 + 0.1 N(0, 1), numpy seed
+    0; FHN at dt = 0.04, Taylor init in f32), 80 steps. With the residual
+    taken as the rounded product less du, the f32 forward (the pair's, and
+    the filter's, which shares its step) streams s2 = 0 at step 78, the
+    earliest of the 579 such steps of the 8192 x 500 ensemble
+    (scripts/torch_residual_census.py); with the residual rounded once
+    (`ek0_pair.innovation`) no step does. The f32 means stay within 1e-4
+    of f64 either way (measured 5.1e-7 and 8.7e-7 for the pair, 6.3e-7 and
+    5.2e-7 for the filter): the pair's backward adds a jitter and the filter
+    has no backward pass, so a singular predicted factor does not hurt
+    them as it hurts the sampler's."""
+    from odefilters_torch.ops import ek0_filter as ef
+    from odefilters_torch.taylor import taylor_coefficients
+
+    T, dt = 80, 20.0 / 500
+    prob = odt.models.fitzhugh_nagumo(device="cpu", tspan=(0.0, T * dt))
+    u0 = prob.u0 + 0.1 * torch.from_numpy(
+        np.random.default_rng(0).standard_normal((8192, D))[3612])
+    At, Qt, _, p = ep.pair_constants(Q, dt)
+    kw = dict(At=At, Qt=Qt, pinv0=float(1 / p[0]), pinv1=float(1 / p[1]),
+              t0=0.0, dt=dt, n_steps=T)
+
+    def run(dtype):
+        ps = prob.p[:, None].to(dtype)
+        m0 = torch.stack(taylor_coefficients(prob.f, u0[:, None].to(dtype), ps,
+                                             0.0, Q))
+        m0_p = torch.as_tensor(p, dtype=dtype)[:, None, None] * m0
+        if path == "pair":
+            st = ep.ek0_pair_fwd_plain(prob.f, m0_p, ps, **kw)
+            us = ep.ek0_pair_bwd_plain(
+                st, nq=NQ, d=D, At=At, Qt=Qt, QLt=ep.pair_constants(Q, dt)[2],
+                pinv0=kw["pinv0"],
+                jitter=1e-6 if dtype == torch.float32 else 1e-12)[:, :D]
+        else:
+            us, _, _, st = ef.ek0_filter_fwd_stream_plain(prob.f, m0_p, ps, **kw)
+        return st[1:, -1], us.double()
+
+    _, us64 = run(torch.float64)
+    s2, us32 = run(torch.float32)
+    assert (s2 > 0).all() and float((us32 - us64).abs().max()) <= 1e-4
+    monkeypatch.setattr(ep, "innovation", lambda pb, h, du: pb * h - du)
+    s2, us32 = run(torch.float32)
+    assert int(torch.nonzero(s2 == 0)[0, 0]) == 77
+    assert float((us32 - us64).abs().max()) <= 1e-4
