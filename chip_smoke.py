@@ -13,10 +13,14 @@ smoother pair (dynamic and static diffusions), the filter with its
 per-member log-likelihood and that likelihood's gradient by
 ``torch.autograd``, and the joint-posterior sampler; with EK1 the filter
 with and without the smoother (dynamic, fixed, fixedMAP), the sampler and
-the ensemble IEKS. It checks float32 against float64 on the worst lanes, float64
-against an independent high-accuracy integrator, the float64 gradient
-against a finite difference, the sampler's calibration, and times each
-path, each kernel and the plain versions with CUDA events.
+the ensemble IEKS; and the front door's default, the adaptive EK0 solve
+with and without the smoother (8192 members over (0, 20), 20 save
+intervals, abstol 1e-6, reltol 1e-4: the JAX package's
+parameter-inference row). It checks float32 against float64 on the worst
+lanes, float64 against an independent high-accuracy integrator, the
+float64 gradient against a finite difference, the sampler's calibration,
+and times each path, each kernel and the plain versions with CUDA
+events.
 
 Phases:
   1. environment: a CUDA card, its name and power limit, TF32 off;
@@ -79,22 +83,45 @@ Phases:
      lanes (float64);
  18. the EK1 kernels against their plain versions at 8192 x 500 in
      float32 (S = 8 normals from ``torch.randn``), then the timings of each
-     kernel, each EK1 front door and each plain version once.
+     kernel, each EK1 front door and each plain version once;
+ 19. the three adaptive EK0 kernels against their plain versions at 1000
+     members over (0, 20), 20 save intervals, abstol 1e-6, reltol 1e-4, in
+     float64 and float32: the counts (nacc, nrej, failed, save points
+     reached) on every member, the outputs to 1e-12 (float64) and 1e-5
+     (float32) relative, bit-for-bit equality reported; the streaming
+     kernel on its accepted rows and through the smoother kernel, the
+     smoother kernel on the plain stream;
+ 20. the adaptive front doors, ``solve_ensemble(EK0(smooth=s))`` with its
+     default ``adaptive=True``, at 8192 members in that setting, float32
+     and float64, each run with the counts set to 0 before it and read
+     after it: no failed member, nacc and nrej, the warp efficiency (mean
+     attempts per member over the mean of each warp's largest), the worst
+     member against DOP853 (float32 within max(5 x float64's, 1e-4)),
+     float32 against float64, the accepted float32 steps that stream
+     s2 = 0 (none), the stream's bytes, and the solves/s of each front door
+     (median of 10 after 2 warm-ups);
+ 21. the three adaptive kernels against their plain versions at 8192
+     members in float32 (each plain version run once), their times and
+     their bounds from that run's counts.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the ten kernels with their launches on their
-path, errors, times, plain times and bounds (``bound_ms``: the larger of
-the bytes each must move over 3.35 TB/s and the operations its plain
-version does, counted per step under a dispatch mode, over 67 TFLOP/s of
-float32; H100 SXM data sheet). ``max_abs_err`` is kernel against plain at
+the line before it lists the thirteen kernels with their launches on
+their path, errors, times, plain times and bounds (``bound_ms``: the
+larger of the bytes each must move over 3.35 TB/s and the operations its
+plain version does, counted per step under a dispatch mode, over 67
+TFLOP/s of float32; H100 SXM data sheet; the adaptive kernels' operations
+are counted per attempt (per smoothing step) and multiplied by the run's
+attempts (accepted steps)). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
 for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18,
 S = 8; the filter kernel's means, and its stream through the smoother
-kernel). The samplers' times, plain times and bounds are those at S = 8.
+kernel); and at 8192 members in float32 for the adaptive kernels (phase
+21). The samplers' times, plain times and bounds are those at S = 8.
 The EK1 launches are those of ``solve_ensemble(EK1)`` (filter, smoother)
-and ``sample_ensemble(EK1, S=8)`` (sampler) in float32.
+and ``sample_ensemble(EK1, S=8)`` (sampler) in float32; the adaptive
+launches those of the float32 adaptive front doors of phase 20.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -169,6 +196,9 @@ SOURCE = {
     "ek1_filter_states": "odefilters_torch/ops/csrc/ek1_fused.cu",
     "ekd_smoother": "odefilters_torch/ops/csrc/ek1_fused.cu",
     "ekd_sampler": "odefilters_torch/ops/csrc/ek1_fused.cu",
+    "ek0_adaptive": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
+    "ek0_adaptive_stream": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
+    "ek0_adaptive_smoother": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -181,10 +211,18 @@ REPLACES = {
     "ek1_filter_states": "odefilters/ops/pallas_kernels.py:5224",
     "ekd_smoother": "odefilters/ops/pallas_kernels.py:5338",
     "ekd_sampler": "odefilters/ops/pallas_kernels.py:5486",
+    "ek0_adaptive": "odefilters/ops/pallas_kernels.py:6143",
+    "ek0_adaptive_stream": "odefilters/ops/pallas_kernels.py:8434",
+    "ek0_adaptive_smoother": "odefilters/ops/pallas_kernels.py:8660",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
 S_CHECK, S_MAIN = 3, 8
+# the adaptive paths: the JAX package's parameter-inference row
+# (benchmarks/run_all.py), its max_iters for the filter and the pair
+TSPAN_ADA, S_ADA = (0.0, 20.0), 20
+ADA_TOL = dict(abstol=1e-6, reltol=1e-4)
+MAX_ITERS_FILTER, MAX_ITERS_PAIR = 20_000, 4096
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
@@ -427,6 +465,7 @@ class EK1Case:
 
 def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
+    from odefilters_torch.ops import ek0_adaptive as ea
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
@@ -440,7 +479,10 @@ def counters():
             "ek0_sampler": es.ek0_sampler,
             "ek1_filter_states": e1.ek1_filter_states,
             "ekd_smoother": e1.ekd_smoother,
-            "ekd_sampler": e1.ekd_sampler}
+            "ekd_sampler": e1.ekd_sampler,
+            "ek0_adaptive": ea.ek0_adaptive,
+            "ek0_adaptive_stream": ea.ek0_adaptive_stream,
+            "ek0_adaptive_smoother": ea.ek0_adaptive_smoother}
 
 
 def reset_counts():
@@ -506,17 +548,16 @@ def report_grad(name, got, ref):
           "held)")
 
 
-def count_ops(make):
-    """Floating-point operations a plain version does per step and member:
-    aten arithmetic calls, weighted by the elements they produce, counted
-    under a dispatch mode for one member, over 2 steps less over 1 step.
-    ``make(T)`` sets up the inputs for T steps (uncounted) and returns the
-    call to count."""
+def ops_of(call):
+    """Floating-point operations of ``call()``: aten arithmetic calls,
+    weighted by the elements they produce, counted under a dispatch mode."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arith = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt",
-             "log", "clamp", "clamp_min", "where", "reciprocal", "pow",
-             "maximum", "minimum", "eq", "ne", "gt", "lt", "ge", "le", "abs"}
+             "log", "exp", "clamp", "clamp_min", "clamp_max", "where",
+             "reciprocal", "pow", "maximum", "minimum", "eq", "ne", "gt", "lt",
+             "ge", "le", "abs", "isfinite", "bitwise_and", "bitwise_or",
+             "bitwise_not", "logical_not"}
 
     class Count(TorchDispatchMode):
         n = 0
@@ -529,14 +570,17 @@ def count_ops(make):
                             else out[0]).numel()
             return out
 
-    totals = []
-    for T in (1, 2):
-        call = make(T)
-        Count.n = 0
-        with Count():
-            call()
-        totals.append(Count.n)
-    return totals[1] - totals[0]
+    with Count():
+        call()
+    return Count.n
+
+
+def count_ops(make):
+    """Floating-point operations a plain version does per step and member:
+    `ops_of` for one member, over 2 steps less over 1 step. ``make(T)``
+    sets up the inputs for T steps (uncounted) and returns the call to
+    count."""
+    return ops_of(make(2)) - ops_of(make(1))
 
 
 def bound(nbytes, ops_per_step, B, T):
@@ -550,8 +594,8 @@ def bound(nbytes, ops_per_step, B, T):
 
 def kernel_bounds(B, T, dtype, S):
     """{name: (bound_ms, bound_by, operations per step and member)} of the
-    ten kernels at (B, T), the samplers at S samples: each reads its
-    inputs once and writes its outputs once."""
+    ten fixed-grid kernels at (B, T), the samplers at S samples: each reads
+    its inputs once and writes its outputs once."""
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
@@ -778,11 +822,12 @@ def filter_path(odt, dtype):
     names = ("ek0_filter", "ek0_filter_grad_fwd", "ek0_filter_grad_bwd")
     reset_counts()
     with torch.no_grad():
-        sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN)
+        sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN,
+                                 adaptive=False)
     torch.cuda.synchronize()
     primal_counts = read_counts(*names)
     u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
-    solg = odt.solve_ensemble(prob, alg, u, p, n_save=T_MAIN)
+    solg = odt.solve_ensemble(prob, alg, u, p, n_save=T_MAIN, adaptive=False)
     g_u, g_p = torch.autograd.grad(filter_loss(solg), (u, p))
     torch.cuda.synchronize()
     counts = read_counts(*names)
@@ -929,7 +974,8 @@ def sampler_path(odt, card, sol32, sol64):
     pt = prob64.p[None].expand(B_MAIN, 4).contiguous()
     us = odt.sample_ensemble(prob64, alg, u0t, pt, n_steps=T_MAIN,
                              generator=torch.Generator(device=DEVICE).manual_seed(11))
-    ref = odt.solve_ensemble(prob64, alg, u0t[:1], pt[:1], n_save=T_MAIN)
+    ref = odt.solve_ensemble(prob64, alg, u0t[:1], pt[:1], n_save=T_MAIN,
+                             adaptive=False)
     mean_s, std_s = ref.us[:, :, 0], ref.stds[:, 0]
     se = std_s[:, None] / B_MAIN ** 0.5
     dmean = (us.mean(dim=2) - mean_s).abs()
@@ -1013,7 +1059,8 @@ def static_path(odt, card):
         for dtype in (torch.float32, torch.float64):
             prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_MAIN)
             reset_counts()
-            sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN)
+            sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN,
+                                     adaptive=False)
             torch.cuda.synchronize()
             counts = read_counts("ek0_pair_fwd", "ek0_pair_bwd")
             shape = (2, B_MAIN) if static == "fixedMV" else (B_MAIN,)
@@ -1109,7 +1156,8 @@ def ek1_front_doors(odt, dtype):
     for smooth, model in EK1_MODES:
         alg = odt.EK1(order=Q, smooth=smooth, diffusionmodel=model)
         reset_counts()
-        sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN)
+        sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN,
+                                 adaptive=False)
         torch.cuda.synchronize()
         counts = read_counts(*names)
         if smooth and model == "dynamic":
@@ -1246,7 +1294,8 @@ def ek1_path(odt, card):
     alg = odt.EK1(order=Q)
     us = odt.sample_ensemble(prob1, alg, u0t, pt, n_steps=T_MAIN,
                              generator=torch.Generator(device=DEVICE).manual_seed(11))
-    ref = odt.solve_ensemble(prob1, alg, u0t[:1], pt[:1], n_save=T_MAIN)
+    ref = odt.solve_ensemble(prob1, alg, u0t[:1], pt[:1], n_save=T_MAIN,
+                             adaptive=False)
     mean_s, std_s = ref.us[:, :, 0], ref.stds[:, :, 0]
     se = std_s / B_MAIN ** 0.5
     dmean = (us.mean(dim=2) - mean_s).abs()
@@ -1327,13 +1376,14 @@ def ek1_timing(odt, card):
     g = torch.Generator(device=DEVICE).manual_seed(3)
     doors = {
         "solve_ensemble(EK1)": lambda: odt.solve_ensemble(
-            prob, odt.EK1(order=Q), u0s, ps, n_save=T_MAIN),
+            prob, odt.EK1(order=Q), u0s, ps, n_save=T_MAIN, adaptive=False),
         "solve_ensemble(EK1(smooth=False))": lambda: odt.solve_ensemble(
-            prob, odt.EK1(order=Q, smooth=False), u0s, ps, n_save=T_MAIN),
+            prob, odt.EK1(order=Q, smooth=False), u0s, ps, n_save=T_MAIN,
+            adaptive=False),
         "solve_ensemble(EK1(diffusionmodel='fixedMAP'))":
             lambda: odt.solve_ensemble(
                 prob, odt.EK1(order=Q, diffusionmodel="fixedMAP"), u0s, ps,
-                n_save=T_MAIN),
+                n_save=T_MAIN, adaptive=False),
         "sample_ensemble(EK1) S=1": lambda: odt.sample_ensemble(
             prob, odt.EK1(order=Q), u0s, ps, generator=g, n_steps=T_MAIN),
         f"sample_ensemble(EK1) S={S_MAIN}": lambda: odt.sample_ensemble(
@@ -1349,6 +1399,282 @@ def ek1_timing(odt, card):
                 "ekd_smoother": smoother_plain_ms,
                 "ekd_sampler": sampler_plain_ms}
     return ms, plain_ms, err
+
+
+class AdaptiveCase:
+    """The adaptive kernels' arguments for one ensemble over TSPAN_ADA at
+    ADA_TOL with S_ADA save intervals (the inputs of `inputs`; Taylor init
+    and initial steps as the front door makes them), and both versions of
+    each of the three kernels."""
+
+    def __init__(self, B, dtype):
+        from odefilters_torch.ops import ek0_adaptive as ea
+
+        self.ea = ea
+        self.prob, self.u0s, self.ps_b = inputs(B, dtype, TSPAN_ADA)
+        self.f, self.field = self.prob.f, self.prob.field
+        self.m0, self.ps, self.dt0s = ea._init(self.f, self.u0s, self.ps_b,
+                                               TSPAN_ADA, Q, **ADA_TOL)
+        self.c_filter, self.c_pair = (
+            ea.controller(Q, *TSPAN_ADA, S_ADA, dtype, max_iters=mi, **ADA_TOL)
+            for mi in (MAX_ITERS_FILTER, MAX_ITERS_PAIR))
+        self.args = (self.m0, self.ps, self.dt0s)
+
+    def filter_kernel(self):
+        return self.ea.ek0_adaptive(self.f, self.field, *self.args,
+                                    self.c_filter)
+
+    def filter_plain(self):
+        return self.ea.ek0_adaptive_plain(self.f, *self.args, self.c_filter)
+
+    def stream_kernel(self):
+        return self.ea.ek0_adaptive_stream(self.f, self.field, *self.args,
+                                           self.c_pair)
+
+    def stream_plain(self):
+        return self.ea.ek0_adaptive_stream_plain(self.f, *self.args,
+                                                 self.c_pair)
+
+    def smoother_kernel(self, st, counts):
+        return self.ea.ek0_adaptive_smoother(st, counts, self.m0, self.c_pair)
+
+    def smoother_plain(self, st, counts):
+        return self.ea.ek0_adaptive_smoother_plain(st, counts, self.m0,
+                                                   self.c_pair)
+
+
+def same_counts(name, got, ref):
+    """Check nacc, nrej, failed and the save points reached equal on every
+    member."""
+    differ = int((got != ref).any(dim=0).sum())
+    check(differ == 0, f"{name}: nacc, nrej, failed and save points reached "
+          f"equal on every member ({differ} differ)")
+
+
+def bitwise(name, got, ref):
+    """Report whether ``got`` equals ``ref`` bit for bit."""
+    n = int((got != ref).sum())
+    say(f"   {name}: {'bit for bit' if n == 0 else f'{n} entries differ'}")
+
+
+def adaptive_vs_plain(label, case, rtol):
+    """Phase 19 (and 21): each adaptive kernel against its plain version on
+    the same inputs: the counts on every member, the outputs at ``rtol``
+    relative (bit-for-bit equality reported), the stream kernel through the
+    smoother kernel and on its accepted rows directly, the smoother kernel
+    on the plain stream. Returns each kernel's largest |kernel - plain|
+    and the plain versions' milliseconds."""
+    (us_p, sd_p, ll_p, cn_p), f_ms = once(case.filter_plain)
+    (st_p, ls_p, cs_p), s_ms = once(case.stream_plain)
+    (usm_p, sdm_p), m_ms = once(lambda: case.smoother_plain(st_p, cs_p))
+    us_k, sd_k, ll_k, cn_k = case.filter_kernel()
+    st_k, ls_k, cs_k = case.stream_kernel()
+    usm_kp, sdm_kp = case.smoother_kernel(st_p, cs_p)
+    usm_kk, sdm_kk = case.smoother_kernel(st_k, cs_k)
+    torch.cuda.synchronize()
+    name = f"{label} ek0_adaptive_kernel"
+    same_counts(name, cn_k, cn_p)
+    err = {"ek0_adaptive": max(close(f"{name}, us", us_k, us_p, rtol, 0.0),
+                               close(f"{name}, stds", sd_k, sd_p, rtol, 0.0),
+                               close(f"{name}, lls", ll_k, ll_p, rtol, 0.0))}
+    for what, got, ref in (("us", us_k, us_p), ("stds", sd_k, sd_p),
+                           ("lls", ll_k, ll_p)):
+        bitwise(f"{name}, {what}", got, ref)
+    name = f"{label} ek0_adaptive_stream_kernel"
+    same_counts(name, cs_k, cs_p)
+    valid = (torch.arange(st_p.shape[0], device=DEVICE)[:, None]
+             < cs_p[0].long()[None])[:, None, :].expand(st_p.shape)
+    bitwise(f"{name}, accepted rows", st_k[valid], st_p[valid])
+    err["ek0_adaptive_stream"] = max(
+        close(f"{name}, lls", ls_k, ls_p, rtol, 0.0),
+        close(f"{name}, us through the smoother kernel", usm_kk, usm_kp, rtol,
+              0.0),
+        close(f"{name}, stds through the smoother kernel", sdm_kk, sdm_kp,
+              rtol, 0.0))
+    name = f"{label} ek0_adaptive_smoother_kernel on the plain stream"
+    err["ek0_adaptive_smoother"] = max(
+        close(f"{name}, us", usm_kp, usm_p, rtol, 0.0),
+        close(f"{name}, stds", sdm_kp, sdm_p, rtol, 0.0))
+    bitwise(f"{name}, us", usm_kp, usm_p)
+    bitwise(f"{name}, stds", sdm_kp, sdm_p)
+    return err, {"ek0_adaptive": f_ms, "ek0_adaptive_stream": s_ms,
+                 "ek0_adaptive_smoother": m_ms}
+
+
+def reference_ensemble(u0s, ps, ts):
+    """All members of a FitzHugh-Nagumo ensemble by scipy's DOP853 at
+    rtol = atol = 1e-12, as one system: ``(len(ts), 2, B)``."""
+    from scipy.integrate import solve_ivp
+
+    B = u0s.shape[0]
+    a, b, tinv, izero = ps.T
+
+    def f(t, y):
+        v, w = y[:B], y[B:]
+        return np.concatenate([v - v ** 3 / 3 - w + izero,
+                               tinv * (v + a - b * w)])
+
+    sol = solve_ivp(f, (ts[0], ts[-1]), np.concatenate([u0s[:, 0], u0s[:, 1]]),
+                    method="DOP853", t_eval=ts, rtol=1e-12, atol=1e-12)
+    return sol.y.reshape(2, B, -1).transpose(2, 0, 1)
+
+
+def warp_efficiency(attempts):
+    """Mean attempts per member over the mean, across warps of 32
+    consecutive members, of the warp's largest attempt count."""
+    a = attempts.double()
+    pad = (-a.numel()) % 32
+    w = torch.cat([a, a.new_zeros(pad)]).reshape(-1, 32)
+    return float(a.mean() / w.max(dim=1).values.mean())
+
+
+def adaptive_path(odt, card):
+    """Phase 20: both adaptive front doors at 8192 members over TSPAN_ADA
+    (the JAX package's parameter-inference row), float32 and float64, each
+    run with the counts set to 0 before it and read after it; the counts,
+    failures, the worst member against DOP853, float32 against float64,
+    the accepted float32 steps that stream s2 = 0, the warp efficiency, and
+    the solves/s of each front door. Returns the float32 launches."""
+    from odefilters_torch.ops import ek0_adaptive as ea
+
+    ts = np.linspace(*TSPAN_ADA, S_ADA + 1)
+    doors = {"smoothed": ("ek0_adaptive_stream", "ek0_adaptive_smoother"),
+             "filter": ("ek0_adaptive",)}
+    launches, sols, worst = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        label = str(dtype).replace("torch.", "")
+        prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_ADA)
+        # each dtype's own (rounded) initial values
+        ref = reference_ensemble(u0s.double().cpu().numpy(),
+                                 ps.double().cpu().numpy(), ts)
+        for door, names in doors.items():
+            alg = odt.EK0(order=Q, smooth=door == "smoothed")
+            kw = dict(n_save=S_ADA, **ADA_TOL, max_iters=(
+                MAX_ITERS_PAIR if door == "smoothed" else MAX_ITERS_FILTER))
+            reset_counts()
+            sol = odt.solve_ensemble(prob, alg, u0s, ps, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts(*names)
+            if dtype == torch.float32:
+                launches.update(counts)
+            head = f"{label} solve_ensemble(EK0(smooth={door == 'smoothed'}))"
+            check(all(n == 1 for n in counts.values()),
+                  f"{head}: launches in the run {counts}, one each")
+            shapes = (tuple(sol.us.shape), tuple(sol.stds.shape))
+            check(shapes == ((S_ADA + 1, 2, B_MAIN), (S_ADA + 1, B_MAIN))
+                  and bool(torch.isfinite(sol.us).all())
+                  and bool(torch.isfinite(sol.stds).all()),
+                  f"{head}: us, stds {shapes}, finite")
+            n_fail = int(sol.failed.sum())
+            check(n_fail == 0, f"{head}: {n_fail} failed members")
+            att = sol.nacc + sol.nrej
+            err = np.abs(sol.us.double().cpu().numpy() - ref)
+            member = int(err.max(axis=(0, 1)).argmax())
+            worst[(dtype, door)] = float(err.max())
+            say(f"   {head}: nacc mean {float(sol.nacc.double().mean()):.2f} "
+                f"max {int(sol.nacc.max())}, nrej mean "
+                f"{float(sol.nrej.double().mean()):.2f} max "
+                f"{int(sol.nrej.max())}; warp efficiency "
+                f"{warp_efficiency(att):.4f}; worst member {member} vs DOP853 "
+                f"{worst[(dtype, door)]:.3e}")
+            sols[(dtype, door)] = sol
+    for door in doors:
+        e32, e64 = worst[(torch.float32, door)], worst[(torch.float64, door)]
+        lim = max(5 * e64, 1e-4)
+        check(e32 <= lim, f"{door}: float32 worst member vs DOP853 {e32:.3e} "
+              f"<= max(5 x float64's {e64:.3e}, 1e-4) = {lim:.3e}")
+        a, b = sols[(torch.float32, door)], sols[(torch.float64, door)]
+        d = (a.us.double() - b.us).abs()
+        say(f"   {door}: float32 vs float64 means max |dus| {float(d.max()):.3e} "
+            f"(member {int(d.amax(dim=(0, 1)).argmax())}); members whose "
+            f"counts differ {int(((a.nacc != b.nacc) | (a.nrej != b.nrej)).sum())}")
+    # the accepted float32 steps that stream s2 = 0 (a singular factor for
+    # the smoother)
+    case = AdaptiveCase(B_MAIN, torch.float32)
+    st, _, cs = case.stream_kernel()
+    n = cs[0].long()
+    rows = torch.arange(st.shape[0], device=DEVICE)[:, None] < n[None]
+    s2_col = ea.stream_width(Q + 1, 2) - 2      # [m | L | lh | s2 | save]
+    zeros = int((st[:, s2_col][rows] == 0).sum())
+    check(zeros == 0, f"float32: {zeros} of {int(n.sum())} accepted steps "
+          "stream s2 = 0")
+    stream_mb = int(n.sum()) * st.shape[1] * st.element_size() / 1e6
+    say(f"   float32 stream: {int(n.sum())} accepted rows of {st.shape[1]} "
+        f"values written, {stream_mb:.1f} MB (allocated "
+        f"{st.numel() * st.element_size() / 1e6:.1f} MB)")
+    del st, case
+    say(f"   timing: median of 10 after 2 warm-ups, CUDA events; card: {card}")
+    for dtype in (torch.float32, torch.float64):
+        prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_ADA)
+        for door in doors:
+            alg = odt.EK0(order=Q, smooth=door == "smoothed")
+            kw = dict(n_save=S_ADA, **ADA_TOL, max_iters=(
+                MAX_ITERS_PAIR if door == "smoothed" else MAX_ITERS_FILTER))
+            d_ms = time_ms(lambda: odt.solve_ensemble(prob, alg, u0s, ps, **kw),
+                           warmup=2, iters=10)
+            say(f"   {str(dtype)[6:]} solve_ensemble(EK0, adaptive, {door}): "
+                f"{d_ms:.3f} ms = {B_MAIN / d_ms * 1e3:.0f} solves/s")
+    return launches
+
+
+def adaptive_timing(card):
+    """Phase 21: the three kernels against their plain versions at 8192
+    members in float32 (each plain version run once), then each kernel's
+    time and its bound from this run's counts. Returns (ms, plain ms, max
+    |kernel - plain|, {name: (bound_ms, bound_by, ops per unit)})."""
+    from odefilters_torch.ops import ek0_adaptive as ea
+
+    case = AdaptiveCase(B_MAIN, torch.float32)
+    err, plain_ms = adaptive_vs_plain(f"f32 at {B_MAIN}", case, 1e-5)
+    _, _, _, cn = case.filter_kernel()
+    st, _, cs = case.stream_kernel()
+    torch.cuda.synchronize()
+    say(f"   timing, float32, B={B_MAIN}: CUDA events; card: {card}")
+    ms = {"ek0_adaptive": time_ms(case.filter_kernel, warmup=3, iters=20),
+          "ek0_adaptive_stream": time_ms(case.stream_kernel, warmup=3,
+                                         iters=20),
+          "ek0_adaptive_smoother": time_ms(
+              lambda: case.smoother_kernel(st, cs), warmup=3, iters=20)}
+    for name in ms:
+        say(f"   {name} kernel {ms[name]:.4f} ms, plain (once) "
+            f"{plain_ms[name]:.1f} ms")
+    # operations: the plain attempt body per attempt and member and the
+    # plain smoother step per accepted step but the last, each counted for
+    # one member of this ensemble
+    one = AdaptiveCase(1, torch.float32)
+    mem = ea.Members.start(one.m0, one.dt0s, one.c_pair.t0)
+    live = torch.ones(1, dtype=torch.bool, device=DEVICE)
+    ops_att = ops_of(lambda: ea.attempt(mem, one.ps, f=one.f, c=one.c_pair,
+                                        live=live))
+    m_f, L_f, lh, s2, _ = ea._unpack(st[:1, :, :1].reshape(-1, 1), Q + 1, 2)
+    ops_step = ops_of(lambda: ea.smoother_step(
+        m_f, L_f, m_f, L_f, lh, s2, At=ea._lists(one.c_pair.At),
+        QLt=ea._lists(one.c_pair.QLt), nq=Q + 1, d=2))
+    attempts = int((cn[0] + cn[1]).sum())
+    acc = int(cs[0].sum())
+    item = 4
+    nq, d, n_p, S1 = Q + 1, 2, 4, S_ADA + 1
+    W = st.shape[1]
+    inp = (nq * d + n_p + 1) * B_MAIN * item
+    grid_out = S1 * (d + 1) * B_MAIN * item
+    lane_out = B_MAIN * item + ea.N_COUNTS * B_MAIN * 4
+    bounds = {
+        "ek0_adaptive": bound(inp + grid_out + lane_out, ops_att, 1, attempts)
+        + (ops_att,),
+        "ek0_adaptive_stream": bound(inp + acc * W * item + lane_out, ops_att,
+                                     1, int((cs[0] + cs[1]).sum()))
+        + (ops_att,),
+        "ek0_adaptive_smoother": bound(
+            acc * W * item + ea.N_COUNTS * B_MAIN * 4 + d * B_MAIN * item
+            + grid_out, ops_step, 1, acc - B_MAIN) + (ops_step,),
+    }
+    say(f"   operations: {ops_att} per attempt and member ({attempts} "
+        f"attempts in the filter's run), {ops_step} per smoothing step "
+        f"({acc} accepted steps); stream written "
+        f"{acc * W * item / 1e6:.1f} MB")
+    for name, (b_ms, b_by, _) in bounds.items():
+        say(f"   {name}: bound {b_ms:.4f} ms by {b_by}")
+    return ms, plain_ms, err, bounds
 
 
 def main() -> int:
@@ -1502,12 +1828,14 @@ def main() -> int:
     def losses64(eps):
         with torch.no_grad():
             sol = odt.solve_ensemble(prob64f, alg_f, u0s64f + eps * v_u,
-                                     ps64f + eps * v_p, n_save=T_MAIN)
+                                     ps64f + eps * v_p, n_save=T_MAIN,
+                                     adaptive=False)
             return float(filter_loss(sol)), float(smooth_part(sol))
 
     u, p = u0s64f.clone().requires_grad_(), ps64f.clone().requires_grad_()
     gs_u, gs_p = torch.autograd.grad(
-        smooth_part(odt.solve_ensemble(prob64f, alg_f, u, p, n_save=T_MAIN)),
+        smooth_part(odt.solve_ensemble(prob64f, alg_f, u, p, n_save=T_MAIN,
+                                       adaptive=False)),
         (u, p))
     ad = (float((g_u * v_u).sum() + (g_p * v_p).sum()),
           float((gs_u * v_u).sum() + (gs_p * v_p).sum()))
@@ -1570,11 +1898,13 @@ def main() -> int:
 
     def solve_fwd():
         with torch.no_grad():
-            odt.solve_ensemble(prob32f, alg_f, u0s32f, ps32f, n_save=T_MAIN)
+            odt.solve_ensemble(prob32f, alg_f, u0s32f, ps32f, n_save=T_MAIN,
+                               adaptive=False)
 
     def solve_grad():
         u, p = u0s32f.clone().requires_grad_(), ps32f.clone().requires_grad_()
-        sol = odt.solve_ensemble(prob32f, alg_f, u, p, n_save=T_MAIN)
+        sol = odt.solve_ensemble(prob32f, alg_f, u, p, n_save=T_MAIN,
+                                 adaptive=False)
         torch.autograd.grad(filter_loss(sol), (u, p))
 
     fwd_solve_ms = time_ms(solve_fwd, warmup=3, iters=20)
@@ -1626,6 +1956,20 @@ def main() -> int:
         f"T={T_MAIN}, S={S_MAIN}")
     e_ms, e_plain_ms, e_err = ek1_timing(odt, card)
 
+    say(f"== 19. adaptive kernels vs plain, B={B_CHECK}, tspan={TSPAN_ADA}, "
+        f"{S_ADA} save intervals, {ADA_TOL}")
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        adaptive_vs_plain(str(dtype).replace("torch.", ""),
+                          AdaptiveCase(B_CHECK, dtype), rtol)
+
+    say(f"== 20. the adaptive paths: solve_ensemble(EK0), adaptive, "
+        f"B={B_MAIN}, tspan={TSPAN_ADA}, {S_ADA} save intervals, {ADA_TOL}")
+    launches.update(adaptive_path(odt, card))
+
+    say(f"== 21. the adaptive kernels vs plain and timing, float32, "
+        f"B={B_MAIN}")
+    a_ms, a_plain_ms, a_err, a_bounds = adaptive_timing(card)
+
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
     bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32, S_MAIN)
@@ -1644,11 +1988,12 @@ def main() -> int:
             say(f"  - {f}")
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
-          **e_ms}
+          **e_ms, **a_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
-                **f_plain_ms, **s_plain_ms, **e_plain_ms}
+                **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
-            **s_err, **e_err}
+            **s_err, **e_err, **a_err}
+    bounds.update(a_bounds)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

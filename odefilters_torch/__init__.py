@@ -4,29 +4,37 @@ Probabilistic ODE solvers (Gaussian ODE filters) on PyTorch, with the hot
 path in hand-written CUDA kernels for the NVIDIA H100. The JAX package
 ``odefilters`` beside it is the reference; module paths mirror it.
 
-Ported so far, on a uniform grid with the IBM prior: the fused EK0 filter +
-RTS smoother ensemble solve (dynamic or static diffusion), the fused EK0
-filter with its per-member log-likelihood (dynamic or static diffusion)
-and that likelihood's gradient by ``torch.autograd``, joint
-smoothing-posterior sample paths (dynamic diffusion), and the same solve
-(dynamic, fixed or fixedMAP; with or without the smoother) and sampler
-with EK1, and the ensemble IEKS::
+Ported so far, with the IBM prior: the adaptive per-member EK0 ensemble
+solve (the default, as in the JAX package: PI-controlled steps per member,
+filter + RTS smoother over each member's accepted steps, or the filter
+alone), and on a uniform grid the fused EK0 filter + RTS smoother ensemble
+solve (dynamic or static diffusion), the fused EK0 filter with its
+per-member log-likelihood (dynamic or static diffusion) and that
+likelihood's gradient by ``torch.autograd``, joint smoothing-posterior
+sample paths (dynamic diffusion), and the same solve (dynamic, fixed or
+fixedMAP; with or without the smoother) and sampler with EK1, and the
+ensemble IEKS::
 
     import torch
     import odefilters_torch as odt
     prob = odt.models.fitzhugh_nagumo(dtype=torch.float32)  # on the card
-    sol = odt.solve_ensemble(prob, odt.EK0(order=3), u0s, ps, n_save=500)
-    sol.us, sol.stds   # (501, 2, B), (501, B)
+    sol = odt.solve_ensemble(prob, odt.EK0(order=3), u0s, ps, n_save=20,
+                             abstol=1e-6, reltol=1e-4)   # adaptive
+    sol.us, sol.stds   # (21, 2, B), (21, B) smoothed, on the save grid
+    sol.nacc, sol.nrej, sol.failed  # (B,) per-member step counts, flags
+    sol = odt.solve_ensemble(prob, odt.EK0(order=3), u0s, ps, n_save=500,
+                             adaptive=False)             # 500 uniform steps
     mv = odt.solve_ensemble(prob, odt.EK0(order=3, diffusionmodel="fixedMV"),
-                            u0s, ps, n_save=500)
+                            u0s, ps, n_save=500, adaptive=False)
     mv.diffusions      # (2, B) calibrated sigma^2; mv.stds is (501, 2, B)
     fil = odt.solve_ensemble(prob, odt.EK0(order=3, smooth=False), u0s, ps,
-                             n_save=500)
+                             n_save=500, adaptive=False)
     fil.lls            # (B,), differentiable in u0s and ps
     g = torch.Generator(device="cuda").manual_seed(0)
     paths = odt.sample_ensemble(prob, odt.EK0(order=3), u0s, ps, generator=g,
                                 n_steps=500, n_samples=8)  # (501, 8, 2, B)
-    ek1 = odt.solve_ensemble(prob, odt.EK1(order=3), u0s, ps, n_save=500)
+    ek1 = odt.solve_ensemble(prob, odt.EK1(order=3), u0s, ps, n_save=500,
+                             adaptive=False)
     ek1.stds           # (501, 2, B): per-dimension stds
     odt.sample_ensemble(prob, odt.EK1(order=3), u0s, ps, generator=g,
                         n_steps=500)                     # (501, 2, B)

@@ -1,15 +1,18 @@
 """Front door of the fused ensemble solves (counterpart of
 ``odefilters/ensemble.py``).
 
-Ported so far, on uniform grids with EK0: the filter + RTS smoother on the
-fused pair (`ops.ek0_pair`), the filter alone with its per-member
+Ported so far, with adaptive steps (the default, as in the JAX package)
+and EK0: the per-member adaptive filter and the adaptive filter + RTS
+smoother over each member's accepted steps (`ops.ek0_adaptive`). On
+uniform grids (``adaptive=False``) with EK0: the filter + RTS smoother on
+the fused pair (`ops.ek0_pair`), the filter alone with its per-member
 log-likelihood and gradient (`ops.ek0_filter`), both under the dynamic or
 a static diffusion, and the joint-posterior sampler (`ops.ek0_sample`,
 dynamic diffusion); with EK1 (`ops.ek1_fused`): the filter with or without
 the RTS smoother under the dynamic, fixed or fixedMAP diffusion, the
 joint-posterior sampler and the ensemble IEKS (`ieks_ensemble`). Every
 other branch of the JAX front door raises ``NotImplementedError`` naming
-the ROADMAP.md slice that ports it.
+the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ from typing import Optional
 import torch
 
 from odefilters_torch.algorithms import AbstractEK
+from odefilters_torch.ops.ek0_adaptive import (
+    solve_ensemble_ek0_adaptive, solve_ensemble_ek0_adaptive_smooth,
+)
 from odefilters_torch.ops.ek0_filter import solve_ensemble_ek0
 from odefilters_torch.ops.ek0_pair import solve_ensemble_ek0_smooth
 from odefilters_torch.ops.ek0_sample import sample_ensemble_ek0
@@ -37,16 +43,21 @@ class EnsembleKernelSolution:
     ``(S+1, B)`` marginal stds from EK0 (its covariance is isotropic across
     dims), or ``(S+1, d, B)`` per-dimension stds from EK1 (its covariance
     is not) and from EK0 under fixedMV. ``lls``: ``(B,)`` ODE-residual
-    log-likelihoods from the EK0 filter path (all NaN under a static
-    diffusion; None from the smoothers and from EK1). ``diffusions``: the
-    calibrated per-member global sigma^2 under a static diffusion, ``(B,)``
-    or ``(d, B)`` for fixedMV; None otherwise. The JAX package's step counts
-    come with the adaptive paths that produce them.
+    log-likelihoods from the EK0 filter paths and the adaptive paths (all
+    NaN under a static diffusion; None from the fixed-grid smoothers and
+    from EK1). ``nacc``, ``nrej``: ``(B,)`` int32 accepted and rejected
+    attempts per member, and ``failed``: ``(B,)`` bool, from the adaptive
+    paths (None on fixed grids). ``diffusions``: the calibrated per-member
+    global sigma^2 under a static diffusion, ``(B,)`` or ``(d, B)`` for
+    fixedMV; None otherwise.
     """
 
     us: torch.Tensor
     stds: torch.Tensor
     lls: Optional[torch.Tensor] = None
+    nacc: Optional[torch.Tensor] = None
+    nrej: Optional[torch.Tensor] = None
+    failed: Optional[torch.Tensor] = None
     diffusions: Optional[torch.Tensor] = None
 
 
@@ -56,29 +67,42 @@ def solve_ensemble(
     u0s: torch.Tensor,
     ps: torch.Tensor,
     *,
-    n_save: int,
-    adaptive: bool = False,
+    n_save: int = 20,
+    adaptive: bool = True,
+    abstol: float = 1e-6,
+    reltol: float = 1e-3,
+    max_iters: Optional[int] = None,
     mesh=None,
 ) -> EnsembleKernelSolution:
     """Solve ``B`` independent IVPs ``(u0s[i], ps[i])`` on the fused kernels.
 
     ``u0s``: ``(B, d)``; ``ps``: ``(B, n_params)``; any ``B >= 1``.
-    ``n_save`` is the number of uniform steps over ``prob.tspan``. Tensors
-    on a CUDA device run the CUDA kernels (the problem must name a CUDA
-    vector field in ``prob.field``, with a Jacobian for EK1); CPU tensors
-    run the plain versions. With EK0 and ``smooth=False`` the result
-    carries ``lls``, and gradients of it with respect to ``u0s`` and ``ps``
-    flow by ``torch.autograd`` (dynamic diffusion only). EK1 runs the
-    dynamic, fixed or fixedMAP diffusion, with or without the smoother.
+    ``n_save``: the number of uniform save intervals over ``prob.tspan``;
+    adaptive members land on the save grid exactly (tstops). On fixed
+    grids (``adaptive=False``) it is the step count, and the tolerances
+    are unused. Tensors on a CUDA device run the CUDA kernels (the problem
+    must name a CUDA vector field in ``prob.field``, with a Jacobian for
+    EK1); CPU tensors run the plain versions.
+
+    Adaptive (EK0, the dynamic diffusion): each member runs its own
+    PI-controlled steps at ``abstol`` / ``reltol``; ``max_iters`` bounds
+    each member's attempts (default 1024 with the smoother, whose stream
+    it sizes, else 100 000) and the result carries ``lls``, ``nacc``,
+    ``nrej`` and ``failed``. Fixed grids: with EK0 and ``smooth=False`` the
+    result carries ``lls``, and gradients of it with respect to ``u0s``
+    and ``ps`` flow by ``torch.autograd`` (dynamic diffusion only); EK1
+    runs the dynamic, fixed or fixedMAP diffusion, with or without the
+    smoother.
     """
-    if adaptive and alg.diffusionmodel != "dynamic":
+    if adaptive:
+        return _solve_adaptive(prob, alg, u0s, ps, n_save=n_save,
+                               abstol=abstol, reltol=reltol,
+                               max_iters=max_iters, mesh=mesh)
+    if getattr(alg, "is_diagonal_ek1", False):
         raise NotImplementedError(
-            f"the fused adaptive kernels implement the dynamic diffusion "
-            f"model; got {alg.diffusionmodel!r}: static models are per-lane "
-            f"ill-posed under per-lane step control; use adaptive=False "
-            f"(the fixed-grid kernels run fixed/fixedMAP/fixedMV)"
+            "DiagonalEK1 ensemble kernels are not ported yet (ROADMAP.md "
+            "queue 2 item 10: _ek1d_kernel)"
         )
-    _check_unported(alg, adaptive)
     if alg.diffusionmodel == "dynamicMV":
         raise NotImplementedError(
             "dynamicMV is not on the fused kernels, as in the JAX package"
@@ -100,16 +124,54 @@ def solve_ensemble(
     return EnsembleKernelSolution(*outs, diffusions=sig)
 
 
+def _solve_adaptive(prob, alg, u0s, ps, *, n_save, abstol, reltol, max_iters,
+                    mesh) -> EnsembleKernelSolution:
+    """The adaptive branch of `solve_ensemble` (EK0 only so far)."""
+    if alg.diffusionmodel != "dynamic":
+        raise NotImplementedError(
+            f"the fused adaptive kernels implement the dynamic diffusion "
+            f"model; got {alg.diffusionmodel!r}: static models are per-lane "
+            f"ill-posed under per-lane step control; use adaptive=False "
+            f"(the fixed-grid kernels run fixed/fixedMAP/fixedMV)"
+        )
+    if getattr(alg, "is_diagonal_ek1", False):
+        raise NotImplementedError(
+            "adaptive DiagonalEK1 ensemble kernels are not ported yet "
+            "(ROADMAP.md queue 2 items 13 and 15); pass adaptive=False once "
+            "the fixed-grid DiagonalEK1 filter lands (item 10)"
+        )
+    if alg.is_ek1:
+        raise NotImplementedError(
+            "adaptive EK1 ensemble kernels are not ported yet (ROADMAP.md "
+            "queue 2 items 12 and 16); pass adaptive=False"
+        )
+    if getattr(prob, "mass_matrix", None) is not None:
+        raise NotImplementedError(
+            "mass-matrix problems are supported on the dense solver paths only"
+        )
+    kw = dict(q=alg.order, abstol=abstol, reltol=reltol, prior=alg.prior,
+              mesh=mesh, second_order=prob.second_order, field=prob.field)
+    if alg.smooth:
+        out = solve_ensemble_ek0_adaptive_smooth(
+            prob.f, u0s, ps, prob.tspan, n_save,
+            max_iters=1024 if max_iters is None else max_iters, **kw)
+    else:
+        out = solve_ensemble_ek0_adaptive(
+            prob.f, u0s, ps, prob.tspan, n_save,
+            max_iters=100_000 if max_iters is None else max_iters, **kw)
+    return EnsembleKernelSolution(*out)
+
+
 def _check_unported(alg: AbstractEK, adaptive: bool) -> None:
     if adaptive:
         raise NotImplementedError(
-            "adaptive ensemble kernels are not ported yet "
-            "(ROADMAP.md queue 1, slice 5); pass adaptive=False"
+            "the adaptive sampler is not ported yet (ROADMAP.md queue 1, "
+            "slice 5: queue 2 item 17); pass adaptive=False"
         )
     if getattr(alg, "is_diagonal_ek1", False):
         raise NotImplementedError(
             "DiagonalEK1 ensemble kernels are not ported yet (ROADMAP.md "
-            "queue 1, the rest of slice 4: _ek1d_kernel)"
+            "queue 2 item 10: _ek1d_kernel)"
         )
 
 

@@ -21,9 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
-SOURCES = ("ek1_fused.cu", "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
+SOURCES = ("ek1_fused.cu", "ek0_adaptive.cu", "ek0_pair.cu", "ek0_filter.cu",
+           "ek0_sample.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
-           "ek1_fused.cuh")
+           "ek1_fused.cuh", "ek0_adaptive.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,11 +47,13 @@ NVCC_FLAGS = (
 # (scripts/torch_kernel_fma.py --file ek0_pair.cu).
 #
 # The EK1 kernels likewise: their stream's s2 and the static models'
-# sigma^2 are the same innovation statistic.
+# sigma^2 are the same innovation statistic. And the adaptive kernels: their
+# step loop turns a one-ulp difference into another accepted step sequence.
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
-                "ek1_fused.cu": ("-fmad=false",)}
+                "ek1_fused.cu": ("-fmad=false",),
+                "ek0_adaptive.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +71,12 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                     consts)
 # ekd_smoother: (stream_in, us, stds, B, T, consts)
 # ekd_sampler: (stream_in, normals, out, B, T, S, consts)
+# ek0_adaptive: (m0, ps, dt0s, us, stds, lls, counts, B, n_save, max_iters,
+#                consts)
+# ek0_adaptive_stream: (m0, ps, dt0s, stream_out, lls, counts, B, n_save,
+#                       max_iters, consts)
+# ek0_adaptive_smoother: (stream_in, counts, m0, us, stds, B, n_save,
+#                         max_iters, consts)
 ENTRIES = {}
 for _s in ("f32", "f64"):
     ENTRIES.update({
@@ -81,6 +90,9 @@ for _s in ("f32", "f64"):
         f"ek1_filter_states_fhn_{_s}": (_P,) * 5 + (_I,) * 4 + (_D, _P),
         f"ekd_smoother_{_s}": (_P, _P, _P, _I, _I, _D, _P),
         f"ekd_sampler_{_s}": (_P, _P, _P, _I, _I, _I, _D, _P),
+        f"ek0_adaptive_fhn_{_s}": (_P,) * 7 + (_I, _I, _I, _D, _P),
+        f"ek0_adaptive_stream_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
+        f"ek0_adaptive_smoother_{_s}": (_P,) * 5 + (_I, _I, _I, _D, _P),
     })
 
 

@@ -1,0 +1,451 @@
+// Per-member bodies of the adaptive EK0 kernels (ek0_adaptive.cu): one
+// attempt of the PI-controlled EK0(dynamic) step loop, the accepted-step
+// stream row and one square-root RTS step over a member's accepted steps.
+// Their plain PyTorch versions, in the same order of operations, are in
+// odefilters_torch/ops/ek0_adaptive.py (attempt, smoother_step).
+//
+// The state is carried unpreconditioned and preconditioned afresh at each
+// attempt's step size, as in the JAX kernels, but the covariance is carried
+// as a factor L (C = L L^T, not triangular), re-triangularised by modified
+// Gram-Schmidt at each prediction: the JAX kernels' plain covariance loses
+// its positive definiteness in float32. The adaptive loop turns a one-ulp
+// difference anywhere into another accepted step sequence on about one
+// member in a hundred, so every rounding follows the plain version's. Divisions by a constant are products with
+// its reciprocal folded in double (as the plain version writes them), the
+// transcendentals are the CUDA math library's exp / log (those of
+// PyTorch's exp / log on the card), and min / max / clamp keep a NaN as
+// PyTorch's do.
+#pragma once
+
+#include "ek0_filter.cuh"
+#include "ek0_sample.cuh"
+
+namespace ek0 {
+
+// OrdinaryDiffEq's PI controller constants
+constexpr double GAMMA = 0.9, QMIN = 0.2, QMAX = 10.0, QOLDINIT = 1e-4;
+
+template <typename S>
+__device__ __forceinline__ S exp_(S x);
+template <>
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+template <>
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+
+// torch.maximum / torch.minimum / torch.clamp: a NaN operand gives NaN
+template <typename S>
+__device__ __forceinline__ S max_(S a, S b) {
+  return (a != a || a > b) ? a : b;
+}
+template <typename S>
+__device__ __forceinline__ S min_(S a, S b) {
+  return (a != a || a < b) ? a : b;
+}
+template <typename S>
+__device__ __forceinline__ S clamp_(S x, S lo, S hi) {
+  return x != x ? x : (x < lo ? lo : (x > hi ? hi : x));
+}
+
+// Constants of the three kernels: the preconditioned IBM transition
+// (upper triangular), its noise factor QLt (lower triangular) and the
+// measured entry qbx = (QLt QLt^T)[BX][BX], the save grid, the tolerances,
+// the smallest step and the controller's exponents; the counts are the
+// kernels' int arguments.
+template <typename S, int NQ>
+struct AdaptConsts {
+  S At[NQ][NQ], QLt[NQ][NQ];
+  S qbx, t0, dt_save, abstol, reltol, dtmin, beta1, beta2;
+  int n_save, max_iters;
+};
+
+// consts: At, QLt (NQ*NQ each), then qbx, t0, dt_save, abstol, reltol,
+// dtmin, beta1, beta2
+template <typename S, int NQ>
+inline AdaptConsts<S, NQ> read_adapt_consts(const double* k, int n_save,
+                                            int max_iters) {
+  AdaptConsts<S, NQ> c;
+  int o = 0;
+  for (int i = 0; i < NQ; ++i)
+    for (int l = 0; l < NQ; ++l) c.At[i][l] = S(k[o++]);
+  for (int i = 0; i < NQ; ++i)
+    for (int l = 0; l < NQ; ++l) c.QLt[i][l] = S(k[o++]);
+  c.qbx = S(k[o++]);
+  c.t0 = S(k[o++]);
+  c.dt_save = S(k[o++]);
+  c.abstol = S(k[o++]);
+  c.reltol = S(k[o++]);
+  c.dtmin = S(k[o++]);
+  c.beta1 = S(k[o++]);
+  c.beta2 = S(k[o++]);
+  c.n_save = n_save;
+  c.max_iters = max_iters;
+  return c;
+}
+
+// Row of the accepted-step stream: m (NQ*D) | L (NQ*NQ, row-major) |
+// log dt_eff | s2 | save index (seg + 1 where the step reached save point
+// seg + 1, else 0).
+template <int NQ, int D>
+struct AdaptLayout {
+  static constexpr int V = NQ * D + NQ * NQ + 3;
+};
+
+// A member's loop state: m (NQ x D) and the factor L (NQ x NQ)
+// unpreconditioned, the previous accepted solution, time, step, controller
+// memory, log-likelihood, save points reached, accepted and rejected
+// attempts.
+template <typename S, int NQ, int D>
+struct Member {
+  S m[NQ][D], L[NQ][NQ], u_prev[D];
+  S t, dt, qold, ll;
+  int seg, nacc, nrej;
+  bool failed;
+
+  __device__ __forceinline__ bool live(const AdaptConsts<S, NQ>& c) const {
+    return !failed && seg < c.n_save && nacc + nrej < c.max_iters;
+  }
+};
+
+// The factor Lp (lower) of [(At Lh)^T; (sq QLt)^T]: row NQ + a of the
+// stack is zero in the columns i < a.
+template <typename S, int NQ>
+__device__ __forceinline__ void predict_factor(const AdaptConsts<S, NQ>& c,
+                                               const S (&Lh)[NQ][NQ], S sq,
+                                               S (&Lp)[NQ][NQ]) {
+  S AtL[NQ][NQ];
+  at_times<S, NQ, NQ>(c.At, Lh, AtL);
+  S v[2 * NQ][NQ];
+#pragma unroll
+  for (int k = 0; k < NQ; ++k)
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      v[k][i] = AtL[i][k];
+      v[NQ + k][i] = i >= k ? sq * c.QLt[i][k] : S(0);
+    }
+  mgs_tril<S, NQ, 2 * NQ, true>(v, Lp);
+}
+
+template <typename S, int NQ>
+__device__ __forceinline__ S std_row0(const S (&L)[NQ][NQ]) {
+  S acc = S(0);
+#pragma unroll
+  for (int l = 0; l < NQ; ++l) acc += L[0][l] * L[0][l];
+  return sqrt_(acc);
+}
+
+template <typename S>
+struct AttemptOut {
+  bool accept, reached;  // reached: an accepted step at save point seg + 1
+  int seg_before;
+  S lh, s2;
+};
+
+// One attempt of a live member (ek0_adaptive.py: attempt): precondition at
+// the attempt's step, one EK0(dynamic) step, the error estimate, the PI
+// controller, the failure checks and the commit.
+template <typename S, int NQ, class F>
+__device__ __forceinline__ void attempt(const AdaptConsts<S, NQ>& c,
+                                        const S* p, Member<S, NQ, F::D>& st,
+                                        AttemptOut<S>& o) {
+  constexpr int D = F::D;
+  constexpr double QH = NQ - 0.5;  // q + 1/2
+  const S t = st.t, dt = st.dt;
+  const S t_save = c.t0 + c.dt_save * (S(st.seg) + S(1));
+  const bool active = t < t_save;
+  const S remaining = t_save - t;
+  const bool hit_save = dt >= remaining;
+  const S dt_eff = active ? (hit_save ? remaining : dt) : S(1);
+
+  // -- precondition at this attempt's h (fresh from canonical) --
+  const S lh = log_(dt_eff);
+  S ps_[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) ps_[i] = exp_(S(i - QH) * lh);
+  S mh[NQ][D], Lh[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) mh[i][j] = st.m[i][j] * ps_[i];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Lh[i][l] = st.L[i][l] * ps_[i];
+  }
+  const S pinv0 = exp_(S(QH) * lh);
+  const S pb = exp_(S(QH - BX) * lh);
+  const S hq = pb * pb * c.qbx;
+
+  // -- one square-root EK0(dynamic) step in the member's preconditioned
+  // frame --
+  S mp[NQ][D];
+  at_times<S, NQ, D>(c.At, mh, mp);
+  const S t_new = hit_save ? t_save : t + dt_eff;
+  S u[D], du[D], z[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) u[j] = pinv0 * mp[0][j];
+  F()(u, p, t_new, du);
+#pragma unroll
+  for (int j = 0; j < D; ++j) z[j] = innovation(pb, mp[BX][j], du[j]);
+  S zz = S(0);
+#pragma unroll
+  for (int j = 0; j < D; ++j) zz += z[j] * z[j];
+  const S s2 = zz / (S(D) * hq);
+  S Lp[NQ][NQ];
+  predict_factor<S, NQ>(c, Lh, sqrt_(s2), Lp);
+  S s = S(0);
+#pragma unroll
+  for (int l = 0; l < NQ; ++l) s += Lp[BX][l] * Lp[BX][l];
+  s = pb * pb * s;
+  const S inv_s = S(1) / s;
+  S kg[NQ], zrow[NQ], m_new[NQ][D], L_new[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    S cc = S(0);
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) cc += Lp[i][l] * Lp[BX][l];
+    kg[i] = pb * cc * inv_s;
+    zrow[i] = pb * Lp[BX][i];
+  }
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) m_new[i][j] = mp[i][j] - kg[i] * z[j];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) L_new[i][l] = Lp[i][l] - kg[i] * zrow[l];
+  }
+  const S ll_inc = ll_increment<S, D>(zz, s, inv_s);
+  S u_filt[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) u_filt[j] = pinv0 * m_new[0][j];
+
+  // -- error estimate (EK0 dynamic: sqrt(s2 hq) == sqrt(zz/D)) --
+  const S inv_d = S(1) / S(D);
+  const S err = sqrt_(zz * inv_d);
+  S ee = S(0);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const S sc = c.abstol + c.reltol * max_(fabs(st.u_prev[j]), fabs(u_filt[j]));
+    const S r = dt_eff * err / sc;
+    ee += r * r;
+  }
+  S EEst = sqrt_(ee * inv_d);
+  if (!(EEst - EEst == S(0))) EEst = S(1e10);  // not finite
+  const bool accept = active && EEst <= S(1);
+
+  // -- per-member PI controller --
+  const S inv_gamma = S(1.0 / GAMMA);
+  const S leg = log_(floor_at(EEst, S(1e-35)));
+  const S q11 = exp_(c.beta1 * leg);
+  S qq = q11 * exp_(-c.beta2 * log_(floor_at(st.qold, S(1e-35))));
+  qq = clamp_(qq * inv_gamma, S(1.0 / QMAX), S(1.0 / QMIN));
+  S dt_acc = dt_eff / qq;
+  // a step truncated to land on a save point must not collapse the
+  // controller's step size
+  if (hit_save && st.seg < c.n_save - 1) dt_acc = max_(dt_acc, dt);
+  const S qold_acc = floor_at(EEst, S(QOLDINIT));
+  const S dt_rej = dt_eff / min_(q11 * inv_gamma, S(1.0 / QMIN));
+  const S dt_new = accept ? dt_acc : dt_rej;
+  // a member fails when its next dt collapses below dtmin (accepted or
+  // not) or when an accepted step makes no floating-point progress
+  const bool failed =
+      st.failed ||
+      (active && !hit_save && (dt_new < c.dtmin || (accept && t_new <= t)));
+
+  // -- un-precondition, then commit --
+  if (accept) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) st.m[i][j] = m_new[i][j] / ps_[i];
+#pragma unroll
+      for (int l = 0; l < NQ; ++l) st.L[i][l] = L_new[i][l] / ps_[i];
+    }
+    st.t = t_new;
+    st.qold = qold_acc;
+    st.ll = st.ll + ll_inc;
+#pragma unroll
+    for (int j = 0; j < D; ++j) st.u_prev[j] = u_filt[j];
+    st.nacc += 1;
+  } else if (active) {
+    st.nrej += 1;
+  }
+  if (active && !failed) st.dt = dt_new;
+  st.failed = failed;
+  o.accept = accept;
+  o.lh = lh;
+  o.s2 = s2;
+  o.seg_before = st.seg;
+  o.reached = accept && st.t >= t_save;
+  if (o.reached) st.seg += 1;
+}
+
+template <typename S, int NQ, int NP, int D>
+__device__ __forceinline__ void start_member(const S* __restrict__ m0,
+                                             const S* __restrict__ ps,
+                                             const S* __restrict__ dt0s,
+                                             int b, size_t sB,
+                                             const AdaptConsts<S, NQ>& c,
+                                             S (&p)[NP],
+                                             Member<S, NQ, D>& st) {
+  load_member<S, NQ, NP, D>(m0, ps, b, sB, p, st.m, st.L);
+#pragma unroll
+  for (int j = 0; j < D; ++j) st.u_prev[j] = st.m[0][j];
+  st.t = c.t0;
+  st.dt = dt0s[b];
+  st.qold = S(QOLDINIT);
+  st.ll = S(0);
+  st.seg = st.nacc = st.nrej = 0;
+  st.failed = false;
+}
+
+// counts (4, B): nacc, nrej, failed (a failure, or save points left),
+// save points reached
+template <typename S, int NQ, int D>
+__device__ __forceinline__ void store_counts(int* __restrict__ counts, int b,
+                                             size_t sB,
+                                             const Member<S, NQ, D>& st,
+                                             int n_save) {
+  counts[b] = st.nacc;
+  counts[sB + b] = st.nrej;
+  counts[2 * sB + b] = (st.failed || st.seg < n_save) ? 1 : 0;
+  counts[3 * sB + b] = st.seg;
+}
+
+template <typename S, int NQ, int D>
+__device__ __forceinline__ void store_adapt_row(S* __restrict__ st,
+                                                size_t row0, size_t sB,
+                                                const S (&m)[NQ][D],
+                                                const S (&L)[NQ][NQ], S lh,
+                                                S s2, S mark) {
+  int v = 0;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) st[row0 + (v++) * sB] = m[i][j];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) st[row0 + (v++) * sB] = L[i][l];
+  st[row0 + (v++) * sB] = lh;
+  st[row0 + (v++) * sB] = s2;
+  st[row0 + v * sB] = mark;
+}
+
+// A stream row: m, L, log dt_eff, s2, save index.
+template <typename S, int NQ, int D>
+struct AdaptRow {
+  S m[NQ][D], L[NQ][NQ];
+  S lh, s2, mark;
+};
+
+template <typename S, int NQ, int D>
+__device__ __forceinline__ void load_adapt_row(const S* __restrict__ st,
+                                               size_t row0, size_t sB,
+                                               AdaptRow<S, NQ, D>& r) {
+  int v = 0;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) r.m[i][j] = st[row0 + (v++) * sB];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) r.L[i][l] = st[row0 + (v++) * sB];
+  r.lh = st[row0 + (v++) * sB];
+  r.s2 = st[row0 + (v++) * sB];
+  r.mark = st[row0 + v * sB];
+}
+
+// One square-root RTS step (ek0_adaptive.py: smoother_step) from the
+// filtered state (m_f, L_f) of an accepted step to the smoothed (ms, Ls) of
+// the next one, with the next step's lh (log dt_eff) and s2, in place, in
+// the frame preconditioned at the next step's size (the filtered factor's
+// rows scaled).
+template <typename S, int NQ, int D>
+__device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
+                                              const S (&m_f)[NQ][D],
+                                              const S (&L_f)[NQ][NQ], S lh,
+                                              S s2, S (&ms)[NQ][D],
+                                              S (&Ls)[NQ][NQ]) {
+  constexpr double QH = NQ - 0.5;
+  S ps_[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) ps_[i] = exp_(S(i - QH) * lh);
+  S Lh[NQ][NQ], mh_f[NQ][D], Lsh[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Lh[i][l] = L_f[i][l] * ps_[i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) mh_f[i][j] = m_f[i][j] * ps_[i];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Lsh[i][l] = ps_[i] * Ls[i][l];
+  }
+  const S sq = sqrt_(s2);
+  S AtL[NQ][NQ], Lp[NQ][NQ];
+  at_times<S, NQ, NQ>(c.At, Lh, AtL);
+  predict_factor<S, NQ>(c, Lh, sq, Lp);
+  S G[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    S M[NQ];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      S acc = S(0);
+#pragma unroll
+      for (int b = 0; b < NQ; ++b) acc += Lh[i][b] * AtL[l][b];
+      M[l] = acc;
+    }
+    cho_solve<S, NQ>(Lp, M, G[i]);
+  }
+  S mp[NQ][D];
+  at_times<S, NQ, D>(c.At, mh_f, mp);
+  S ms_new[NQ][D];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      S acc = S(0);
+#pragma unroll
+      for (int l = 0; l < NQ; ++l)
+        acc += G[i][l] * (ms[l][j] * ps_[l] - mp[l][j]);
+      ms_new[i][j] = mh_f[i][j] + acc;
+    }
+  // the stack's rows: row k holds column k of (I - G At) Lh, row NQ + k
+  // column k of sq G QLt, row 2 NQ + k column k of G Lsh
+  S v[3 * NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    S IGA[NQ];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      S ga = S(0);
+#pragma unroll
+      for (int a = 0; a <= l; ++a) ga += G[i][a] * c.At[a][l];
+      IGA[l] = (i == l ? S(1) : S(0)) - ga;
+    }
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      S b1 = S(0), gq = S(0), b3 = S(0);
+#pragma unroll
+      for (int a = 0; a < NQ; ++a) b1 += IGA[a] * Lh[a][l];
+#pragma unroll
+      for (int a = l; a < NQ; ++a) gq += G[i][a] * c.QLt[a][l];
+#pragma unroll
+      for (int a = 0; a < NQ; ++a) b3 += G[i][a] * Lsh[a][l];
+      v[l][i] = b1;
+      v[NQ + l][i] = sq * gq;
+      v[2 * NQ + l][i] = b3;
+    }
+  }
+  S Ls_new[NQ][NQ];
+  mgs_tril<S, NQ, 3 * NQ, false>(v, Ls_new);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    const S pinv = exp_(S(QH - i) * lh);
+#pragma unroll
+    for (int j = 0; j < D; ++j) ms[i][j] = pinv * ms_new[i][j];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Ls[i][l] = pinv * Ls_new[i][l];
+  }
+}
+
+}  // namespace ek0

@@ -104,8 +104,10 @@ def static_scalar_update(static_diff: str, calib, local, d: int):
     return sig_new, kf + 1.0
 
 
-def innovation(pb: float, h, du):
-    """The measurement residual ``pb h - du``. In float32 it is taken from
+def innovation(pb, h, du):
+    """The measurement residual ``pb h - du``, with ``pb`` a Python float
+    (a fixed grid's preconditioner entry) or a per-member tensor (the
+    adaptive kernels'). In float32 it is taken from
     the exact product in float64 and rounded once, as a fused multiply-add
     forms it: at the accuracy floor the rounded product cancels against
     ``du`` to exactly 0 now and then (579 of the headline ensemble's
@@ -116,7 +118,9 @@ def innovation(pb: float, h, du):
     (``scripts/torch_sampler_innovation.py``). In float64 it is the plain
     difference."""
     if h.dtype == torch.float32:
-        return (float(np.float32(pb)) * h.double() - du.double()).float()
+        pb64 = (pb.double() if isinstance(pb, torch.Tensor)
+                else float(np.float32(pb)))
+        return (pb64 * h.double() - du.double()).float()
     return pb * h - du
 
 

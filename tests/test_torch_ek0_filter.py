@@ -322,7 +322,7 @@ def test_front_door_filter_equals_fused_filter():
 
     prob, u0s, ps = _door_inputs()
     sol = odt.solve_ensemble(prob, odt.EK0(order=Q, smooth=False), u0s, ps,
-                             n_save=N_STEPS)
+                             n_save=N_STEPS, adaptive=False)
     assert sol.diffusions is None
     pt = ps.T.contiguous()
     m0 = torch.stack(taylor_coefficients(prob.f, u0s.T.contiguous(), pt,
@@ -346,7 +346,8 @@ def test_front_door_gradient_matches_central_difference():
     alg = odt.EK0(order=Q, smooth=False)
 
     def loss(u, p):
-        sol = odt.solve_ensemble(prob, alg, u, p, n_save=N_STEPS)
+        sol = odt.solve_ensemble(prob, alg, u, p, n_save=N_STEPS,
+                                 adaptive=False)
         return sol.lls.sum() + 0.1 * sol.us[:, 0].sum() + 0.01 * sol.stds.sum()
 
     u_r, p_r = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
@@ -365,7 +366,7 @@ def test_front_door_static_models(static):
     prob, u0s, ps = _door_inputs(B=10)
     sol = odt.solve_ensemble(
         prob, odt.EK0(order=Q, smooth=False, diffusionmodel=static), u0s, ps,
-        n_save=N_STEPS)
+        n_save=N_STEPS, adaptive=False)
     shape = (D, 10) if static == "fixedMV" else (10,)
     assert sol.diffusions.shape == shape and (sol.diffusions > 0).all()
     assert torch.isnan(sol.lls).all()
@@ -375,7 +376,7 @@ def test_front_door_static_models(static):
     with pytest.raises(NotImplementedError, match="forward-only"):
         odt.solve_ensemble(
             prob, odt.EK0(order=Q, smooth=False, diffusionmodel=static),
-            u0s.clone().requires_grad_(), ps, n_save=N_STEPS)
+            u0s.clone().requires_grad_(), ps, n_save=N_STEPS, adaptive=False)
 
 
 def test_smoothing_static_model_names_the_pair_variant():
@@ -386,7 +387,7 @@ def test_smoothing_static_model_names_the_pair_variant():
 
     prob, u0s, ps = _door_inputs(B=4)
     sol = odt.solve_ensemble(prob, odt.EK0(order=Q, diffusionmodel="fixedMAP"),
-                             u0s, ps, n_save=N_STEPS)
+                             u0s, ps, n_save=N_STEPS, adaptive=False)
     pt = ps.T.contiguous()
     m0 = torch.stack(taylor_coefficients(prob.f, u0s.T.contiguous(), pt,
                                          TSPAN[0], Q))

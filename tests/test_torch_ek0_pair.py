@@ -246,7 +246,7 @@ def test_front_door_static_smoother(diffusion):
     u0s = u0s + 0.05 * torch.from_numpy(
         np.random.default_rng(7).standard_normal((10, D)))
     sol = odt.solve_ensemble(prob, odt.EK0(order=Q, diffusionmodel=diffusion),
-                             u0s, ps, n_save=N_STEPS)
+                             u0s, ps, n_save=N_STEPS, adaptive=False)
     shape = (D, 10) if diffusion == "fixedMV" else (10,)
     assert sol.lls is None
     assert sol.diffusions.shape == shape and (sol.diffusions > 0).all()
@@ -263,7 +263,8 @@ def port_solution(pair_inputs):
     prob = odt.models.fitzhugh_nagumo(device="cpu", tspan=TSPAN)
     launches = (ep.ek0_pair_fwd.launches, ep.ek0_pair_bwd.launches)
     sol = odt.solve_ensemble(prob, odt.EK0(order=Q), torch.from_numpy(u0s),
-                             torch.from_numpy(ps), n_save=N_STEPS)
+                             torch.from_numpy(ps), n_save=N_STEPS,
+                             adaptive=False)
     # CPU tensors take the plain versions: no kernel launch is counted
     assert (ep.ek0_pair_fwd.launches, ep.ek0_pair_bwd.launches) == launches
     return sol
@@ -305,7 +306,8 @@ def test_front_door_any_ensemble_size():
     B = 100
     u0s = prob.u0[None] + 0.1 * torch.from_numpy(rng.standard_normal((B, 2)))
     ps = prob.p[None].expand(B, 4)
-    sol = odt.solve_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_save=N_STEPS)
+    sol = odt.solve_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_save=N_STEPS,
+                             adaptive=False)
     assert sol.us.shape == (N_STEPS + 1, D, B)
     assert sol.stds.shape == (N_STEPS + 1, B)
     assert torch.isfinite(sol.us).all() and torch.isfinite(sol.stds).all()
@@ -326,7 +328,8 @@ def test_float32_plain_pair_close_to_float64():
         prob = odt.models.fitzhugh_nagumo(device="cpu", dtype=dtype)
         sol = odt.solve_ensemble(prob, odt.EK0(order=Q),
                                  torch.tensor(u0s, dtype=dtype),
-                                 torch.tensor(ps, dtype=dtype), n_save=500)
+                                 torch.tensor(ps, dtype=dtype), n_save=500,
+                                 adaptive=False)
         out[dtype] = (sol.us.double(), sol.stds.double())
     us32, sd32 = out[torch.float32]
     us64, sd64 = out[torch.float64]
@@ -347,17 +350,18 @@ class _DiagonalEK1(odt.EK1):
 @pytest.mark.parametrize(
     "alg, kwargs, match",
     [
-        (odt.EK0(order=Q), dict(adaptive=True), "adaptive"),
+        # adaptive EK0 runs on its own kernels, with the IBM prior only
+        (odt.EK0(order=Q, prior="ioup"), dict(adaptive=True), "IOUP"),
         # EK1 runs on its own kernels; DiagonalEK1 is not ported yet
-        (_DiagonalEK1(order=Q), {}, "DiagonalEK1"),
+        (_DiagonalEK1(order=Q), dict(adaptive=False), "DiagonalEK1"),
         # the fixed-grid pair runs the static models; the adaptive kernels
         # never take them, as in the JAX package
         (odt.EK0(order=Q, diffusionmodel="fixed"), dict(adaptive=True),
          "'fixed'"),
-        (odt.EK0(order=Q, smooth=False, diffusionmodel="dynamicMV"), {},
-         "dynamicMV"),
-        (odt.EK0(order=Q), dict(mesh=object()), "mesh"),
-        (odt.EK0(order=Q, prior="ioup"), {}, "IOUP"),
+        (odt.EK0(order=Q, smooth=False, diffusionmodel="dynamicMV"),
+         dict(adaptive=False), "dynamicMV"),
+        (odt.EK0(order=Q), dict(mesh=object(), adaptive=False), "mesh"),
+        (odt.EK0(order=Q, prior="ioup"), dict(adaptive=False), "IOUP"),
     ],
     ids=["adaptive", "ek1", "fixed_diffusion", "filter_only", "mesh", "prior"],
 )

@@ -438,7 +438,7 @@ def test_solve_ensemble_ek1(smooth, model):
     prob, u0s, ps = _fhn_ensemble(B, T)
     sol = odt.solve_ensemble(prob, odt.EK1(order=Q, smooth=smooth,
                                            diffusionmodel=model),
-                             u0s, ps, n_save=T)
+                             u0s, ps, n_save=T, adaptive=False)
     assert sol.us.shape == sol.stds.shape == (T + 1, D, B)
     assert torch.isfinite(sol.us).all() and torch.isfinite(sol.stds).all()
     assert (sol.stds[0] <= (1e-18 if smooth else 0.0)).all()
@@ -477,9 +477,12 @@ class _DiagonalEK1(odt.EK1):
 @pytest.mark.parametrize(
     "call, alg, kwargs, exc, match",
     [
-        ("solve", _DiagonalEK1(order=Q), {}, NotImplementedError, "DiagonalEK1"),
-        ("solve", odt.EK1(order=Q, prior="ioup"), {}, NotImplementedError, "IOUP"),
-        ("solve", odt.EK1(order=Q), dict(mesh=object()), NotImplementedError, "mesh"),
+        ("solve", _DiagonalEK1(order=Q), dict(adaptive=False),
+         NotImplementedError, "DiagonalEK1"),
+        ("solve", odt.EK1(order=Q, prior="ioup"), dict(adaptive=False),
+         NotImplementedError, "IOUP"),
+        ("solve", odt.EK1(order=Q), dict(mesh=object(), adaptive=False),
+         NotImplementedError, "mesh"),
         ("solve", odt.EK1(order=Q), dict(adaptive=True), NotImplementedError,
          "adaptive"),
         ("sample", odt.EK1(order=Q, prior="ioup"), {}, NotImplementedError, "IOUP"),
