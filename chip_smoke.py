@@ -13,10 +13,12 @@ smoother pair (dynamic and static diffusions), the filter with its
 per-member log-likelihood and that likelihood's gradient by
 ``torch.autograd``, and the joint-posterior sampler; with EK1 the filter
 with and without the smoother (dynamic, fixed, fixedMAP), the sampler and
-the ensemble IEKS; and the front door's default, the adaptive EK0 solve
+the ensemble IEKS; the front door's default, the adaptive EK0 solve
 with and without the smoother (8192 members over (0, 20), 20 save
 intervals, abstol 1e-6, reltol 1e-4: the JAX package's
-parameter-inference row). It checks float32 against float64 on the worst
+parameter-inference row); and DiagonalEK1: the fixed-grid filter in each
+diffusion mode and the adaptive solve with and without the smoother. It
+checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
 and times each path, each kernel and the plain versions with CUDA
@@ -102,26 +104,46 @@ Phases:
      (median of 10 after 2 warm-ups);
  21. the three adaptive kernels against their plain versions at 8192
      members in float32 (each plain version run once), their times and
-     their bounds from that run's counts.
+     their bounds from that run's counts;
+ 22. the four DiagonalEK1 kernels against their plain versions at 1000
+     members in float64 and float32: the fixed-grid filter at T = 60 (dt =
+     0.04) in each diffusion mode (us, stds, lls, sigma^2 at the filter's
+     tolerances of phase 7), the three adaptive kernels over (0, 20) as in
+     phase 19; bit-for-bit equality reported;
+ 23. the DiagonalEK1 front doors at 8192 members, float32 and float64,
+     each run with the counts set to 0 before it and read after it:
+     ``solve_ensemble(DiagonalEK1(smooth=False), adaptive=False)`` at 500
+     steps in each diffusion mode (one launch, finite outputs, NaN lls and
+     sigma^2 under a static one, float32 against float64 reported with
+     counts, the float64 means against DOP853, the float32 dynamic door's
+     time), and ``solve_ensemble(DiagonalEK1(smooth=s))`` adaptive as in
+     phase 20;
+ 24. the DiagonalEK1 kernels against their plain versions at 8192
+     members in float32 (the fixed grid at 500 steps), their times and
+     their bounds.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the thirteen kernels with their launches on
+the line before it lists the seventeen kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
 TFLOP/s of float32; H100 SXM data sheet; the adaptive kernels' operations
 are counted per attempt (per smoothing step) and multiplied by the run's
-attempts (accepted steps)). ``max_abs_err`` is kernel against plain at
+attempts (accepted steps); the same for the DiagonalEK1 kernels of
+phase 24). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
 for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18,
 S = 8; the filter kernel's means, and its stream through the smoother
 kernel); and at 8192 members in float32 for the adaptive kernels (phase
-21). The samplers' times, plain times and bounds are those at S = 8.
-The EK1 launches are those of ``solve_ensemble(EK1)`` (filter, smoother)
-and ``sample_ensemble(EK1, S=8)`` (sampler) in float32; the adaptive
-launches those of the float32 adaptive front doors of phase 20.
+21) and the DiagonalEK1 kernels (phase 24, the fixed grid at 500 steps
+under the dynamic diffusion). The samplers' times, plain times and bounds
+are those at S = 8. The EK1 launches are those of ``solve_ensemble(EK1)``
+(filter, smoother) and ``sample_ensemble(EK1, S=8)`` (sampler) in
+float32; the adaptive launches those of the float32 adaptive front doors
+of phases 20 and 23, the DiagonalEK1 filter's those of the float32
+dynamic fixed-grid door of phase 23.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -162,7 +184,12 @@ standard error of a std estimated from 8192 samples is ~0.8%). The EK1
 kernels are built without FMA contraction too and are held like the
 sampler's: the filter's means, sigma^2 and filter stds directly, its
 stream through the smoother, the smoother's and the sampler's outputs
-directly.
+directly. The DiagonalEK1 kernels are built without FMA contraction
+too and are held like the filter's (fixed grid) and the adaptive EK0
+kernels (adaptive). The fixed-grid DiagonalEK1 filter carries the plain
+covariance, as the JAX kernel does; in float32 it cancels, so its
+float32-against-float64 comparison is reported with counts, not held
+(PERF.md), while the float64 means are held against DOP853.
 
 Every phase that fails is reported; the script then exits nonzero and
 prints no result. Without a CUDA card it exits nonzero at once. It never
@@ -199,6 +226,10 @@ SOURCE = {
     "ek0_adaptive": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
     "ek0_adaptive_stream": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
     "ek0_adaptive_smoother": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
+    "ek1d_filter": "odefilters_torch/ops/csrc/ek1d.cu",
+    "ek1d_adaptive": "odefilters_torch/ops/csrc/ek1d.cu",
+    "ek1d_adaptive_stream": "odefilters_torch/ops/csrc/ek1d.cu",
+    "ek1d_adaptive_smoother": "odefilters_torch/ops/csrc/ek1d.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -214,6 +245,10 @@ REPLACES = {
     "ek0_adaptive": "odefilters/ops/pallas_kernels.py:6143",
     "ek0_adaptive_stream": "odefilters/ops/pallas_kernels.py:8434",
     "ek0_adaptive_smoother": "odefilters/ops/pallas_kernels.py:8660",
+    "ek1d_filter": "odefilters/ops/pallas_kernels.py:8028",
+    "ek1d_adaptive": "odefilters/ops/pallas_kernels.py:7609",
+    "ek1d_adaptive_stream": "odefilters/ops/pallas_kernels.py:9174",
+    "ek1d_adaptive_smoother": "odefilters/ops/pallas_kernels.py:9446",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -470,6 +505,8 @@ def counters():
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
     from odefilters_torch.ops import ek1_fused as e1
+    from odefilters_torch.ops import ek1d
+    from odefilters_torch.ops import ek1d_adaptive as eda
 
     return {"ek0_pair_fwd": ep.ek0_pair_fwd, "ek0_pair_bwd": ep.ek0_pair_bwd,
             "ek0_filter": ef.ek0_filter,
@@ -482,7 +519,11 @@ def counters():
             "ekd_sampler": e1.ekd_sampler,
             "ek0_adaptive": ea.ek0_adaptive,
             "ek0_adaptive_stream": ea.ek0_adaptive_stream,
-            "ek0_adaptive_smoother": ea.ek0_adaptive_smoother}
+            "ek0_adaptive_smoother": ea.ek0_adaptive_smoother,
+            "ek1d_filter": ek1d.ek1d_filter,
+            "ek1d_adaptive": eda.ek1d_adaptive,
+            "ek1d_adaptive_stream": eda.ek1d_adaptive_stream,
+            "ek1d_adaptive_smoother": eda.ek1d_adaptive_smoother}
 
 
 def reset_counts():
@@ -1402,10 +1443,12 @@ def ek1_timing(odt, card):
 
 
 class AdaptiveCase:
-    """The adaptive kernels' arguments for one ensemble over TSPAN_ADA at
-    ADA_TOL with S_ADA save intervals (the inputs of `inputs`; Taylor init
-    and initial steps as the front door makes them), and both versions of
-    each of the three kernels."""
+    """The adaptive EK0 kernels' arguments for one ensemble over TSPAN_ADA
+    at ADA_TOL with S_ADA save intervals (the inputs of `inputs`; Taylor
+    init and initial steps as the front door makes them), and both versions
+    of each of the three kernels."""
+
+    names = ("ek0_adaptive", "ek0_adaptive_stream", "ek0_adaptive_smoother")
 
     def __init__(self, B, dtype):
         from odefilters_torch.ops import ek0_adaptive as ea
@@ -1442,6 +1485,95 @@ class AdaptiveCase:
         return self.ea.ek0_adaptive_smoother_plain(st, counts, self.m0,
                                                    self.c_pair)
 
+    def stream_width(self):
+        return self.ea.stream_width(Q + 1, 2)
+
+    def attempt_ops(self):
+        """Operations of the plain attempt body for one member, and of the
+        plain smoothing step on one row of ``st``."""
+        ea = self.ea
+        mem = ea.Members.start(self.m0, self.dt0s, self.c_pair.t0)
+        live = torch.ones(1, dtype=torch.bool, device=DEVICE)
+        ops_att = ops_of(lambda: ea.attempt(mem, self.ps, f=self.f,
+                                            c=self.c_pair, live=live))
+        return ops_att, ops_of(self.smoothing_step())
+
+    def smoothing_step(self):
+        """The plain smoothing step on the first row of this case's plain
+        stream, as a call to count."""
+        ea = self.ea
+        st, _, _ = self.stream_plain()
+        m_f, L_f, lh, s2, _ = ea._unpack(st[:1, :, :1].reshape(-1, 1), Q + 1, 2)
+        return lambda: ea.smoother_step(
+            m_f, L_f, m_f, L_f, lh, s2, At=ea._lists(self.c_pair.At),
+            QLt=ea._lists(self.c_pair.QLt), nq=Q + 1, d=2)
+
+
+class EK1DAdaptiveCase(AdaptiveCase):
+    """`AdaptiveCase` for the adaptive DiagonalEK1 kernels, the Jacobian
+    diagonal as the front door takes it (the diagonal of ``prob.jac``)."""
+
+    names = ("ek1d_adaptive", "ek1d_adaptive_stream", "ek1d_adaptive_smoother")
+
+    def __init__(self, B, dtype):
+        from odefilters_torch.ops import ek1d
+        from odefilters_torch.ops import ek1d_adaptive as eda
+
+        super().__init__(B, dtype)
+        self.eda = eda
+        self.jd = ek1d.jac_diag_of(self.prob)
+
+    def filter_kernel(self):
+        return self.eda.ek1d_adaptive(self.f, self.jd, self.field, *self.args,
+                                      self.c_filter)
+
+    def filter_plain(self):
+        return self.eda.ek1d_adaptive_plain(self.f, self.jd, *self.args,
+                                            self.c_filter)
+
+    def stream_kernel(self):
+        return self.eda.ek1d_adaptive_stream(self.f, self.jd, self.field,
+                                             *self.args, self.c_pair)
+
+    def stream_plain(self):
+        return self.eda.ek1d_adaptive_stream_plain(self.f, self.jd,
+                                                   *self.args, self.c_pair)
+
+    def smoother_kernel(self, st, counts):
+        return self.eda.ek1d_adaptive_smoother(st, counts, self.m0,
+                                               self.c_pair)
+
+    def smoother_plain(self, st, counts):
+        return self.eda.ek1d_adaptive_smoother_plain(st, counts, self.m0,
+                                                     self.c_pair)
+
+    def stream_width(self):
+        return self.eda.stream_width(Q + 1, 2)
+
+    def attempt_ops(self):
+        """Operations of the plain attempt body for one member, and of the
+        plain smoothing step (the EK0 smoother's step on each dimension)."""
+        eda = self.eda
+        mem = eda.start(self.m0, self.dt0s, self.c_pair)
+        live = torch.ones(1, dtype=torch.bool, device=DEVICE)
+        ops_att = ops_of(lambda: eda.attempt(mem, self.ps, f=self.f,
+                                             jac_diag=self.jd, c=self.c_pair,
+                                             live=live))
+        return ops_att, ops_of(self.smoothing_step())
+
+    def smoothing_step(self):
+        ea, eda = self.ea, self.eda
+        st, _, _ = self.stream_plain()
+        rows = [ea._unpack(eda.dimension_stream(st[:1, :, :1], Q + 1, 2, j)
+                           .reshape(-1, 1), Q + 1, 1) for j in range(2)]
+        kw = dict(At=ea._lists(self.c_pair.At), QLt=ea._lists(self.c_pair.QLt),
+                  nq=Q + 1, d=1)
+
+        def step():
+            for m_f, L_f, lh, s2, _ in rows:
+                ea.smoother_step(m_f, L_f, m_f, L_f, lh, s2, **kw)
+        return step
+
 
 def same_counts(name, got, ref):
     """Check nacc, nrej, failed and the save points reached equal on every
@@ -1458,12 +1590,14 @@ def bitwise(name, got, ref):
 
 
 def adaptive_vs_plain(label, case, rtol):
-    """Phase 19 (and 21): each adaptive kernel against its plain version on
-    the same inputs: the counts on every member, the outputs at ``rtol``
-    relative (bit-for-bit equality reported), the stream kernel through the
-    smoother kernel and on its accepted rows directly, the smoother kernel
-    on the plain stream. Returns each kernel's largest |kernel - plain|
-    and the plain versions' milliseconds."""
+    """Phases 19, 21, 22 and 24: each adaptive kernel of ``case`` (EK0 or
+    DiagonalEK1) against its plain version on the same inputs: the counts
+    on every member, the outputs at ``rtol`` relative (bit-for-bit
+    equality reported), the stream kernel through the smoother kernel and
+    on its accepted rows directly, the smoother kernel on the plain stream.
+    Returns each kernel's largest |kernel - plain| and the plain versions'
+    milliseconds."""
+    n_filter, n_stream, n_smoother = case.names
     (us_p, sd_p, ll_p, cn_p), f_ms = once(case.filter_plain)
     (st_p, ls_p, cs_p), s_ms = once(case.stream_plain)
     (usm_p, sdm_p), m_ms = once(lambda: case.smoother_plain(st_p, cs_p))
@@ -1472,40 +1606,46 @@ def adaptive_vs_plain(label, case, rtol):
     usm_kp, sdm_kp = case.smoother_kernel(st_p, cs_p)
     usm_kk, sdm_kk = case.smoother_kernel(st_k, cs_k)
     torch.cuda.synchronize()
-    name = f"{label} ek0_adaptive_kernel"
+    name = f"{label} {n_filter}_kernel"
     same_counts(name, cn_k, cn_p)
-    err = {"ek0_adaptive": max(close(f"{name}, us", us_k, us_p, rtol, 0.0),
-                               close(f"{name}, stds", sd_k, sd_p, rtol, 0.0),
-                               close(f"{name}, lls", ll_k, ll_p, rtol, 0.0))}
+    err = {n_filter: max(close(f"{name}, us", us_k, us_p, rtol, 0.0),
+                         close(f"{name}, stds", sd_k, sd_p, rtol, 0.0),
+                         close(f"{name}, lls", ll_k, ll_p, rtol, 0.0))}
     for what, got, ref in (("us", us_k, us_p), ("stds", sd_k, sd_p),
                            ("lls", ll_k, ll_p)):
         bitwise(f"{name}, {what}", got, ref)
-    name = f"{label} ek0_adaptive_stream_kernel"
+    name = f"{label} {n_stream}_kernel"
     same_counts(name, cs_k, cs_p)
     valid = (torch.arange(st_p.shape[0], device=DEVICE)[:, None]
              < cs_p[0].long()[None])[:, None, :].expand(st_p.shape)
     bitwise(f"{name}, accepted rows", st_k[valid], st_p[valid])
-    err["ek0_adaptive_stream"] = max(
+    err[n_stream] = max(
         close(f"{name}, lls", ls_k, ls_p, rtol, 0.0),
         close(f"{name}, us through the smoother kernel", usm_kk, usm_kp, rtol,
               0.0),
         close(f"{name}, stds through the smoother kernel", sdm_kk, sdm_kp,
               rtol, 0.0))
-    name = f"{label} ek0_adaptive_smoother_kernel on the plain stream"
-    err["ek0_adaptive_smoother"] = max(
+    name = f"{label} {n_smoother}_kernel on the plain stream"
+    err[n_smoother] = max(
         close(f"{name}, us", usm_kp, usm_p, rtol, 0.0),
         close(f"{name}, stds", sdm_kp, sdm_p, rtol, 0.0))
     bitwise(f"{name}, us", usm_kp, usm_p)
     bitwise(f"{name}, stds", sdm_kp, sdm_p)
-    return err, {"ek0_adaptive": f_ms, "ek0_adaptive_stream": s_ms,
-                 "ek0_adaptive_smoother": m_ms}
+    return err, {n_filter: f_ms, n_stream: s_ms, n_smoother: m_ms}
+
+
+_REFERENCES = {}
 
 
 def reference_ensemble(u0s, ps, ts):
     """All members of a FitzHugh-Nagumo ensemble by scipy's DOP853 at
-    rtol = atol = 1e-12, as one system: ``(len(ts), 2, B)``."""
+    rtol = atol = 1e-12, as one system: ``(len(ts), 2, B)``; kept for the
+    next call on the same inputs."""
     from scipy.integrate import solve_ivp
 
+    key = (u0s.tobytes(), ps.tobytes(), np.asarray(ts).tobytes())
+    if key in _REFERENCES:
+        return _REFERENCES[key]
     B = u0s.shape[0]
     a, b, tinv, izero = ps.T
 
@@ -1516,7 +1656,8 @@ def reference_ensemble(u0s, ps, ts):
 
     sol = solve_ivp(f, (ts[0], ts[-1]), np.concatenate([u0s[:, 0], u0s[:, 1]]),
                     method="DOP853", t_eval=ts, rtol=1e-12, atol=1e-12)
-    return sol.y.reshape(2, B, -1).transpose(2, 0, 1)
+    _REFERENCES[key] = sol.y.reshape(2, B, -1).transpose(2, 0, 1)
+    return _REFERENCES[key]
 
 
 def warp_efficiency(attempts):
@@ -1528,18 +1669,25 @@ def warp_efficiency(attempts):
     return float(a.mean() / w.max(dim=1).values.mean())
 
 
-def adaptive_path(odt, card):
-    """Phase 20: both adaptive front doors at 8192 members over TSPAN_ADA
-    (the JAX package's parameter-inference row), float32 and float64, each
-    run with the counts set to 0 before it and read after it; the counts,
-    failures, the worst member against DOP853, float32 against float64,
-    the accepted float32 steps that stream s2 = 0, the warp efficiency, and
-    the solves/s of each front door. Returns the float32 launches."""
-    from odefilters_torch.ops import ek0_adaptive as ea
+def adaptive_path(odt, card, case_cls=AdaptiveCase):
+    """Phases 20 and 23: both adaptive front doors of ``case_cls``'s
+    algorithm (EK0 or DiagonalEK1) at 8192 members over TSPAN_ADA (the JAX
+    package's parameter-inference row), float32 and float64, each run with
+    the counts set to 0 before it and read after it; the counts, failures,
+    the worst member against DOP853, float32 against float64, the accepted
+    float32 steps that stream s2 = 0, the warp efficiency, and the solves/s
+    of each front door. Returns the float32 launches."""
+    n_filter, n_stream, n_smoother = case_cls.names
+    ek1d = case_cls is EK1DAdaptiveCase
+    alg_name = "DiagonalEK1" if ek1d else "EK0"
 
+    def alg_of(smooth):
+        cls = odt.DiagonalEK1 if ek1d else odt.EK0
+        return cls(order=Q, smooth=smooth)
+
+    std_shape = (S_ADA + 1, 2, B_MAIN) if ek1d else (S_ADA + 1, B_MAIN)
     ts = np.linspace(*TSPAN_ADA, S_ADA + 1)
-    doors = {"smoothed": ("ek0_adaptive_stream", "ek0_adaptive_smoother"),
-             "filter": ("ek0_adaptive",)}
+    doors = {"smoothed": (n_stream, n_smoother), "filter": (n_filter,)}
     launches, sols, worst = {}, {}, {}
     for dtype in (torch.float32, torch.float64):
         label = str(dtype).replace("torch.", "")
@@ -1548,7 +1696,7 @@ def adaptive_path(odt, card):
         ref = reference_ensemble(u0s.double().cpu().numpy(),
                                  ps.double().cpu().numpy(), ts)
         for door, names in doors.items():
-            alg = odt.EK0(order=Q, smooth=door == "smoothed")
+            alg = alg_of(door == "smoothed")
             kw = dict(n_save=S_ADA, **ADA_TOL, max_iters=(
                 MAX_ITERS_PAIR if door == "smoothed" else MAX_ITERS_FILTER))
             reset_counts()
@@ -1557,11 +1705,12 @@ def adaptive_path(odt, card):
             counts = read_counts(*names)
             if dtype == torch.float32:
                 launches.update(counts)
-            head = f"{label} solve_ensemble(EK0(smooth={door == 'smoothed'}))"
+            head = (f"{label} solve_ensemble({alg_name}"
+                    f"(smooth={door == 'smoothed'}))")
             check(all(n == 1 for n in counts.values()),
                   f"{head}: launches in the run {counts}, one each")
             shapes = (tuple(sol.us.shape), tuple(sol.stds.shape))
-            check(shapes == ((S_ADA + 1, 2, B_MAIN), (S_ADA + 1, B_MAIN))
+            check(shapes == ((S_ADA + 1, 2, B_MAIN), std_shape)
                   and bool(torch.isfinite(sol.us).all())
                   and bool(torch.isfinite(sol.stds).all()),
                   f"{head}: us, stds {shapes}, finite")
@@ -1581,91 +1730,85 @@ def adaptive_path(odt, card):
     for door in doors:
         e32, e64 = worst[(torch.float32, door)], worst[(torch.float64, door)]
         lim = max(5 * e64, 1e-4)
-        check(e32 <= lim, f"{door}: float32 worst member vs DOP853 {e32:.3e} "
-              f"<= max(5 x float64's {e64:.3e}, 1e-4) = {lim:.3e}")
+        check(e32 <= lim, f"{alg_name} {door}: float32 worst member vs DOP853 "
+              f"{e32:.3e} <= max(5 x float64's {e64:.3e}, 1e-4) = {lim:.3e}")
         a, b = sols[(torch.float32, door)], sols[(torch.float64, door)]
         d = (a.us.double() - b.us).abs()
-        say(f"   {door}: float32 vs float64 means max |dus| {float(d.max()):.3e} "
-            f"(member {int(d.amax(dim=(0, 1)).argmax())}); members whose "
-            f"counts differ {int(((a.nacc != b.nacc) | (a.nrej != b.nrej)).sum())}")
+        say(f"   {alg_name} {door}: float32 vs float64 means max |dus| "
+            f"{float(d.max()):.3e} (member {int(d.amax(dim=(0, 1)).argmax())}); "
+            f"members whose counts differ "
+            f"{int(((a.nacc != b.nacc) | (a.nrej != b.nrej)).sum())}")
+    del sols
     # the accepted float32 steps that stream s2 = 0 (a singular factor for
     # the smoother)
-    case = AdaptiveCase(B_MAIN, torch.float32)
+    case = case_cls(B_MAIN, torch.float32)
     st, _, cs = case.stream_kernel()
     n = cs[0].long()
     rows = torch.arange(st.shape[0], device=DEVICE)[:, None] < n[None]
-    s2_col = ea.stream_width(Q + 1, 2) - 2      # [m | L | lh | s2 | save]
+    s2_col = case.stream_width() - 2      # [m | L | lh | s2 | save]
     zeros = int((st[:, s2_col][rows] == 0).sum())
-    check(zeros == 0, f"float32: {zeros} of {int(n.sum())} accepted steps "
-          "stream s2 = 0")
+    check(zeros == 0, f"{alg_name} float32: {zeros} of {int(n.sum())} "
+          "accepted steps stream s2 = 0")
     stream_mb = int(n.sum()) * st.shape[1] * st.element_size() / 1e6
     say(f"   float32 stream: {int(n.sum())} accepted rows of {st.shape[1]} "
         f"values written, {stream_mb:.1f} MB (allocated "
         f"{st.numel() * st.element_size() / 1e6:.1f} MB)")
     del st, case
+    torch.cuda.empty_cache()
     say(f"   timing: median of 10 after 2 warm-ups, CUDA events; card: {card}")
     for dtype in (torch.float32, torch.float64):
         prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_ADA)
         for door in doors:
-            alg = odt.EK0(order=Q, smooth=door == "smoothed")
+            alg = alg_of(door == "smoothed")
             kw = dict(n_save=S_ADA, **ADA_TOL, max_iters=(
                 MAX_ITERS_PAIR if door == "smoothed" else MAX_ITERS_FILTER))
             d_ms = time_ms(lambda: odt.solve_ensemble(prob, alg, u0s, ps, **kw),
                            warmup=2, iters=10)
-            say(f"   {str(dtype)[6:]} solve_ensemble(EK0, adaptive, {door}): "
-                f"{d_ms:.3f} ms = {B_MAIN / d_ms * 1e3:.0f} solves/s")
+            say(f"   {str(dtype)[6:]} solve_ensemble({alg_name}, adaptive, "
+                f"{door}): {d_ms:.3f} ms = {B_MAIN / d_ms * 1e3:.0f} solves/s")
+        torch.cuda.empty_cache()
     return launches
 
 
-def adaptive_timing(card):
-    """Phase 21: the three kernels against their plain versions at 8192
-    members in float32 (each plain version run once), then each kernel's
-    time and its bound from this run's counts. Returns (ms, plain ms, max
-    |kernel - plain|, {name: (bound_ms, bound_by, ops per unit)})."""
-    from odefilters_torch.ops import ek0_adaptive as ea
-
-    case = AdaptiveCase(B_MAIN, torch.float32)
+def adaptive_timing(card, case_cls=AdaptiveCase):
+    """Phases 21 and 24: the three adaptive kernels of ``case_cls`` against
+    their plain versions at 8192 members in float32 (each plain version run
+    once), then each kernel's time and its bound from this run's counts.
+    Returns (ms, plain ms, max |kernel - plain|, {name: (bound_ms, bound_by,
+    ops per unit)})."""
+    n_filter, n_stream, n_smoother = case_cls.names
+    case = case_cls(B_MAIN, torch.float32)
     err, plain_ms = adaptive_vs_plain(f"f32 at {B_MAIN}", case, 1e-5)
-    _, _, _, cn = case.filter_kernel()
+    us, sd, _, cn = case.filter_kernel()
     st, _, cs = case.stream_kernel()
     torch.cuda.synchronize()
     say(f"   timing, float32, B={B_MAIN}: CUDA events; card: {card}")
-    ms = {"ek0_adaptive": time_ms(case.filter_kernel, warmup=3, iters=20),
-          "ek0_adaptive_stream": time_ms(case.stream_kernel, warmup=3,
-                                         iters=20),
-          "ek0_adaptive_smoother": time_ms(
-              lambda: case.smoother_kernel(st, cs), warmup=3, iters=20)}
+    ms = {n_filter: time_ms(case.filter_kernel, warmup=3, iters=20),
+          n_stream: time_ms(case.stream_kernel, warmup=3, iters=20),
+          n_smoother: time_ms(lambda: case.smoother_kernel(st, cs), warmup=3,
+                              iters=20)}
     for name in ms:
         say(f"   {name} kernel {ms[name]:.4f} ms, plain (once) "
             f"{plain_ms[name]:.1f} ms")
     # operations: the plain attempt body per attempt and member and the
     # plain smoother step per accepted step but the last, each counted for
     # one member of this ensemble
-    one = AdaptiveCase(1, torch.float32)
-    mem = ea.Members.start(one.m0, one.dt0s, one.c_pair.t0)
-    live = torch.ones(1, dtype=torch.bool, device=DEVICE)
-    ops_att = ops_of(lambda: ea.attempt(mem, one.ps, f=one.f, c=one.c_pair,
-                                        live=live))
-    m_f, L_f, lh, s2, _ = ea._unpack(st[:1, :, :1].reshape(-1, 1), Q + 1, 2)
-    ops_step = ops_of(lambda: ea.smoother_step(
-        m_f, L_f, m_f, L_f, lh, s2, At=ea._lists(one.c_pair.At),
-        QLt=ea._lists(one.c_pair.QLt), nq=Q + 1, d=2))
+    ops_att, ops_step = case_cls(1, torch.float32).attempt_ops()
     attempts = int((cn[0] + cn[1]).sum())
     acc = int(cs[0].sum())
     item = 4
-    nq, d, n_p, S1 = Q + 1, 2, 4, S_ADA + 1
+    nq, d, n_p = Q + 1, 2, 4
     W = st.shape[1]
     inp = (nq * d + n_p + 1) * B_MAIN * item
-    grid_out = S1 * (d + 1) * B_MAIN * item
-    lane_out = B_MAIN * item + ea.N_COUNTS * B_MAIN * 4
+    grid_out = (us.numel() + sd.numel()) * item
+    lane_out = B_MAIN * item + case.ea.N_COUNTS * B_MAIN * 4
     bounds = {
-        "ek0_adaptive": bound(inp + grid_out + lane_out, ops_att, 1, attempts)
+        n_filter: bound(inp + grid_out + lane_out, ops_att, 1, attempts)
         + (ops_att,),
-        "ek0_adaptive_stream": bound(inp + acc * W * item + lane_out, ops_att,
-                                     1, int((cs[0] + cs[1]).sum()))
-        + (ops_att,),
-        "ek0_adaptive_smoother": bound(
-            acc * W * item + ea.N_COUNTS * B_MAIN * 4 + d * B_MAIN * item
+        n_stream: bound(inp + acc * W * item + lane_out, ops_att, 1,
+                        int((cs[0] + cs[1]).sum())) + (ops_att,),
+        n_smoother: bound(
+            acc * W * item + case.ea.N_COUNTS * B_MAIN * 4 + d * B_MAIN * item
             + grid_out, ops_step, 1, acc - B_MAIN) + (ops_step,),
     }
     say(f"   operations: {ops_att} per attempt and member ({attempts} "
@@ -1674,7 +1817,179 @@ def adaptive_timing(card):
         f"{acc * W * item / 1e6:.1f} MB")
     for name, (b_ms, b_by, _) in bounds.items():
         say(f"   {name}: bound {b_ms:.4f} ms by {b_by}")
+    del st, case
+    torch.cuda.empty_cache()
     return ms, plain_ms, err, bounds
+
+
+class EK1DFixed:
+    """The fixed-grid DiagonalEK1 filter's arguments for one ensemble (the
+    inputs of `Pair`, its constants rounded to the dtype as the front door
+    makes them, the Jacobian diagonal as the front door takes it) and both
+    versions of its kernel."""
+
+    def __init__(self, B, T, dtype, tspan):
+        from odefilters_torch.ops import ek1d
+
+        self.ek1d = ek1d
+        pair = Pair(B, T, dtype, tspan)
+        self.prob, self.m0_p, self.ps = pair.prob, pair.m0_p, pair.ps
+        dt = pair.fwd_kw["dt"]
+        At, Qt, p = ek1d.filter_constants(Q, dt, dtype)
+        self.kw = dict(At=At, Qt=Qt, pinv0=float(1.0 / p[0]),
+                       pinv1=float(1.0 / p[1]), t0=tspan[0], dt=dt, n_steps=T)
+        self.jd = ek1d.jac_diag_of(self.prob)
+
+    def kernel(self, static=None):
+        return self.ek1d.ek1d_filter(self.prob.f, self.jd, self.prob.field,
+                                     self.m0_p, self.ps, static_diff=static,
+                                     **self.kw)
+
+    def plain(self, static=None):
+        return self.ek1d.ek1d_filter_plain(self.prob.f, self.jd, self.m0_p,
+                                           self.ps, static_diff=static,
+                                           **self.kw)
+
+
+def ek1d_fixed_vs_plain(label, case, rtol, atol, modes=(None,) + STATIC):
+    """Phases 22 and 24: the fixed-grid DiagonalEK1 kernel against its plain
+    version in each diffusion ``modes``: us, stds, lls and sigma^2 at
+    ``rtol`` / ``atol`` (bit-for-bit equality reported). Returns the
+    largest |kernel - plain| of the dynamic diffusion's outputs and the
+    plain version's milliseconds (dynamic)."""
+    err, plain_ms = 0.0, None
+    for static in modes:
+        ref, p_ms = once(lambda: case.plain(static))
+        got = case.kernel(static)
+        torch.cuda.synchronize()
+        name = f"{label} ek1d_filter_kernel ({static or 'dynamic'})"
+        whats = ("us", "stds", "lls", "sigma^2")
+        for what, g, r in zip(whats, got, ref):
+            e = close(f"{name}, {what}", g, r, rtol, atol)
+            bitwise(f"{name}, {what}", g, r)
+            if static is None:
+                err = max(err, e)
+        if static is None:
+            plain_ms = p_ms
+    return err, plain_ms
+
+
+def ek1d_fixed_path(odt, card):
+    """Phase 23, fixed grid: ``solve_ensemble(DiagonalEK1(smooth=False),
+    adaptive=False)`` at 8192 x 500 in each diffusion mode, float32 and
+    float64, each run with the count set to 0 before it and read after it:
+    one launch, shapes, finite outputs, lls and sigma^2; float32 against
+    float64 reported with counts (means on every entry, stds; the plain
+    float32 covariance cancels); the float64 means against DOP853; and the
+    float32 dynamic front door's time. Returns the float32 dynamic run's
+    launches."""
+    launches = {}
+    sols = {}
+    for mode in ("dynamic",) + STATIC:
+        alg = odt.DiagonalEK1(order=Q, smooth=False, diffusionmodel=mode)
+        for dtype in (torch.float32, torch.float64):
+            prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_MAIN)
+            reset_counts()
+            sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=T_MAIN,
+                                     adaptive=False)
+            torch.cuda.synchronize()
+            counts = read_counts("ek1d_filter")
+            if dtype == torch.float32 and mode == "dynamic":
+                launches.update(counts)
+            label = str(dtype).replace("torch.", "")
+            head = f"{label} solve_ensemble(DiagonalEK1({mode}), fixed grid)"
+            check(counts["ek1d_filter"] == 1,
+                  f"{head}: launches in the run {counts}, one")
+            shape = (T_MAIN + 1, 2, B_MAIN)
+            check(tuple(sol.us.shape) == shape == tuple(sol.stds.shape)
+                  and bool(torch.isfinite(sol.us).all())
+                  and bool(torch.isfinite(sol.stds).all()),
+                  f"{head}: us, stds {tuple(sol.us.shape)}, finite")
+            if mode == "dynamic":
+                check(sol.diffusions is None
+                      and bool(torch.isfinite(sol.lls).all()),
+                      f"{head}: finite lls, no diffusions")
+            else:
+                check(bool(torch.isnan(sol.lls).all())
+                      and bool((sol.diffusions > 0).all()),
+                      f"{head}: NaN lls, positive diffusions "
+                      f"{tuple(sol.diffusions.shape)}")
+            sols[(mode, dtype)] = sol
+        a, b = sols[(mode, torch.float32)], sols[(mode, torch.float64)]
+        dus = (a.us.double() - b.us).abs()
+        dsd = (a.stds.double() - b.stds).abs()
+        member = int(dus.amax(dim=(0, 1)).argmax())
+        lane = dus.amax(dim=(0, 1))
+        outside = dsd > 1e-3 * b.stds.abs() + 1e-6
+        # reported, not held: the fixed grid carries the plain covariance,
+        # as the JAX kernel does, and in float32 its update Cp - k k^T s
+        # cancels (on the CPU plain path at this shape, 454 members' means
+        # miss float64 by more than 1e-4 under the dynamic diffusion,
+        # scripts/torch_residual_census.py --only ek1d)
+        zero_std = int((a.stds[1:] == 0).sum())
+        say(f"   {mode} float32 vs float64 (reported): max |dus| "
+            f"{float(dus.max()):.3e} (worst member {member}); "
+            f"{int((lane > 1e-4).sum())} members above 1e-4; max |dstd| "
+            f"{float(dsd.max()):.3e}, {int(outside.sum())} entries outside "
+            f"1e-3 |std| + 1e-6 ({int(outside.any(dim=(0, 1)).sum())} "
+            f"members; worst member's {int(outside[..., member].sum())}); "
+            f"{zero_std} float32 stds after t0 are 0 (a covariance entry "
+            f"C[0][0] <= 0, clamped)")
+        if mode != "dynamic":
+            rel = (a.diffusions.double() - b.diffusions).abs() / b.diffusions
+            say(f"   {mode} sigma^2 float32 vs float64: largest relative "
+                f"difference {float(rel.max()):.3e} (reported)")
+    ts = np.linspace(*TSPAN_MAIN, T_MAIN + 1)
+    prob, u0s, ps = inputs(B_MAIN, torch.float64, TSPAN_MAIN)
+    u0_np, p_np = u0s.cpu().numpy(), ps.cpu().numpy()
+    us64 = sols[("dynamic", torch.float64)].us.cpu().numpy()
+    members = sorted({0, 17, member, B_MAIN - 1})
+    ref_err = max(
+        float(np.abs(us64[:, :, k] - reference_solution(u0_np[k], p_np[k], ts)).max())
+        for k in members)
+    # 1.8e-6 at most over 256 members on the CPU plain path
+    check(ref_err <= 1e-5, f"f64 DiagonalEK1 filter means vs DOP853 (members "
+          f"{members}): max |dus| {ref_err:.3e} <= 1e-5")
+    del sols
+    prob, u0s, ps = inputs(B_MAIN, torch.float32, TSPAN_MAIN)
+    alg = odt.DiagonalEK1(order=Q, smooth=False)
+    d_ms = time_ms(lambda: odt.solve_ensemble(prob, alg, u0s, ps,
+                                              n_save=T_MAIN, adaptive=False),
+                   warmup=2, iters=10)
+    say(f"   float32 solve_ensemble(DiagonalEK1(smooth=False), fixed grid, "
+        f"dynamic): {d_ms:.3f} ms = {B_MAIN / d_ms * 1e3:.0f} solves/s "
+        f"(median of 10 after 2 warm-ups; card: {card})")
+    return launches
+
+
+def ek1d_fixed_timing(card):
+    """Phase 24, fixed grid: the kernel against its plain version at
+    8192 x 500 in float32 (dynamic; the plain version once), its time and
+    its bound. Returns (ms, plain ms, max |kernel - plain|, (bound_ms,
+    bound_by, ops per step and member))."""
+    case = EK1DFixed(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN)
+    err, plain_ms = ek1d_fixed_vs_plain(f"f32 at {B_MAIN} x {T_MAIN}", case,
+                                        1e-4, 1e-6, modes=(None,))
+    ms = time_ms(case.kernel, warmup=3, iters=20)
+    one = EK1DFixed(1, 2, torch.float32,
+                    (0.0, 2 * (TSPAN_MAIN[1] - TSPAN_MAIN[0]) / T_MAIN))
+
+    def make(T1):
+        kw = dict(one.kw, n_steps=T1)
+        return lambda: one.ek1d.ek1d_filter_plain(one.prob.f, one.jd,
+                                                  one.m0_p, one.ps, **kw)
+
+    ops = count_ops(make)
+    nq, d, n_p = Q + 1, 2, 4
+    # each input read once (initial means, parameters), each output written
+    # once (us and stds (T+1, d, B), lls)
+    nbytes = ((nq * d + n_p) * B_MAIN + 2 * (T_MAIN + 1) * d * B_MAIN
+              + B_MAIN) * 4
+    b = bound(nbytes, ops, B_MAIN, T_MAIN)
+    say(f"   ek1d_filter kernel {ms:.4f} ms, plain (once) {plain_ms:.1f} ms; "
+        f"{ops} operations per step and member; {nbytes / 1e6:.1f} MB; bound "
+        f"{b[0]:.4f} ms by {b[1]} (card: {card})")
+    return ms, plain_ms, err, b + (ops,)
 
 
 def main() -> int:
@@ -1970,6 +2285,28 @@ def main() -> int:
         f"B={B_MAIN}")
     a_ms, a_plain_ms, a_err, a_bounds = adaptive_timing(card)
 
+    say(f"== 22. DiagonalEK1 kernels vs plain, B={B_CHECK}: the fixed grid "
+        f"(T={T_CHECK}, tspan={TSPAN_CHECK}, each diffusion) and the adaptive "
+        f"kernels (tspan={TSPAN_ADA}, {S_ADA} save intervals, {ADA_TOL})")
+    for dtype, rtol, atol, a_rtol in ((torch.float64, 1e-10, 1e-12, 1e-12),
+                                      (torch.float32, 1e-4, 1e-6, 1e-5)):
+        label = str(dtype).replace("torch.", "")
+        ek1d_fixed_vs_plain(label, EK1DFixed(B_CHECK, T_CHECK, dtype,
+                                             TSPAN_CHECK), rtol, atol)
+        adaptive_vs_plain(label, EK1DAdaptiveCase(B_CHECK, dtype), a_rtol)
+
+    say(f"== 23. the DiagonalEK1 paths: solve_ensemble(DiagonalEK1), fixed "
+        f"grid B={B_MAIN}, T={T_MAIN}, and adaptive B={B_MAIN}, "
+        f"tspan={TSPAN_ADA}, {S_ADA} save intervals, {ADA_TOL}")
+    launches.update(ek1d_fixed_path(odt, card))
+    launches.update(adaptive_path(odt, card, EK1DAdaptiveCase))
+
+    say(f"== 24. the DiagonalEK1 kernels vs plain and timing, float32, "
+        f"B={B_MAIN} (fixed grid T={T_MAIN})")
+    d_ms, d_plain_ms, d_err, d_bound = ek1d_fixed_timing(card)
+    da_ms, da_plain_ms, da_err, da_bounds = adaptive_timing(card,
+                                                            EK1DAdaptiveCase)
+
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
     bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32, S_MAIN)
@@ -1988,12 +2325,15 @@ def main() -> int:
             say(f"  - {f}")
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
-          **e_ms, **a_ms}
+          **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
-                **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms}
+                **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
+                "ek1d_filter": d_plain_ms, **da_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
-            **s_err, **e_err, **a_err}
+            **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err}
     bounds.update(a_bounds)
+    bounds.update(da_bounds)
+    bounds["ek1d_filter"] = d_bound
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -54,7 +54,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from odefilters_torch import models  # noqa: E402
-from odefilters_torch.algorithms import EK0, EK1, IEKS, AbstractEK  # noqa: E402
+from odefilters_torch.algorithms import (  # noqa: E402
+    EK0, EK1, IEKS, AbstractEK, DiagonalEK1,
+)
 from odefilters_torch.ensemble import (  # noqa: E402
     EnsembleKernelSolution,
     ieks_ensemble,
@@ -65,6 +67,7 @@ from odefilters_torch.problem import ODEProblem, ode_problem, remake  # noqa: E4
 
 __all__ = [
     "AbstractEK",
+    "DiagonalEK1",
     "EK0",
     "EK1",
     "EnsembleKernelSolution",

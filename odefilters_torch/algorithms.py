@@ -2,8 +2,8 @@
 ``odefilters/algorithms.py``).
 
 Frozen dataclasses validated as the JAX package validates them. The fused
-fixed-grid ensemble solves run ``EK0`` and ``EK1`` (and ``IEKS`` through
-``ieks_ensemble``); the sequential dense solver is not ported yet
+ensemble solves run ``EK0``, ``EK1`` and ``DiagonalEK1`` (and ``IEKS``
+through ``ieks_ensemble``); the sequential dense solver is not ported yet
 (ROADMAP.md queue 1, slice 3).
 """
 
@@ -43,6 +43,10 @@ class AbstractEK:
     def is_ek1(self) -> bool:
         return False
 
+    @property
+    def is_diagonal_ek1(self) -> bool:
+        return False
+
 
 @dataclasses.dataclass(frozen=True)
 class EK0(AbstractEK):
@@ -60,6 +64,25 @@ class EK1(AbstractEK):
 
     @property
     def is_ek1(self) -> bool:
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagonalEK1(EK1):
+    """EK1 with a diagonal first-order linearization, ``J -> diag(J)``
+    (Kraemer, Bosch, Schmidt, Hennig, ICML 2022): the measurement
+    ``H = (E1 - diag(J) E0) P^-1`` couples each dimension only to itself,
+    so every dimension runs its own ``(q+1) x (q+1)`` filter. The Jacobian
+    diagonal comes from ``prob.jac_diag``, else the diagonal of
+    ``prob.jac``, else d forward-mode JVPs. The MV diffusions are allowed:
+    the per-dimension structure is kept, as in the JAX package."""
+
+    def __post_init__(self):
+        # skip EK1's MV rejection; run AbstractEK's validation only
+        AbstractEK.__post_init__(self)
+
+    @property
+    def is_diagonal_ek1(self) -> bool:
         return True
 
 

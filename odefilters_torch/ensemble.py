@@ -1,18 +1,20 @@
 """Front door of the fused ensemble solves (counterpart of
 ``odefilters/ensemble.py``).
 
-Ported so far, with adaptive steps (the default, as in the JAX package)
-and EK0: the per-member adaptive filter and the adaptive filter + RTS
-smoother over each member's accepted steps (`ops.ek0_adaptive`). On
-uniform grids (``adaptive=False``) with EK0: the filter + RTS smoother on
-the fused pair (`ops.ek0_pair`), the filter alone with its per-member
-log-likelihood and gradient (`ops.ek0_filter`), both under the dynamic or
-a static diffusion, and the joint-posterior sampler (`ops.ek0_sample`,
-dynamic diffusion); with EK1 (`ops.ek1_fused`): the filter with or without
-the RTS smoother under the dynamic, fixed or fixedMAP diffusion, the
-joint-posterior sampler and the ensemble IEKS (`ieks_ensemble`). Every
-other branch of the JAX front door raises ``NotImplementedError`` naming
-the ROADMAP.md item that ports it.
+Ported so far, with adaptive steps (the default, as in the JAX package),
+with EK0 (`ops.ek0_adaptive`) and DiagonalEK1 (`ops.ek1d_adaptive`): the
+per-member adaptive filter and the adaptive filter + RTS smoother over
+each member's accepted steps. On uniform grids (``adaptive=False``) with
+EK0: the filter + RTS smoother on the fused pair (`ops.ek0_pair`), the
+filter alone with its per-member log-likelihood and gradient
+(`ops.ek0_filter`), both under the dynamic or a static diffusion, and the
+joint-posterior sampler (`ops.ek0_sample`, dynamic diffusion); with EK1
+(`ops.ek1_fused`): the filter with or without the RTS smoother under the
+dynamic, fixed or fixedMAP diffusion, the joint-posterior sampler and the
+ensemble IEKS (`ieks_ensemble`); with DiagonalEK1 (`ops.ek1d`): the filter
+under the dynamic or a static diffusion. Every other branch of the JAX
+front door raises as the JAX front door does, or names the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ from odefilters_torch.ops.ek0_sample import sample_ensemble_ek0
 from odefilters_torch.ops.ek1_fused import (
     sample_ensemble_ek1, solve_ensemble_ek1,
 )
+from odefilters_torch.ops.ek1d import jac_diag_of, solve_ensemble_ek1d
+from odefilters_torch.ops.ek1d_adaptive import (
+    solve_ensemble_ek1d_adaptive, solve_ensemble_ek1d_adaptive_smooth,
+)
 from odefilters_torch.problem import ODEProblem
 
 
@@ -41,15 +47,16 @@ class EnsembleKernelSolution:
 
     ``us``: ``(S+1, d, B)`` posterior means on the save grid; ``stds``:
     ``(S+1, B)`` marginal stds from EK0 (its covariance is isotropic across
-    dims), or ``(S+1, d, B)`` per-dimension stds from EK1 (its covariance
-    is not) and from EK0 under fixedMV. ``lls``: ``(B,)`` ODE-residual
-    log-likelihoods from the EK0 filter paths and the adaptive paths (all
-    NaN under a static diffusion; None from the fixed-grid smoothers and
-    from EK1). ``nacc``, ``nrej``: ``(B,)`` int32 accepted and rejected
-    attempts per member, and ``failed``: ``(B,)`` bool, from the adaptive
-    paths (None on fixed grids). ``diffusions``: the calibrated per-member
-    global sigma^2 under a static diffusion, ``(B,)`` or ``(d, B)`` for
-    fixedMV; None otherwise.
+    dims), or ``(S+1, d, B)`` per-dimension stds from EK1 and DiagonalEK1
+    (their covariances are not) and from EK0 under fixedMV. ``lls``:
+    ``(B,)`` ODE-residual log-likelihoods from the EK0 and DiagonalEK1
+    filter paths and the adaptive paths (all NaN under a static diffusion;
+    None from the fixed-grid smoothers and from EK1). ``nacc``, ``nrej``:
+    ``(B,)`` int32 accepted and rejected attempts per member, and
+    ``failed``: ``(B,)`` bool, from the adaptive paths (None on fixed
+    grids). ``diffusions``: the calibrated per-member global sigma^2 under
+    a static diffusion, ``(B,)`` or ``(d, B)`` for fixedMV; None
+    otherwise.
     """
 
     us: torch.Tensor
@@ -82,31 +89,45 @@ def solve_ensemble(
     grids (``adaptive=False``) it is the step count, and the tolerances
     are unused. Tensors on a CUDA device run the CUDA kernels (the problem
     must name a CUDA vector field in ``prob.field``, with a Jacobian for
-    EK1); CPU tensors run the plain versions.
+    EK1 and a Jacobian diagonal for DiagonalEK1); CPU tensors run the plain
+    versions.
 
-    Adaptive (EK0, the dynamic diffusion): each member runs its own
-    PI-controlled steps at ``abstol`` / ``reltol``; ``max_iters`` bounds
-    each member's attempts (default 1024 with the smoother, whose stream
-    it sizes, else 100 000) and the result carries ``lls``, ``nacc``,
-    ``nrej`` and ``failed``. Fixed grids: with EK0 and ``smooth=False`` the
-    result carries ``lls``, and gradients of it with respect to ``u0s``
-    and ``ps`` flow by ``torch.autograd`` (dynamic diffusion only); EK1
-    runs the dynamic, fixed or fixedMAP diffusion, with or without the
-    smoother.
+    Adaptive (EK0 or DiagonalEK1, the dynamic diffusion): each member runs
+    its own PI-controlled steps at ``abstol`` / ``reltol``; ``max_iters``
+    bounds each member's attempts (default 1024 with the smoother, whose
+    stream it sizes, else 100 000) and the result carries ``lls``,
+    ``nacc``, ``nrej`` and ``failed``. Fixed grids: with EK0 and
+    ``smooth=False`` the result carries ``lls``, and gradients of it with
+    respect to ``u0s`` and ``ps`` flow by ``torch.autograd`` (dynamic
+    diffusion only); EK1 runs the dynamic, fixed or fixedMAP diffusion,
+    with or without the smoother; DiagonalEK1 runs the filter alone
+    (``smooth=False``) under the dynamic, fixed, fixedMAP or fixedMV
+    diffusion and carries ``lls``.
     """
     if adaptive:
         return _solve_adaptive(prob, alg, u0s, ps, n_save=n_save,
                                abstol=abstol, reltol=reltol,
                                max_iters=max_iters, mesh=mesh)
-    if getattr(alg, "is_diagonal_ek1", False):
-        raise NotImplementedError(
-            "DiagonalEK1 ensemble kernels are not ported yet (ROADMAP.md "
-            "queue 2 item 10: _ek1d_kernel)"
-        )
     if alg.diffusionmodel == "dynamicMV":
         raise NotImplementedError(
             "dynamicMV is not on the fused kernels, as in the JAX package"
         )
+    if alg.is_diagonal_ek1:
+        if alg.smooth or getattr(prob, "second_order", False):
+            raise NotImplementedError(
+                "the fixed-grid DiagonalEK1 ensemble kernel is a first-order "
+                "filter, as in the JAX package; pass smooth=False, or use "
+                "adaptive=True for smoothing"
+            )
+        out = solve_ensemble_ek1d(
+            prob.f, jac_diag_of(prob), u0s, ps, prob.tspan, n_save,
+            q=alg.order, field=prob.field, prior=alg.prior, mesh=mesh,
+            diffusion=alg.diffusionmodel,
+        )
+        if alg.diffusionmodel == "dynamic":
+            return EnsembleKernelSolution(*out)
+        us, stds, lls, sig = out
+        return EnsembleKernelSolution(us, stds, lls, diffusions=sig)
     if alg.is_ek1:
         out = solve_ensemble_ek1(
             prob.f, prob.jac, u0s, ps, prob.tspan, n_save, q=alg.order,
@@ -126,7 +147,13 @@ def solve_ensemble(
 
 def _solve_adaptive(prob, alg, u0s, ps, *, n_save, abstol, reltol, max_iters,
                     mesh) -> EnsembleKernelSolution:
-    """The adaptive branch of `solve_ensemble` (EK0 only so far)."""
+    """The adaptive branch of `solve_ensemble` (EK0 and DiagonalEK1)."""
+    if getattr(prob, "mass_matrix", None) is not None:
+        raise NotImplementedError(
+            "mass-matrix problems are not on the port's fused kernels (the "
+            "JAX package runs a diagonal mass on the adaptive DiagonalEK1 "
+            "filter: ROADMAP.md queue 1, item 3)"
+        )
     if alg.diffusionmodel != "dynamic":
         raise NotImplementedError(
             f"the fused adaptive kernels implement the dynamic diffusion "
@@ -134,23 +161,23 @@ def _solve_adaptive(prob, alg, u0s, ps, *, n_save, abstol, reltol, max_iters,
             f"ill-posed under per-lane step control; use adaptive=False "
             f"(the fixed-grid kernels run fixed/fixedMAP/fixedMV)"
         )
-    if getattr(alg, "is_diagonal_ek1", False):
-        raise NotImplementedError(
-            "adaptive DiagonalEK1 ensemble kernels are not ported yet "
-            "(ROADMAP.md queue 2 items 13 and 15); pass adaptive=False once "
-            "the fixed-grid DiagonalEK1 filter lands (item 10)"
-        )
+    kw = dict(q=alg.order, abstol=abstol, reltol=reltol, prior=alg.prior,
+              mesh=mesh, second_order=prob.second_order, field=prob.field)
+    if alg.is_diagonal_ek1:
+        if alg.smooth:
+            out = solve_ensemble_ek1d_adaptive_smooth(
+                prob.f, jac_diag_of(prob), u0s, ps, prob.tspan, n_save,
+                max_iters=1024 if max_iters is None else max_iters, **kw)
+        else:
+            out = solve_ensemble_ek1d_adaptive(
+                prob.f, jac_diag_of(prob), u0s, ps, prob.tspan, n_save,
+                max_iters=100_000 if max_iters is None else max_iters, **kw)
+        return EnsembleKernelSolution(*out)
     if alg.is_ek1:
         raise NotImplementedError(
             "adaptive EK1 ensemble kernels are not ported yet (ROADMAP.md "
             "queue 2 items 12 and 16); pass adaptive=False"
         )
-    if getattr(prob, "mass_matrix", None) is not None:
-        raise NotImplementedError(
-            "mass-matrix problems are supported on the dense solver paths only"
-        )
-    kw = dict(q=alg.order, abstol=abstol, reltol=reltol, prior=alg.prior,
-              mesh=mesh, second_order=prob.second_order, field=prob.field)
     if alg.smooth:
         out = solve_ensemble_ek0_adaptive_smooth(
             prob.f, u0s, ps, prob.tspan, n_save,
@@ -160,19 +187,6 @@ def _solve_adaptive(prob, alg, u0s, ps, *, n_save, abstol, reltol, max_iters,
             prob.f, u0s, ps, prob.tspan, n_save,
             max_iters=100_000 if max_iters is None else max_iters, **kw)
     return EnsembleKernelSolution(*out)
-
-
-def _check_unported(alg: AbstractEK, adaptive: bool) -> None:
-    if adaptive:
-        raise NotImplementedError(
-            "the adaptive sampler is not ported yet (ROADMAP.md queue 1, "
-            "slice 5: queue 2 item 17); pass adaptive=False"
-        )
-    if getattr(alg, "is_diagonal_ek1", False):
-        raise NotImplementedError(
-            "DiagonalEK1 ensemble kernels are not ported yet (ROADMAP.md "
-            "queue 2 item 10: _ek1d_kernel)"
-        )
 
 
 def sample_ensemble(
@@ -185,6 +199,9 @@ def sample_ensemble(
     n_steps: int = 100,
     n_samples: int = 1,
     adaptive: bool = False,
+    abstol: float = 1e-6,
+    reltol: float = 1e-3,
+    max_iters: int = 1024,
     mesh=None,
 ) -> torch.Tensor:
     """Joint smoothing-posterior sample paths per ensemble member.
@@ -199,6 +216,12 @@ def sample_ensemble(
     ``ps``: ``(B, n_params)``; any ``B >= 1``. EK0 with the dynamic
     diffusion only, and ``alg.smooth`` must be set (a joint backward draw
     is a smoothing pass), as in the JAX package.
+
+    ``abstol``, ``reltol`` and ``max_iters`` are the JAX signature's
+    settings of the adaptive sampler (``adaptive=True``), which is not
+    ported yet and raises; the fixed grid does not use them. ``generator``
+    takes the place of the JAX package's positional ``key``: the TPU's
+    random bits do not carry over.
     """
     if getattr(prob, "mass_matrix", None) is not None:
         raise NotImplementedError(
@@ -208,14 +231,18 @@ def sample_ensemble(
         raise NotImplementedError(
             "the fused sampler implements the dynamic diffusion model"
         )
-    if getattr(alg, "is_diagonal_ek1", False):
+    if alg.is_diagonal_ek1:
         raise NotImplementedError(
             "the fused sampler runs on the EK0 or EK1 kernel pairs, not on "
             "DiagonalEK1"
         )
     if not alg.smooth:
         raise ValueError("sampling not implemented for non-smoothed posteriors")
-    _check_unported(alg, adaptive)
+    if adaptive:
+        raise NotImplementedError(
+            "the adaptive sampler is not ported yet (ROADMAP.md queue 1, "
+            "slice 5: queue 2 item 17); pass adaptive=False"
+        )
     if alg.is_ek1:
         return sample_ensemble_ek1(
             prob.f, prob.jac, u0s, ps, prob.tspan, n_steps, generator,
@@ -255,7 +282,7 @@ def ieks_ensemble(
         raise NotImplementedError(
             "the fused kernels implement the dynamic diffusion model"
         )
-    if getattr(alg, "is_diagonal_ek1", False) or not alg.is_ek1:
+    if alg.is_diagonal_ek1 or not alg.is_ek1:
         raise NotImplementedError("ensemble IEKS linearizes on the EK1 kernel")
     if getattr(prob, "second_order", False):
         raise NotImplementedError("ensemble IEKS is first-order only")

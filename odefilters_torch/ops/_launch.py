@@ -21,6 +21,9 @@ CUDA_FIELDS = {"fhn": (2, 4)}
 # The fields whose functor also has a Jacobian ``jac`` (the EK1 kernels
 # evaluate it in the kernel).
 CUDA_JAC_FIELDS = frozenset({"fhn"})
+# The fields whose functor also has a Jacobian diagonal ``jac_diag`` (the
+# DiagonalEK1 kernels evaluate it in the kernel).
+CUDA_JAC_DIAG_FIELDS = frozenset({"fhn"})
 # The kernels are instantiated for this order only (nq = 4).
 CUDA_ORDERS = (3,)
 
@@ -51,10 +54,12 @@ def check_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype):
 
 
 def check_field(name: str, field: Optional[str], nq: int, d: int, B: int,
-                ps: torch.Tensor, need_jac: bool = False) -> None:
+                ps: torch.Tensor, need_jac: bool = False,
+                need_jac_diag: bool = False) -> None:
     """Raise unless the kernels are built for vector field ``field`` at
     order ``nq - 1``, with ``ps`` of shape ``(n_params, B)``, and (with
-    ``need_jac``) the field has a CUDA Jacobian."""
+    ``need_jac`` / ``need_jac_diag``) the field has a CUDA Jacobian / a
+    CUDA Jacobian diagonal."""
     if field not in CUDA_FIELDS:
         raise NotImplementedError(
             f"no CUDA vector field {field!r}; the kernels are built for "
@@ -64,6 +69,12 @@ def check_field(name: str, field: Optional[str], nq: int, d: int, B: int,
         raise NotImplementedError(
             f"{name}: the CUDA vector field {field!r} has no Jacobian; the "
             f"EK1 kernels evaluate one in the kernel ({sorted(CUDA_JAC_FIELDS)})"
+        )
+    if need_jac_diag and field not in CUDA_JAC_DIAG_FIELDS:
+        raise NotImplementedError(
+            f"{name}: the CUDA vector field {field!r} has no Jacobian "
+            f"diagonal; the DiagonalEK1 kernels evaluate one in the kernel "
+            f"({sorted(CUDA_JAC_DIAG_FIELDS)})"
         )
     d_f, n_params = CUDA_FIELDS[field]
     if nq - 1 not in CUDA_ORDERS or d != d_f or tuple(ps.shape) != (n_params, B):

@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(THREADS)
   // a failed or unfinished member's remaining save rows: its final state
   for (int k = st.seg + 1; k <= c.n_save; ++k) emit(k);
   lls[b] = st.ll;
-  ek0::store_counts<S, NQ, D>(counts, b, sB, st, c.n_save);
+  ek0::store_counts<S, D>(counts, b, sB, st, c.n_save);
 }
 
 // The same loop, writing each accepted step into st (max_iters, V, B) at
@@ -116,13 +116,11 @@ __global__ void __launch_bounds__(THREADS)
           o.s2, o.reached ? S(o.seg_before + 1) : S(0));
   }
   lls[b] = st.ll;
-  ek0::store_counts<S, NQ, D>(counts, b, sB, st, c.n_save);
+  ek0::store_counts<S, D>(counts, b, sB, st, c.n_save);
 }
 
 // Backward pass of member b over rows nacc - 1 .. 0 of its stream, into
-// us (S+1, D, B) and stds (S+1, B): row 0 the exact initial state with std
-// 0, each save row from the smoothed state of the step that reached it,
-// the rows past the last save point reached the final state.
+// us (S+1, D, B) and stds (S+1, B) (ek0_adaptive.cuh: smooth_member).
 template <typename S, int NQ, int D>
 __global__ void __launch_bounds__(THREADS)
     ek0_adaptive_smoother_kernel(const S* __restrict__ stream,
@@ -134,44 +132,20 @@ __global__ void __launch_bounds__(THREADS)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = (size_t)B;
-  const int K = counts[b], segs = counts[3 * sB + b];
-  auto emit = [&](int k, const S (&m0row)[D], S std) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) us[((size_t)k * D + j) * sB + b] = m0row[j];
-    stds[(size_t)k * sB + b] = std;
-  };
   S first[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) first[j] = m0[j * sB + b];
-  emit(0, first, S(0));
-  if (K == 0) {
-    for (int k = 1; k <= c.n_save; ++k) emit(k, first, S(0));
-    return;
-  }
-  ek0::AdaptRow<S, NQ, D> r;
-  ek0::load_adapt_row<S, NQ, D>(stream, (size_t)(K - 1) * V * sB + b, sB, r);
-  // the last accepted step: smoothed = filtered
-  S ms[NQ][D], Ls[NQ][NQ];
+  ek0::smooth_member<S, NQ, D>(
+      c, counts[b], counts[3 * sB + b], first,
+      [&](int k, ek0::AdaptRow<S, NQ, D>& r) {
+        ek0::load_adapt_row<S, NQ, D>(stream, (size_t)k * V * sB + b, sB, r);
+      },
+      [&](int k, const S (&m0row)[D], S std) {
 #pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) ms[i][j] = r.m[i][j];
-#pragma unroll
-    for (int l = 0; l < NQ; ++l) Ls[i][l] = r.L[i][l];
-  }
-  {
-    const S std = ek0::std_row0<S, NQ>(Ls);
-    for (int k = segs + 1; k <= c.n_save; ++k) emit(k, ms[0], std);
-  }
-  if (r.mark > S(0.5)) emit((int)r.mark, ms[0], ek0::std_row0<S, NQ>(Ls));
-  S pend_lh = r.lh, pend_s2 = r.s2;
-  for (int k = K - 2; k >= 0; --k) {
-    ek0::load_adapt_row<S, NQ, D>(stream, (size_t)k * V * sB + b, sB, r);
-    ek0::smoother_step<S, NQ, D>(c, r.m, r.L, pend_lh, pend_s2, ms, Ls);
-    pend_lh = r.lh;
-    pend_s2 = r.s2;
-    if (r.mark > S(0.5)) emit((int)r.mark, ms[0], ek0::std_row0<S, NQ>(Ls));
-  }
+        for (int j = 0; j < D; ++j)
+          us[((size_t)k * D + j) * sB + b] = m0row[j];
+        stds[(size_t)k * sB + b] = std;
+      });
 }
 
 namespace {

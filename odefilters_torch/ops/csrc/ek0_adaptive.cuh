@@ -1,8 +1,11 @@
 // Per-member bodies of the adaptive EK0 kernels (ek0_adaptive.cu): one
 // attempt of the PI-controlled EK0(dynamic) step loop, the accepted-step
-// stream row and one square-root RTS step over a member's accepted steps.
-// Their plain PyTorch versions, in the same order of operations, are in
-// odefilters_torch/ops/ek0_adaptive.py (attempt, smoother_step).
+// stream row and one square-root RTS step over a member's accepted steps,
+// with the parts the DiagonalEK1 kernels (ek1d.cu) share: an attempt's
+// begin and control, the factor's prediction and the backward walk
+// (smooth_member). Their plain PyTorch versions, in the same order of
+// operations, are in odefilters_torch/ops/ek0_adaptive.py (attempt, begin,
+// control, predict_factor, smoother_step, ek0_adaptive_smoother_plain).
 //
 // The state is carried unpreconditioned and preconditioned afresh at each
 // attempt's step size, as in the JAX kernels, but the covariance is carried
@@ -46,20 +49,22 @@ __device__ __forceinline__ S clamp_(S x, S lo, S hi) {
   return x != x ? x : (x < lo ? lo : (x > hi ? hi : x));
 }
 
-// Constants of the three kernels: the preconditioned IBM transition
-// (upper triangular), its noise factor QLt (lower triangular) and the
-// measured entry qbx = (QLt QLt^T)[BX][BX], the save grid, the tolerances,
-// the smallest step and the controller's exponents; the counts are the
-// kernels' int arguments.
+// Constants of the adaptive kernels: the preconditioned IBM transition
+// (upper triangular), its noise factor QLt (lower triangular), the measured
+// entry qbx = (QLt QLt^T)[BX][BX] and the leading 2 x 2 block Qh of
+// QLt QLt^T (the DiagonalEK1 measurement rows see it), the save grid, the
+// tolerances, the smallest step and the controller's exponents; the counts
+// are the kernels' int arguments.
 template <typename S, int NQ>
 struct AdaptConsts {
   S At[NQ][NQ], QLt[NQ][NQ];
   S qbx, t0, dt_save, abstol, reltol, dtmin, beta1, beta2;
+  S Qh[2][2];
   int n_save, max_iters;
 };
 
 // consts: At, QLt (NQ*NQ each), then qbx, t0, dt_save, abstol, reltol,
-// dtmin, beta1, beta2
+// dtmin, beta1, beta2, Qh (row-major)
 template <typename S, int NQ>
 inline AdaptConsts<S, NQ> read_adapt_consts(const double* k, int n_save,
                                             int max_iters) {
@@ -77,6 +82,8 @@ inline AdaptConsts<S, NQ> read_adapt_consts(const double* k, int n_save,
   c.dtmin = S(k[o++]);
   c.beta1 = S(k[o++]);
   c.beta2 = S(k[o++]);
+  for (int i = 0; i < 2; ++i)
+    for (int l = 0; l < 2; ++l) c.Qh[i][l] = S(k[o++]);
   c.n_save = n_save;
   c.max_iters = max_iters;
   return c;
@@ -90,20 +97,26 @@ struct AdaptLayout {
   static constexpr int V = NQ * D + NQ * NQ + 3;
 };
 
-// A member's loop state: m (NQ x D) and the factor L (NQ x NQ)
-// unpreconditioned, the previous accepted solution, time, step, controller
-// memory, log-likelihood, save points reached, accepted and rejected
-// attempts.
-template <typename S, int NQ, int D>
-struct Member {
-  S m[NQ][D], L[NQ][NQ], u_prev[D];
+// A member's loop state besides its mean and covariance factor(s): the
+// previous accepted solution, time, step, controller memory,
+// log-likelihood, save points reached, accepted and rejected attempts.
+template <typename S, int D>
+struct Progress {
+  S u_prev[D];
   S t, dt, qold, ll;
   int seg, nacc, nrej;
   bool failed;
 
+  template <int NQ>
   __device__ __forceinline__ bool live(const AdaptConsts<S, NQ>& c) const {
     return !failed && seg < c.n_save && nacc + nrej < c.max_iters;
   }
+};
+
+// The EK0 member: m (NQ x D) and the factor L (NQ x NQ), unpreconditioned.
+template <typename S, int NQ, int D>
+struct Member : Progress<S, D> {
+  S m[NQ][D], L[NQ][NQ];
 };
 
 // The factor Lp (lower) of [(At Lh)^T; (sq QLt)^T]: row NQ + a of the
@@ -140,27 +153,109 @@ struct AttemptOut {
   S lh, s2;
 };
 
-// One attempt of a live member (ek0_adaptive.py: attempt): precondition at
-// the attempt's step, one EK0(dynamic) step, the error estimate, the PI
-// controller, the failure checks and the commit.
+// The start of an attempt (ek0_adaptive.py: begin), shared by the EK0 and
+// DiagonalEK1 loops: the next save time, whether the member is active, the
+// attempt's step (truncated to land on the save point), its log, the
+// preconditioner ps_ at that step and the new time.
+template <typename S>
+struct Begin {
+  S t_save, dt_eff, lh, t_new;
+  bool active, hit_save;
+};
+
+template <typename S, int NQ, int D>
+__device__ __forceinline__ Begin<S> begin(const AdaptConsts<S, NQ>& c,
+                                          const Progress<S, D>& st,
+                                          S (&ps_)[NQ]) {
+  constexpr double QH = NQ - 0.5;  // q + 1/2
+  Begin<S> a;
+  const S t = st.t, dt = st.dt;
+  a.t_save = c.t0 + c.dt_save * (S(st.seg) + S(1));
+  a.active = t < a.t_save;
+  const S remaining = a.t_save - t;
+  a.hit_save = dt >= remaining;
+  a.dt_eff = a.active ? (a.hit_save ? remaining : dt) : S(1);
+  // -- precondition at this attempt's h (fresh from canonical) --
+  a.lh = log_(a.dt_eff);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) ps_[i] = exp_(S(i - QH) * a.lh);
+  a.t_new = a.hit_save ? a.t_save : t + a.dt_eff;
+  return a;
+}
+
+// The end of an attempt (ek0_adaptive.py: control), shared by the EK0 and
+// DiagonalEK1 loops: the error estimate from the per-dimension unscaled
+// errors err and the filtered solution u_filt, the per-member PI
+// controller, the failure checks, and the commit of everything but the mean
+// and the covariance factor. Returns accept; fills o but lh and s2.
+template <typename S, int NQ, int D>
+__device__ __forceinline__ bool control(const AdaptConsts<S, NQ>& c,
+                                        const Begin<S>& a, const S (&err)[D],
+                                        const S (&u_filt)[D], S ll_inc,
+                                        Progress<S, D>& st,
+                                        AttemptOut<S>& o) {
+  const S inv_d = S(1) / S(D);
+  S ee = S(0);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const S sc =
+        c.abstol + c.reltol * max_(fabs(st.u_prev[j]), fabs(u_filt[j]));
+    const S r = a.dt_eff * err[j] / sc;
+    ee += r * r;
+  }
+  S EEst = sqrt_(ee * inv_d);
+  if (!(EEst - EEst == S(0))) EEst = S(1e10);  // not finite
+  const bool accept = a.active && EEst <= S(1);
+
+  // -- per-member PI controller --
+  const S inv_gamma = S(1.0 / GAMMA);
+  const S leg = log_(floor_at(EEst, S(1e-35)));
+  const S q11 = exp_(c.beta1 * leg);
+  S qq = q11 * exp_(-c.beta2 * log_(floor_at(st.qold, S(1e-35))));
+  qq = clamp_(qq * inv_gamma, S(1.0 / QMAX), S(1.0 / QMIN));
+  S dt_acc = a.dt_eff / qq;
+  // a step truncated to land on a save point must not collapse the
+  // controller's step size
+  if (a.hit_save && st.seg < c.n_save - 1) dt_acc = max_(dt_acc, st.dt);
+  const S qold_acc = floor_at(EEst, S(QOLDINIT));
+  const S dt_rej = a.dt_eff / min_(q11 * inv_gamma, S(1.0 / QMIN));
+  const S dt_new = accept ? dt_acc : dt_rej;
+  // a member fails when its next dt collapses below dtmin (accepted or
+  // not) or when an accepted step makes no floating-point progress
+  const bool failed =
+      st.failed || (a.active && !a.hit_save &&
+                    (dt_new < c.dtmin || (accept && a.t_new <= st.t)));
+
+  if (accept) {
+    st.t = a.t_new;
+    st.qold = qold_acc;
+    st.ll = st.ll + ll_inc;
+#pragma unroll
+    for (int j = 0; j < D; ++j) st.u_prev[j] = u_filt[j];
+    st.nacc += 1;
+  } else if (a.active) {
+    st.nrej += 1;
+  }
+  if (a.active && !failed) st.dt = dt_new;
+  st.failed = failed;
+  o.accept = accept;
+  o.seg_before = st.seg;
+  o.reached = accept && st.t >= a.t_save;
+  if (o.reached) st.seg += 1;
+  return accept;
+}
+
+// One attempt of a live member (ek0_adaptive.py: attempt): begin, one
+// square-root EK0(dynamic) step in the member's preconditioned frame,
+// control, and the commit of the mean and the factor.
 template <typename S, int NQ, class F>
 __device__ __forceinline__ void attempt(const AdaptConsts<S, NQ>& c,
                                         const S* p, Member<S, NQ, F::D>& st,
                                         AttemptOut<S>& o) {
   constexpr int D = F::D;
   constexpr double QH = NQ - 0.5;  // q + 1/2
-  const S t = st.t, dt = st.dt;
-  const S t_save = c.t0 + c.dt_save * (S(st.seg) + S(1));
-  const bool active = t < t_save;
-  const S remaining = t_save - t;
-  const bool hit_save = dt >= remaining;
-  const S dt_eff = active ? (hit_save ? remaining : dt) : S(1);
-
-  // -- precondition at this attempt's h (fresh from canonical) --
-  const S lh = log_(dt_eff);
   S ps_[NQ];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) ps_[i] = exp_(S(i - QH) * lh);
+  const Begin<S> a = begin<S, NQ, D>(c, st, ps_);
   S mh[NQ][D], Lh[NQ][NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
@@ -169,19 +264,16 @@ __device__ __forceinline__ void attempt(const AdaptConsts<S, NQ>& c,
 #pragma unroll
     for (int l = 0; l < NQ; ++l) Lh[i][l] = st.L[i][l] * ps_[i];
   }
-  const S pinv0 = exp_(S(QH) * lh);
-  const S pb = exp_(S(QH - BX) * lh);
+  const S pinv0 = exp_(S(QH) * a.lh);
+  const S pb = exp_(S(QH - BX) * a.lh);
   const S hq = pb * pb * c.qbx;
 
-  // -- one square-root EK0(dynamic) step in the member's preconditioned
-  // frame --
   S mp[NQ][D];
   at_times<S, NQ, D>(c.At, mh, mp);
-  const S t_new = hit_save ? t_save : t + dt_eff;
   S u[D], du[D], z[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) u[j] = pinv0 * mp[0][j];
-  F()(u, p, t_new, du);
+  F()(u, p, a.t_new, du);
 #pragma unroll
   for (int j = 0; j < D; ++j) z[j] = innovation(pb, mp[BX][j], du[j]);
   S zz = S(0);
@@ -217,40 +309,12 @@ __device__ __forceinline__ void attempt(const AdaptConsts<S, NQ>& c,
   for (int j = 0; j < D; ++j) u_filt[j] = pinv0 * m_new[0][j];
 
   // -- error estimate (EK0 dynamic: sqrt(s2 hq) == sqrt(zz/D)) --
-  const S inv_d = S(1) / S(D);
-  const S err = sqrt_(zz * inv_d);
-  S ee = S(0);
+  S err[D];
+  const S err_all = sqrt_(zz * (S(1) / S(D)));
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const S sc = c.abstol + c.reltol * max_(fabs(st.u_prev[j]), fabs(u_filt[j]));
-    const S r = dt_eff * err / sc;
-    ee += r * r;
-  }
-  S EEst = sqrt_(ee * inv_d);
-  if (!(EEst - EEst == S(0))) EEst = S(1e10);  // not finite
-  const bool accept = active && EEst <= S(1);
-
-  // -- per-member PI controller --
-  const S inv_gamma = S(1.0 / GAMMA);
-  const S leg = log_(floor_at(EEst, S(1e-35)));
-  const S q11 = exp_(c.beta1 * leg);
-  S qq = q11 * exp_(-c.beta2 * log_(floor_at(st.qold, S(1e-35))));
-  qq = clamp_(qq * inv_gamma, S(1.0 / QMAX), S(1.0 / QMIN));
-  S dt_acc = dt_eff / qq;
-  // a step truncated to land on a save point must not collapse the
-  // controller's step size
-  if (hit_save && st.seg < c.n_save - 1) dt_acc = max_(dt_acc, dt);
-  const S qold_acc = floor_at(EEst, S(QOLDINIT));
-  const S dt_rej = dt_eff / min_(q11 * inv_gamma, S(1.0 / QMIN));
-  const S dt_new = accept ? dt_acc : dt_rej;
-  // a member fails when its next dt collapses below dtmin (accepted or
-  // not) or when an accepted step makes no floating-point progress
-  const bool failed =
-      st.failed ||
-      (active && !hit_save && (dt_new < c.dtmin || (accept && t_new <= t)));
-
+  for (int j = 0; j < D; ++j) err[j] = err_all;
   // -- un-precondition, then commit --
-  if (accept) {
+  if (control<S, NQ, D>(c, a, err, u_filt, ll_inc, st, o)) {
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
 #pragma unroll
@@ -258,23 +322,26 @@ __device__ __forceinline__ void attempt(const AdaptConsts<S, NQ>& c,
 #pragma unroll
       for (int l = 0; l < NQ; ++l) st.L[i][l] = L_new[i][l] / ps_[i];
     }
-    st.t = t_new;
-    st.qold = qold_acc;
-    st.ll = st.ll + ll_inc;
-#pragma unroll
-    for (int j = 0; j < D; ++j) st.u_prev[j] = u_filt[j];
-    st.nacc += 1;
-  } else if (active) {
-    st.nrej += 1;
   }
-  if (active && !failed) st.dt = dt_new;
-  st.failed = failed;
-  o.accept = accept;
-  o.lh = lh;
+  o.lh = a.lh;
   o.s2 = s2;
-  o.seg_before = st.seg;
-  o.reached = accept && st.t >= t_save;
-  if (o.reached) st.seg += 1;
+}
+
+// The member's progress at the start: u_prev = m[0], t = t0, dt = dt0.
+template <typename S, int NQ, int D>
+__device__ __forceinline__ void start_progress(const S (&m)[NQ][D],
+                                               const S* __restrict__ dt0s,
+                                               int b,
+                                               const AdaptConsts<S, NQ>& c,
+                                               Progress<S, D>& st) {
+#pragma unroll
+  for (int j = 0; j < D; ++j) st.u_prev[j] = m[0][j];
+  st.t = c.t0;
+  st.dt = dt0s[b];
+  st.qold = S(QOLDINIT);
+  st.ll = S(0);
+  st.seg = st.nacc = st.nrej = 0;
+  st.failed = false;
 }
 
 template <typename S, int NQ, int NP, int D>
@@ -286,22 +353,15 @@ __device__ __forceinline__ void start_member(const S* __restrict__ m0,
                                              S (&p)[NP],
                                              Member<S, NQ, D>& st) {
   load_member<S, NQ, NP, D>(m0, ps, b, sB, p, st.m, st.L);
-#pragma unroll
-  for (int j = 0; j < D; ++j) st.u_prev[j] = st.m[0][j];
-  st.t = c.t0;
-  st.dt = dt0s[b];
-  st.qold = S(QOLDINIT);
-  st.ll = S(0);
-  st.seg = st.nacc = st.nrej = 0;
-  st.failed = false;
+  start_progress<S, NQ, D>(st.m, dt0s, b, c, st);
 }
 
 // counts (4, B): nacc, nrej, failed (a failure, or save points left),
 // save points reached
-template <typename S, int NQ, int D>
+template <typename S, int D>
 __device__ __forceinline__ void store_counts(int* __restrict__ counts, int b,
                                              size_t sB,
-                                             const Member<S, NQ, D>& st,
+                                             const Progress<S, D>& st,
                                              int n_save) {
   counts[b] = st.nacc;
   counts[sB + b] = st.nrej;
@@ -445,6 +505,48 @@ __device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
     for (int j = 0; j < D; ++j) ms[i][j] = pinv * ms_new[i][j];
 #pragma unroll
     for (int l = 0; l < NQ; ++l) Ls[i][l] = pinv * Ls_new[i][l];
+  }
+}
+
+// The backward pass of one member (ek0_adaptive.py:
+// ek0_adaptive_smoother_plain) over its K accepted rows, rows K - 1 .. 0:
+// load(k, r) reads row k into an AdaptRow of DM mean columns, emit(k, m0row,
+// std) writes save row k. Row 0 is the exact initial state first with std
+// 0, each save row the smoothed state of the step that reached it, the rows
+// past the segs save points reached the final state.
+template <typename S, int NQ, int DM, class Load, class Emit>
+__device__ __forceinline__ void smooth_member(const AdaptConsts<S, NQ>& c,
+                                              int K, int segs,
+                                              const S (&first)[DM], Load load,
+                                              Emit emit) {
+  emit(0, first, S(0));
+  if (K == 0) {
+    for (int k = 1; k <= c.n_save; ++k) emit(k, first, S(0));
+    return;
+  }
+  AdaptRow<S, NQ, DM> r;
+  load(K - 1, r);
+  // the last accepted step: smoothed = filtered
+  S ms[NQ][DM], Ls[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < DM; ++j) ms[i][j] = r.m[i][j];
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Ls[i][l] = r.L[i][l];
+  }
+  {
+    const S std = std_row0<S, NQ>(Ls);
+    for (int k = segs + 1; k <= c.n_save; ++k) emit(k, ms[0], std);
+  }
+  if (r.mark > S(0.5)) emit((int)r.mark, ms[0], std_row0<S, NQ>(Ls));
+  S pend_lh = r.lh, pend_s2 = r.s2;
+  for (int k = K - 2; k >= 0; --k) {
+    load(k, r);
+    smoother_step<S, NQ, DM>(c, r.m, r.L, pend_lh, pend_s2, ms, Ls);
+    pend_lh = r.lh;
+    pend_s2 = r.s2;
+    if (r.mark > S(0.5)) emit((int)r.mark, ms[0], std_row0<S, NQ>(Ls));
   }
 }
 

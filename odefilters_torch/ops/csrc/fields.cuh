@@ -1,11 +1,12 @@
-// Vector fields the fused EK0 pair is built for.
+// Vector fields the fused kernels are built for.
 //
 // Each field is a functor over one ensemble member: D (state dimension),
 // NP (parameter count), operator()(u, p, t, du), its vector-Jacobian
 // product vjp(u, p, t, g, gu, gp), which writes gu = (df/du)^T g and adds
 // (df/dp)^T g to gp (the filter's hand-written adjoint calls it), and its
 // Jacobian jac(u, p, t, J), J = df/du row-major D x D (the EK1 kernels
-// evaluate it in the kernel). The
+// evaluate it in the kernel), and its diagonal jac_diag(u, p, t, jd), the
+// entries J[j][j] as jac computes them (the DiagonalEK1 kernels). The
 // order of operations follows the model's PyTorch form in
 // odefilters_torch/models/library.py, which the plain versions evaluate
 // and differentiate by autograd; a field is selected by the name that
@@ -52,5 +53,14 @@ struct Fhn {
     J[1] = S(-1);
     J[2] = tinv;
     J[3] = -tinv * b;
+  }
+
+  __device__ __forceinline__ void jac_diag(const S* u, const S* p, S t,
+                                           S* jd) const {
+    (void)t;
+    const S b = p[1], tinv = p[2];
+    const S v = u[0];
+    jd[0] = S(1) - v * v;
+    jd[1] = -tinv * b;
   }
 };

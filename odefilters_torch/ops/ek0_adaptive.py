@@ -12,6 +12,9 @@ this module                            ``odefilters/ops/pallas_kernels.py``
                                        ``beta1``, ``beta2``)
 ``attempt``                            one attempt of the loop body of
                                        ``_ek0_adaptive_kernel``
+``begin``, ``control``, ``run``        its start, its error estimate, PI
+                                       controller and commits, and the
+                                       loop (shared with ``ek1d_adaptive``)
 ``smoother_step``                      one step of the loop body of
                                        ``_ek0_adaptive_smoother_kernel``
 ``ek0_adaptive_plain`` /               ``_ek0_adaptive_kernel`` (CUDA:
@@ -101,14 +104,16 @@ N_COUNTS = 4
 @dataclasses.dataclass(frozen=True)
 class Controller:
     """Host constants of the adaptive kernels: the IBM prior's
-    preconditioned transition ``At``, its noise factor ``QLt`` and the
-    measured entry ``qbx`` of its noise ``QLt QLt^T`` (values rounded to
-    the working dtype, as the JAX kernels bake them in; the matrices as
-    float64 numpy), the save grid, the tolerances, the attempt budget per
-    member, the smallest step and the PI controller's exponents."""
+    preconditioned transition ``At``, its noise factor ``QLt``, its noise
+    ``Qt = QLt QLt^T`` and that noise's measured entry ``qbx`` (values
+    rounded to the working dtype, as the JAX kernels bake them in; the
+    matrices as float64 numpy), the save grid, the tolerances, the attempt
+    budget per member, the smallest step and the PI controller's
+    exponents."""
 
     At: np.ndarray
     QLt: np.ndarray
+    Qt: np.ndarray
     qbx: float
     t0: float
     dt_save: float
@@ -121,11 +126,14 @@ class Controller:
     beta2: float
 
     def host(self):
-        """The C side's constants array (``csrc/ek0_adaptive.cu``)."""
+        """The C side's constants array (``csrc/ek0_adaptive.cuh``:
+        ``read_adapt_consts``); the leading 2 x 2 block of ``Qt`` last,
+        which the DiagonalEK1 kernels' measurement rows see."""
         return _launch.host_consts(
             self.At, self.QLt,
             scalars=(self.qbx, self.t0, self.dt_save, self.abstol,
-                     self.reltol, self.dtmin, self.beta1, self.beta2))
+                     self.reltol, self.dtmin, self.beta1, self.beta2,
+                     *self.Qt[:2, :2].ravel()))
 
 
 def default_dtmin(t0: float, t1: float, dtype: torch.dtype) -> float:
@@ -148,9 +156,9 @@ def controller(q: int, t0: float, t1: float, n_save: int, dtype: torch.dtype,
 
     nq = q + 1
     S = int(n_save)
+    Qt = rounded(QLt @ QLt.T)
     return Controller(
-        At=rounded(At), QLt=rounded(QLt),
-        qbx=float(rounded(QLt @ QLt.T)[BX, BX]),
+        At=rounded(At), QLt=rounded(QLt), Qt=Qt, qbx=float(Qt[BX, BX]),
         t0=float(t0), dt_save=(float(t1) - float(t0)) / S, n_save=S,
         abstol=float(abstol), reltol=float(reltol), max_iters=int(max_iters),
         dtmin=float(default_dtmin(t0, t1, dtype) if dtmin is None else dtmin),
@@ -213,32 +221,19 @@ def attempt(st: Members, p, *, f: Callable, c: Controller,
             live: torch.Tensor) -> dict:
     """One attempt of every ``live`` member (the others change nothing):
     precondition at the attempt's step, one square-root EK0(dynamic) step,
-    the error estimate, the PI controller, the failure checks and the
-    masked commits, in the order of the JAX kernel's loop body (with the
-    factor in place of the plain covariance). Updates
-    ``st`` in place (its fields are rebound, no tensor is written) and
-    returns the attempt's ``accept``, ``lh`` (log dt_eff), ``s2`` and
-    ``reached`` (an accepted step that reached save point ``seg_before +
-    1``) with ``seg_before``."""
+    then `control`, in the order of the JAX kernel's loop body (with the
+    factor in place of the plain covariance). Updates ``st`` in place (its
+    fields are rebound, no tensor is written) and returns the attempt's
+    ``accept``, ``lh`` (log dt_eff), ``s2`` and ``reached`` (an accepted
+    step that reached save point ``seg_before + 1``) with
+    ``seg_before``."""
     nq, d = len(st.m), len(st.m[0])
-    q_half = nq - 1 + 0.5
     At, QLt = _lists(c.At), _lists(c.QLt)
-    t, dt, seg = st.t, st.dt, st.seg
-    dtype = t.dtype
-    one = torch.ones_like(t)
-    t_save = (torch.tensor(c.t0, dtype=dtype, device=t.device)
-              + torch.tensor(c.dt_save, dtype=dtype, device=t.device)
-              * (seg.to(dtype) + 1.0))
-    active = live & (t < t_save)
-    remaining = t_save - t
-    hit_save = dt >= remaining
-    dt_eff = torch.where(active, torch.where(hit_save, remaining, dt), one)
-
-    # -- precondition at this attempt's h (fresh from canonical) --
-    lh = torch.log(dt_eff)
-    ps_ = [torch.exp((i - q_half) * lh) for i in range(nq)]
+    a = begin(st, c, live)
+    lh, ps_ = a["lh"], a["ps_"]
     mh = [[st.m[i][j] * ps_[i] for j in range(d)] for i in range(nq)]
     Lh = [[st.L[i][l] * ps_[i] for l in range(nq)] for i in range(nq)]
+    q_half = nq - 1 + 0.5
     pinv0 = torch.exp(q_half * lh)
     pb = torch.exp((q_half - BX) * lh)
     hq = pb * pb * c.qbx
@@ -246,18 +241,13 @@ def attempt(st: Members, p, *, f: Callable, c: Controller,
     # -- one EK0(dynamic) step in the member's preconditioned frame --
     mp = [[_sreduce([_smul(At[i][l], mh[l][j]) for l in range(nq)])
            for j in range(d)] for i in range(nq)]
-    t_new = torch.where(hit_save, t_save, t + dt_eff)
     u_pred = torch.stack([pinv0 * mp[0][j] for j in range(d)])
-    du = f(u_pred, p, t_new)
+    du = f(u_pred, p, a["t_new"])
     z = [innovation(pb, mp[BX][j], du[j]) for j in range(d)]
     zz = _sreduce([zj * zj for zj in z])
     s2 = zz / (d * hq)
     # the predicted factor: Lp Lp^T = At Ch At^T + s2 Qt
-    sq_s2 = torch.sqrt(s2)
-    AtL = [[_sreduce([_smul(At[i][a], Lh[a][b]) for a in range(nq)])
-            for b in range(nq)] for i in range(nq)]
-    qT = [[_smul(sq_s2, QLt[i][a]) for i in range(nq)] for a in range(nq)]
-    Lp = list_mgs_tril(t_rows(AtL, nq) + qT, 2 * nq, nq)
+    Lp = predict_factor(At, QLt, Lh, torch.sqrt(s2), nq)
     s = pb * pb * _sreduce([Lp[BX][l] * Lp[BX][l] for l in range(nq)])
     inv_s = 1.0 / s
     kg = [pb * _sreduce([Lp[i][l] * Lp[BX][l] for l in range(nq)]) * inv_s
@@ -271,12 +261,66 @@ def attempt(st: Members, p, *, f: Callable, c: Controller,
     u_filt = [pinv0 * m_new[0][j] for j in range(d)]
 
     # -- error estimate (EK0 dynamic: sqrt(s2 hq) == sqrt(zz/d)) --
-    err_unscaled = torch.sqrt(zz / d)
+    err = torch.sqrt(zz / d)
+    accept, reached = control(st, c, a, errs=[err] * d, u_filt=u_filt,
+                              m_new=m_new, ll_inc=ll_inc)
+    st.L = [[torch.where(accept, L_new[i][l] / ps_[i], st.L[i][l])
+             for l in range(nq)] for i in range(nq)]
+    return dict(accept=accept, lh=lh, s2=s2, reached=reached,
+                seg_before=a["seg"])
+
+
+def begin(st: Members, c: Controller, live: torch.Tensor) -> dict:
+    """The start of an attempt, shared by the EK0 and DiagonalEK1 loops:
+    the next save time, which members are active, the attempt's step
+    ``dt_eff`` (truncated to land on the save point), its log ``lh``, the
+    preconditioner ``ps_`` at that step and the new time."""
+    nq = len(st.m)
+    q_half = nq - 1 + 0.5
+    t, dt, seg = st.t, st.dt, st.seg
+    dtype = t.dtype
+    t_save = (torch.tensor(c.t0, dtype=dtype, device=t.device)
+              + torch.tensor(c.dt_save, dtype=dtype, device=t.device)
+              * (seg.to(dtype) + 1.0))
+    active = live & (t < t_save)
+    remaining = t_save - t
+    hit_save = dt >= remaining
+    dt_eff = torch.where(active, torch.where(hit_save, remaining, dt),
+                         torch.ones_like(t))
+    # -- precondition at this attempt's h (fresh from canonical) --
+    lh = torch.log(dt_eff)
+    ps_ = [torch.exp((i - q_half) * lh) for i in range(nq)]
+    return dict(t_save=t_save, active=active, hit_save=hit_save,
+                dt_eff=dt_eff, lh=lh, ps_=ps_, seg=seg,
+                t_new=torch.where(hit_save, t_save, t + dt_eff))
+
+
+def predict_factor(At, QLt, Lh, sq_s2, nq: int):
+    """The lower factor ``Lp`` of ``At Lh Lh^T At^T + s2 QLt QLt^T`` by
+    modified Gram-Schmidt on the stack ``[(At Lh)^T; (sq_s2 QLt)^T]``."""
+    AtL = [[_sreduce([_smul(At[i][a], Lh[a][b]) for a in range(nq)])
+            for b in range(nq)] for i in range(nq)]
+    qT = [[_smul(sq_s2, QLt[i][a]) for i in range(nq)] for a in range(nq)]
+    return list_mgs_tril(t_rows(AtL, nq) + qT, 2 * nq, nq)
+
+
+def control(st: Members, c: Controller, a: dict, *, errs, u_filt, m_new,
+            ll_inc):
+    """The end of an attempt, shared by the EK0 and DiagonalEK1 loops: the
+    error estimate from the per-dimension unscaled errors ``errs`` and the
+    filtered solution ``u_filt``, the per-member PI controller, the failure
+    checks, and the masked commits of everything but the covariance factor
+    (the mean ``m_new`` un-preconditioned with ``a["ps_"]``), in the order
+    of the JAX kernels' loop bodies. ``a``: what `begin` returned. Updates
+    ``st`` in place and returns ``(accept, reached)``."""
+    d, nq = len(u_filt), len(m_new)
+    active, hit_save, dt_eff = a["active"], a["hit_save"], a["dt_eff"]
+    t, dt, seg, t_new = st.t, st.dt, st.seg, a["t_new"]
     rr = []
     for j in range(d):
         sc = c.abstol + c.reltol * torch.maximum(torch.abs(st.u_prev[j]),
                                                  torch.abs(u_filt[j]))
-        r = dt_eff * err_unscaled / sc
+        r = dt_eff * errs[j] / sc
         rr.append(r * r)
     EEst = torch.sqrt(_sreduce(rr) / d)
     EEst = torch.where(torch.isfinite(EEst), EEst, 1e10)
@@ -305,12 +349,9 @@ def attempt(st: Members, p, *, f: Callable, c: Controller,
     failed = st.failed | newly_failed
 
     # -- un-precondition, then masked commits --
-    m_new = [[m_new[i][j] / ps_[i] for j in range(d)] for i in range(nq)]
-    L_new = [[L_new[i][l] / ps_[i] for l in range(nq)] for i in range(nq)]
-    st.m = [[torch.where(accept, m_new[i][j], st.m[i][j]) for j in range(d)]
-            for i in range(nq)]
-    st.L = [[torch.where(accept, L_new[i][l], st.L[i][l]) for l in range(nq)]
-            for i in range(nq)]
+    ps_ = a["ps_"]
+    st.m = [[torch.where(accept, m_new[i][j] / ps_[i], st.m[i][j])
+             for j in range(d)] for i in range(nq)]
     st.t = torch.where(accept, t_new, t)
     st.dt = torch.where(active & ~failed, dt_new, dt)
     st.qold = torch.where(accept, qold_acc, st.qold)
@@ -320,20 +361,27 @@ def attempt(st: Members, p, *, f: Callable, c: Controller,
     st.nacc = st.nacc + accept
     st.nrej = st.nrej + (active & ~accept)
     st.failed = failed
-    reached = accept & (st.t >= t_save)
+    reached = accept & (st.t >= a["t_save"])
     st.seg = seg + reached
-    return dict(accept=accept, lh=lh, s2=s2, reached=reached, seg_before=seg)
+    return accept, reached
 
 
-def _forward(f, m0, ps, dt0s, c: Controller, on_attempt):
-    """Run the attempt loop until no member is live, calling
-    ``on_attempt(st, out)`` after each attempt; returns the final state."""
-    st = Members.start(m0, dt0s, c.t0)
+def run(st: Members, c: Controller, step, on_attempt) -> Members:
+    """Run the attempt loop from ``st`` until no member is live:
+    ``step(st, live)`` makes one attempt (`attempt`, or the DiagonalEK1
+    one) and returns its ``out``, then ``on_attempt(st, out)`` runs;
+    returns the final state."""
     while True:
         live = st.live(c)
         if not bool(live.any()):
             return st
-        on_attempt(st, attempt(st, ps, f=f, c=c, live=live))
+        on_attempt(st, step(st, live))
+
+
+def _forward(f, m0, ps, dt0s, c: Controller, on_attempt):
+    return run(Members.start(m0, dt0s, c.t0), c,
+               lambda st, live: attempt(st, ps, f=f, c=c, live=live),
+               on_attempt)
 
 
 def _fill_tail(out_rows, seg, value):
@@ -579,6 +627,28 @@ def ek0_adaptive_stream(f: Callable, field: Optional[str], m0: torch.Tensor,
 ek0_adaptive_stream.launches = 0
 
 
+def check_smoother_inputs(name: str, st, counts, m0, c: Controller,
+                          width: int) -> None:
+    """Raise unless a smoother kernel takes these inputs: order 3, d = 2, a
+    ``(max_iters, width, B)`` stream, ``(N_COUNTS, B)`` int32 counts, all
+    contiguous on one device."""
+    nq, d, B = m0.shape
+    if (nq - 1 not in _launch.CUDA_ORDERS or d != 2
+            or tuple(st.shape) != (c.max_iters, width, B)
+            or tuple(counts.shape) != (N_COUNTS, B)
+            or counts.dtype != torch.int32):
+        raise ValueError(
+            f"{name}: the kernel takes nq - 1 in {_launch.CUDA_ORDERS}, "
+            f"d = 2, a ({c.max_iters}, {width}, B) stream and ({N_COUNTS}, B) "
+            f"int32 counts; got nq={nq}, d={d}, {tuple(st.shape)}, "
+            f"{tuple(counts.shape)} {counts.dtype}"
+        )
+    _launch.check_cuda_inputs(name, {"st": st, "m0": m0}, st.dtype)
+    if not counts.is_contiguous() or counts.device != st.device:
+        raise ValueError(f"{name}: counts must be contiguous and on the "
+                         "stream's device")
+
+
 def ek0_adaptive_smoother(st: torch.Tensor, counts: torch.Tensor,
                           m0: torch.Tensor, c: Controller):
     """The backward pass: `ek0_adaptive_smoother_plain` on CPU tensors, the
@@ -586,22 +656,8 @@ def ek0_adaptive_smoother(st: torch.Tensor, counts: torch.Tensor,
     if _launch.dispatch_device("ek0_adaptive_smoother", st) == "cpu":
         return ek0_adaptive_smoother_plain(st, counts, m0, c)
     nq, d, B = m0.shape
-    if (nq - 1 not in _launch.CUDA_ORDERS or d != 2
-            or tuple(st.shape) != (c.max_iters, stream_width(nq, d), B)
-            or tuple(counts.shape) != (N_COUNTS, B)
-            or counts.dtype != torch.int32):
-        raise ValueError(
-            f"ek0_adaptive_smoother: the kernel takes nq - 1 in "
-            f"{_launch.CUDA_ORDERS}, d = 2, a ({c.max_iters}, "
-            f"{stream_width(nq, d)}, B) stream and ({N_COUNTS}, B) int32 "
-            f"counts; got nq={nq}, d={d}, {tuple(st.shape)}, "
-            f"{tuple(counts.shape)} {counts.dtype}"
-        )
-    _launch.check_cuda_inputs("ek0_adaptive_smoother", {"st": st, "m0": m0},
-                              st.dtype)
-    if not counts.is_contiguous() or counts.device != st.device:
-        raise ValueError("ek0_adaptive_smoother: counts must be contiguous "
-                         "and on the stream's device")
+    check_smoother_inputs("ek0_adaptive_smoother", st, counts, m0, c,
+                          stream_width(nq, d))
     us = torch.empty((c.n_save + 1, d, B), dtype=st.dtype, device=st.device)
     stds = torch.empty((c.n_save + 1, B), dtype=st.dtype, device=st.device)
     _launch.launch(ek0_adaptive_smoother, st.device,

@@ -66,17 +66,25 @@ def pair_layout(nq: int, d: int, bx: int):
 
 def static_local_update(static_diff: str, calib, zz, z, inv_s, d: int):
     """Running update of a static diffusion's per-member estimate from one
-    step's innovation statistic ``z^T S^-1 z`` (S = s I_d).
+    step's innovation statistic ``z^T S^-1 z``.
 
     ``calib = (sig, k)``: the running estimate (a ``(B,)`` tensor, or a
     list of d for ``fixedMV``) and the count of previous steps as a float
-    tensor. Returns the updated ``(sig, k + 1)``."""
+    tensor. ``inv_s``: the scalar ``1/s`` (EK0: S = s I_d; ``zz`` is
+    ``|z|^2``) or a list of d per-dimension ``1/s_j`` (DiagonalEK1; ``zz``
+    unused). Returns the updated ``(sig, k + 1)``."""
     sig, kf = calib
+    per_dim = isinstance(inv_s, list)
     if static_diff == "fixedMV":
-        sig_new = [_fixed_run(sig[j], kf, z[j] * z[j] * inv_s)
+        sig_new = [_fixed_run(sig[j], kf,
+                              z[j] * z[j] * (inv_s[j] if per_dim else inv_s))
                    for j in range(d)]
         return sig_new, kf + 1.0
-    return static_scalar_update(static_diff, calib, zz * inv_s / d, d)
+    if per_dim:
+        local = _sreduce([z[j] * z[j] * inv_s[j] for j in range(d)]) / d
+    else:
+        local = zz * inv_s / d
+    return static_scalar_update(static_diff, calib, local, d)
 
 
 def _fixed_run(prev, kf, local):

@@ -5,7 +5,8 @@ The preconditioned q-times integrated Brownian motion (IBM / IWP) blocks
 are solver constants: built host-side in float64 numpy from exact
 rational arithmetic, with no framework in the loop, so the port's kernels
 and the JAX package's kernels bake in bit-identical numbers. IOUP and
-Matern priors are not ported yet (ROADMAP.md queue 1, slice 1 item 8).
+Matern priors are not ported yet (ROADMAP.md queue 1, item 5, "Widen the
+pair").
 """
 
 from __future__ import annotations

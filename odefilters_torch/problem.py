@@ -6,7 +6,7 @@ and its index-and-stack style, so one callable works on a single state
 
 Only first-order problems without a mass matrix are ported so far;
 second-order problems and mass matrices raise ``NotImplementedError``
-(ROADMAP.md queue 1, slices 1 and 9).
+(ROADMAP.md queue 1, items 5, 3 and 11).
 """
 
 from __future__ import annotations
@@ -30,6 +30,11 @@ class ODEProblem:
             in the same index-and-stack style (``(d, d, B)`` on an ensemble);
             the EK1 plain versions derive it from JVP columns when absent.
             The EK1 kernels use the CUDA field's own Jacobian instead.
+        jac_diag: optional Jacobian diagonal ``jac_diag(u, p, t) -> (d,)``
+            (``(d, B)`` on an ensemble), which the DiagonalEK1 plain
+            versions take first (then the diagonal of ``jac``, then d JVP
+            columns). The DiagonalEK1 kernels use the CUDA field's own
+            ``jac_diag`` instead.
         field: name of the vector field's CUDA implementation
             (``odefilters_torch/ops/csrc/fields.cuh``), which the fused
             kernels select by; None when the problem has none, and then
@@ -43,6 +48,7 @@ class ODEProblem:
     p: Any = None
     f: Optional[Callable] = None
     jac: Optional[Callable] = None
+    jac_diag: Optional[Callable] = None
     field: Optional[str] = None
     second_order: bool = False
     mass_matrix: Optional[torch.Tensor] = None
@@ -51,11 +57,13 @@ class ODEProblem:
         if self.second_order:
             raise NotImplementedError(
                 "second-order problems are not ported yet "
-                "(ROADMAP.md queue 1, slice 1 item 8)"
+                "(ROADMAP.md queue 1, item 5, 'Widen the pair')"
             )
         if self.mass_matrix is not None:
             raise NotImplementedError(
-                "mass matrices are not ported yet (ROADMAP.md queue 1, slice 9)"
+                "mass matrices are not ported yet (ROADMAP.md queue 1: item 3 "
+                "for the adaptive DiagonalEK1 filter's diagonal mass, item 11 "
+                "for the rest)"
             )
         if self.u0.ndim != 1:
             raise ValueError(
@@ -92,15 +100,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def ode_problem(f, u0, tspan, p=None, *, jac=None, field=None,
+def ode_problem(f, u0, tspan, p=None, *, jac=None, jac_diag=None, field=None,
                 mass_matrix=None, device="cuda", dtype=None) -> ODEProblem:
     """Convenience constructor: coerces ``u0`` and ``p`` to tensors on
     ``device`` (the CUDA card unless given; see `resolve_device`) in
-    ``dtype`` (float64 unless given)."""
+    ``dtype`` (float64 unless given). ``jac_diag``: the exact Jacobian
+    diagonal that `DiagonalEK1` uses (see `ODEProblem`)."""
     dtype = torch.float64 if dtype is None else dtype
     device = resolve_device(device)
     u0 = torch.as_tensor(u0, dtype=dtype, device=device)
     if p is not None:
         p = torch.as_tensor(p, dtype=dtype, device=device)
     return ODEProblem(u0=u0, tspan=tuple(float(t) for t in tspan), p=p, f=f,
-                      jac=jac, field=field, mass_matrix=mass_matrix)
+                      jac=jac, jac_diag=jac_diag, field=field,
+                      mass_matrix=mass_matrix)

@@ -26,10 +26,13 @@ entries outside 1e-3 |std_f64| + 1e-6:
 - ``ek1``: the EK1 filter (``ek1_fused.ek1_filter_states_plain``), its
   residual ``pinv1 mp[d + a] - du[a]`` and its diffusion
   ``z^T (H Q H^T)^-1 z / d``; us and stds are those of the EK1 plain
-  smoother.
+  smoother;
+- ``ek1d``: the fixed-grid DiagonalEK1 filter (``ek1d.ek1d_filter_plain``,
+  dynamic diffusion), its residual ``pinv1 mp[1] - du``; us and stds are
+  the filter's, and its s2 is not streamed (no count).
 
 Runs on the CPU by default (about half an hour at 8192 x 500, most of it
-the EK1 smoother); imports no JAX.
+the EK1 smoother; ``ek1d`` a few minutes); imports no JAX.
 """
 
 from __future__ import annotations
@@ -82,7 +85,18 @@ def ek1(f, m0_p, ps, kw, consts):
     return st[1:, e1.stream_layout(Q + 1, 2, True)["s2"]], us, stds
 
 
-FILTERS = {"pair": pair, "filter": filter_, "ek1": ek1}
+def ek1d_(f, m0_p, ps, kw, consts):
+    from odefilters_torch.models.library import fitzhugh_nagumo_jac
+    from odefilters_torch.ops import ek1d
+
+    At, Qt, _ = ek1d.filter_constants(Q, kw["dt"], m0_p.dtype)
+    us, stds, _ = ek1d.ek1d_filter_plain(
+        f, ek1d.diag_from_full(fitzhugh_nagumo_jac, 2), m0_p, ps, At=At,
+        Qt=Qt, **kw)
+    return None, us, stds
+
+
+FILTERS = {"pair": pair, "filter": filter_, "ek1": ek1, "ek1d": ek1d_}
 RESIDUALS = {"rounded": lambda pb, h, du: pb * h - du,
              "fused": ep.innovation}
 
@@ -129,9 +143,10 @@ def main() -> int:
             n_sd = int((esd > 1e-3 * sd64.abs() + 1e-6).sum())
             lane = e.amax(dim=(0, 1))
             bad = torch.nonzero(lane > 1e-4).flatten().tolist()
-            print(f"{name}, {form} residual: {int((s2 == 0).sum())} of "
-                  f"{B * T} f32 steps stream s2 = 0 (f64: "
-                  f"{int((out[torch.float64][0] == 0).sum())}); max "
+            zeros = ("s2 not streamed" if s2 is None else
+                     f"{int((s2 == 0).sum())} of {B * T} f32 steps stream "
+                     f"s2 = 0 (f64: {int((out[torch.float64][0] == 0).sum())})")
+            print(f"{name}, {form} residual: {zeros}; max "
                   f"|us_f32 - us_f64| {float(e.max()):.3e} (member "
                   f"{int(lane.argmax())}); {len(bad)} members above 1e-4"
                   + (f": {bad[:20]}" if bad else "")

@@ -386,15 +386,12 @@ def test_default_is_adaptive():
     assert fix.nacc is None and fix.nrej is None and fix.failed is None
 
 
-class _DiagonalEK1(odt.EK1):
-    is_diagonal_ek1 = True
-
-
 @pytest.mark.parametrize(
     "alg, kwargs, match",
     [
         (odt.EK1(order=Q), {}, "adaptive EK1"),
-        (_DiagonalEK1(order=Q), {}, "adaptive DiagonalEK1"),
+        # adaptive DiagonalEK1 runs on its own kernels, with the IBM prior
+        (odt.DiagonalEK1(order=Q, prior="ioup"), {}, "IOUP"),
         (odt.EK0(order=Q, smooth=False, prior="ioup"), {}, "IOUP"),
         (odt.EK0(order=Q), dict(mesh=object()), "mesh"),
         (odt.EK0(order=Q, diffusionmodel="fixedMAP"), {}, "'fixedMAP'"),

@@ -343,17 +343,14 @@ def _ensemble(B=8):
     return prob, prob.u0[None].expand(B, 2), prob.p[None].expand(B, 4)
 
 
-class _DiagonalEK1(odt.EK1):
-    is_diagonal_ek1 = True
-
-
 @pytest.mark.parametrize(
     "alg, kwargs, match",
     [
         # adaptive EK0 runs on its own kernels, with the IBM prior only
         (odt.EK0(order=Q, prior="ioup"), dict(adaptive=True), "IOUP"),
-        # EK1 runs on its own kernels; DiagonalEK1 is not ported yet
-        (_DiagonalEK1(order=Q), dict(adaptive=False), "DiagonalEK1"),
+        # EK1 runs on its own kernels; the fixed-grid DiagonalEK1 kernel is
+        # a filter, as in the JAX package
+        (odt.DiagonalEK1(order=Q), dict(adaptive=False), "DiagonalEK1"),
         # the fixed-grid pair runs the static models; the adaptive kernels
         # never take them, as in the JAX package
         (odt.EK0(order=Q, diffusionmodel="fixed"), dict(adaptive=True),

@@ -330,17 +330,13 @@ def test_sample_ensemble_any_ensemble_size():
     torch.testing.assert_close(us[0], u0s.T, rtol=1e-12, atol=1e-12)
 
 
-class _DiagonalEK1(odt.EK1):
-    is_diagonal_ek1 = True
-
-
 @pytest.mark.parametrize(
     "alg, kwargs, exc, match",
     [
         (odt.EK0(order=Q), dict(mass=True), NotImplementedError, "mass"),
         (odt.EK0(order=Q, diffusionmodel="fixed"), {}, NotImplementedError,
          "dynamic diffusion"),
-        (_DiagonalEK1(order=Q), {}, NotImplementedError, "DiagonalEK1"),
+        (odt.DiagonalEK1(order=Q), {}, NotImplementedError, "DiagonalEK1"),
         (odt.EK0(order=Q, smooth=False), {}, ValueError, "non-smoothed"),
         (odt.EK0(order=Q), dict(adaptive=True), NotImplementedError,
          "slice 5"),
@@ -362,6 +358,22 @@ def test_sample_ensemble_raises(alg, kwargs, exc, match):
     with pytest.raises(exc, match=match):
         odt.sample_ensemble(prob, alg, u0s, ps, n_steps=5,
                             generator=torch.Generator(), **kwargs)
+
+
+def test_sample_ensemble_takes_the_jax_keywords():
+    """``abstol``, ``reltol`` and ``max_iters`` of the JAX signature: the
+    fixed grid does not use them (the same paths as without them), and with
+    ``adaptive=True`` the call names the roadmap item that ports it."""
+    prob, u0s, ps = _fhn_ensemble(4, (0.0, 0.4))
+    kw = dict(abstol=1e-6, reltol=1e-3, max_iters=1024)
+    a = odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
+                            generator=torch.Generator().manual_seed(3), **kw)
+    b = odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
+                            generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
+                            generator=torch.Generator(), adaptive=True, **kw)
 
 
 @pytest.mark.parametrize(
