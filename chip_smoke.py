@@ -16,8 +16,10 @@ with and without the smoother (dynamic, fixed, fixedMAP), the sampler and
 the ensemble IEKS; the front door's default, the adaptive EK0 solve
 with and without the smoother (8192 members over (0, 20), 20 save
 intervals, abstol 1e-6, reltol 1e-4: the JAX package's
-parameter-inference row); and DiagonalEK1: the fixed-grid filter in each
-diffusion mode and the adaptive solve with and without the smoother. It
+parameter-inference row); DiagonalEK1: the fixed-grid filter in each
+diffusion mode and the adaptive solve with and without the smoother; and
+in that adaptive setting the dense EK1 solve with and without the smoother
+and the adaptive EK0 sampler. It
 checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
@@ -120,30 +122,52 @@ Phases:
      phase 20;
  24. the DiagonalEK1 kernels against their plain versions at 8192
      members in float32 (the fixed grid at 500 steps), their times and
-     their bounds.
+     their bounds;
+ 25. the four kernels of the adaptive dense EK1 solves and the adaptive
+     EK0 sampler against their plain versions at 1000 members over
+     (0, 20), 20 save intervals, abstol 1e-6, reltol 1e-4, in float64 and
+     float32, bit for bit (checked, not only reported): the EK1 filter,
+     stream and smoother kernels as in phase 19 (the counts equal on every
+     member), the sampler kernel on the plain stream with S = 3 numpy
+     normals, and zero normals through it against the smoother kernel's
+     and the plain smoother's means;
+ 26. the front doors at 8192 members in that setting, float32 and
+     float64, each run with the counts set to 0 before it and read after
+     it: ``solve_ensemble(EK1(smooth=s))`` as phase 20 holds EK0's, and
+     ``sample_ensemble(EK0(), adaptive=True)`` at S = 1 and 8 (one launch
+     of each kernel, finite samples, zero normals through the front
+     door's kernels against ``solve_ensemble(EK0())``'s smoothed means bit
+     for bit, the float64 calibration of one member tiled across the
+     lanes as in phase 13, the doors' times);
+ 27. the four kernels against their plain versions at 8192 members in
+     float32 (the sampler at S = 8 with normals from ``torch.randn``), their
+     times, their bounds, and their registers and spills.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the seventeen kernels with their launches on
+the line before it lists the twenty-one kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
 TFLOP/s of float32; H100 SXM data sheet; the adaptive kernels' operations
 are counted per attempt (per smoothing step) and multiplied by the run's
 attempts (accepted steps); the same for the DiagonalEK1 kernels of
-phase 24). ``max_abs_err`` is kernel against plain at
+phase 24 and the adaptive EK1 kernels of phase 27; the adaptive sampler's
+operations are its plain version's on one member per accepted step, times
+the run's accepted steps). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
 for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18,
 S = 8; the filter kernel's means, and its stream through the smoother
 kernel); and at 8192 members in float32 for the adaptive kernels (phase
-21) and the DiagonalEK1 kernels (phase 24, the fixed grid at 500 steps
-under the dynamic diffusion). The samplers' times, plain times and bounds
+21), the DiagonalEK1 kernels (phase 24, the fixed grid at 500 steps
+under the dynamic diffusion) and the four kernels of phase 27. The samplers' times, plain times and bounds
 are those at S = 8. The EK1 launches are those of ``solve_ensemble(EK1)``
 (filter, smoother) and ``sample_ensemble(EK1, S=8)`` (sampler) in
 float32; the adaptive launches those of the float32 adaptive front doors
-of phases 20 and 23, the DiagonalEK1 filter's those of the float32
-dynamic fixed-grid door of phase 23.
+of phases 20, 23 and 26, the DiagonalEK1 filter's those of the float32
+dynamic fixed-grid door of phase 23, the adaptive sampler's those of the
+float32 ``sample_ensemble(EK0, adaptive=True)`` door at S = 8 of phase 26.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -230,6 +254,10 @@ SOURCE = {
     "ek1d_adaptive": "odefilters_torch/ops/csrc/ek1d.cu",
     "ek1d_adaptive_stream": "odefilters_torch/ops/csrc/ek1d.cu",
     "ek1d_adaptive_smoother": "odefilters_torch/ops/csrc/ek1d.cu",
+    "ek0_adaptive_sampler": "odefilters_torch/ops/csrc/ek0_adaptive.cu",
+    "ek1_adaptive": "odefilters_torch/ops/csrc/ek1_adaptive.cu",
+    "ek1_adaptive_stream": "odefilters_torch/ops/csrc/ek1_adaptive.cu",
+    "ek1_adaptive_smoother": "odefilters_torch/ops/csrc/ek1_adaptive.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -249,6 +277,10 @@ REPLACES = {
     "ek1d_adaptive": "odefilters/ops/pallas_kernels.py:7609",
     "ek1d_adaptive_stream": "odefilters/ops/pallas_kernels.py:9174",
     "ek1d_adaptive_smoother": "odefilters/ops/pallas_kernels.py:9446",
+    "ek0_adaptive_sampler": "odefilters/ops/pallas_kernels.py:10655",
+    "ek1_adaptive": "odefilters/ops/pallas_kernels.py:7075",
+    "ek1_adaptive_stream": "odefilters/ops/pallas_kernels.py:9920",
+    "ek1_adaptive_smoother": "odefilters/ops/pallas_kernels.py:10209",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -258,6 +290,8 @@ S_CHECK, S_MAIN = 3, 8
 TSPAN_ADA, S_ADA = (0.0, 20.0), 20
 ADA_TOL = dict(abstol=1e-6, reltol=1e-4)
 MAX_ITERS_FILTER, MAX_ITERS_PAIR = 20_000, 4096
+# the front doors' defaults of the adaptive EK1 pair and the sampler
+MAX_ITERS_EK1_PAIR, MAX_ITERS_SAMPLE = 512, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
@@ -501,9 +535,11 @@ class EK1Case:
 def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
     from odefilters_torch.ops import ek0_adaptive as ea
+    from odefilters_torch.ops import ek0_adaptive_sample as eas
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
+    from odefilters_torch.ops import ek1_adaptive as e1a
     from odefilters_torch.ops import ek1_fused as e1
     from odefilters_torch.ops import ek1d
     from odefilters_torch.ops import ek1d_adaptive as eda
@@ -523,7 +559,11 @@ def counters():
             "ek1d_filter": ek1d.ek1d_filter,
             "ek1d_adaptive": eda.ek1d_adaptive,
             "ek1d_adaptive_stream": eda.ek1d_adaptive_stream,
-            "ek1d_adaptive_smoother": eda.ek1d_adaptive_smoother}
+            "ek1d_adaptive_smoother": eda.ek1d_adaptive_smoother,
+            "ek0_adaptive_sampler": eas.ek0_adaptive_sampler,
+            "ek1_adaptive": e1a.ek1_adaptive,
+            "ek1_adaptive_stream": e1a.ek1_adaptive_stream,
+            "ek1_adaptive_smoother": e1a.ek1_adaptive_smoother}
 
 
 def reset_counts():
@@ -1449,6 +1489,9 @@ class AdaptiveCase:
     of each of the three kernels."""
 
     names = ("ek0_adaptive", "ek0_adaptive_stream", "ek0_adaptive_smoother")
+    alg_name = "EK0"
+    per_dim_stds = False
+    max_iters_pair = MAX_ITERS_PAIR
 
     def __init__(self, B, dtype):
         from odefilters_torch.ops import ek0_adaptive as ea
@@ -1460,7 +1503,7 @@ class AdaptiveCase:
                                                TSPAN_ADA, Q, **ADA_TOL)
         self.c_filter, self.c_pair = (
             ea.controller(Q, *TSPAN_ADA, S_ADA, dtype, max_iters=mi, **ADA_TOL)
-            for mi in (MAX_ITERS_FILTER, MAX_ITERS_PAIR))
+            for mi in (MAX_ITERS_FILTER, self.max_iters_pair))
         self.args = (self.m0, self.ps, self.dt0s)
 
     def filter_kernel(self):
@@ -1514,6 +1557,8 @@ class EK1DAdaptiveCase(AdaptiveCase):
     diagonal as the front door takes it (the diagonal of ``prob.jac``)."""
 
     names = ("ek1d_adaptive", "ek1d_adaptive_stream", "ek1d_adaptive_smoother")
+    alg_name = "DiagonalEK1"
+    per_dim_stds = True
 
     def __init__(self, B, dtype):
         from odefilters_torch.ops import ek1d
@@ -1575,6 +1620,110 @@ class EK1DAdaptiveCase(AdaptiveCase):
         return step
 
 
+class EK1AdaptiveCase(AdaptiveCase):
+    """`AdaptiveCase` for the adaptive dense EK1 kernels, the Jacobian as
+    the front door takes it (``prob.jac``), the smoothed path at the front
+    door's default ``max_iters`` of 512 (its rows are 75 wide)."""
+
+    names = ("ek1_adaptive", "ek1_adaptive_stream", "ek1_adaptive_smoother")
+    alg_name = "EK1"
+    per_dim_stds = True
+    max_iters_pair = MAX_ITERS_EK1_PAIR
+
+    def __init__(self, B, dtype):
+        from odefilters_torch.ops import ek1_adaptive as e1a
+
+        super().__init__(B, dtype)
+        self.e1a = e1a
+        self.jac = self.prob.jac
+
+    def filter_kernel(self):
+        return self.e1a.ek1_adaptive(self.f, self.jac, self.field, *self.args,
+                                     self.c_filter)
+
+    def filter_plain(self):
+        return self.e1a.ek1_adaptive_plain(self.f, self.jac, *self.args,
+                                           self.c_filter)
+
+    def stream_kernel(self):
+        return self.e1a.ek1_adaptive_stream(self.f, self.jac, self.field,
+                                            *self.args, self.c_pair)
+
+    def stream_plain(self):
+        return self.e1a.ek1_adaptive_stream_plain(self.f, self.jac,
+                                                  *self.args, self.c_pair)
+
+    def smoother_kernel(self, st, counts):
+        return self.e1a.ek1_adaptive_smoother(st, counts, self.m0, self.c_pair)
+
+    def smoother_plain(self, st, counts):
+        return self.e1a.ek1_adaptive_smoother_plain(st, counts, self.m0,
+                                                    self.c_pair)
+
+    def stream_width(self):
+        return self.e1a.stream_width(Q + 1, 2)
+
+    def attempt_ops(self):
+        """Operations of the plain attempt body for one member, and of the
+        plain smoothing step on one row of ``st``."""
+        e1a = self.e1a
+        mem = e1a.start(self.m0, self.dt0s, self.c_pair)
+        live = torch.ones(1, dtype=torch.bool, device=DEVICE)
+        ops_att = ops_of(lambda: e1a.attempt(mem, self.ps, f=self.f,
+                                             jac=self.jac, c=self.c_pair,
+                                             live=live))
+        return ops_att, ops_of(self.smoothing_step())
+
+    def smoothing_step(self):
+        e1a = self.e1a
+        st, _, _ = self.stream_plain()
+        D = 2 * (Q + 1)
+        m_f, L_f, lh, s2, _ = e1a._unpack(st[:1, :, :1].reshape(-1, 1), D)
+        kw = dict(Af=e1a.kron_lists(self.c_pair.At, 2),
+                  QLf=e1a.kron_lists(self.c_pair.QLt, 2), nq=Q + 1, d=2)
+        return lambda: e1a.smoother_step(m_f, L_f, m_f, L_f, lh, s2, **kw)
+
+
+class AdaptiveSamplerCase:
+    """The adaptive EK0 sampler's arguments for one ensemble over TSPAN_ADA
+    at ADA_TOL (the inputs of `AdaptiveCase`, the front door's default
+    ``max_iters`` of 1024 for the stream and the normals), the plain
+    stream, and both versions of the sampler kernel."""
+
+    def __init__(self, B, dtype, S, numpy_normals=True, seed=5):
+        from odefilters_torch import convert
+        from odefilters_torch.ops import ek0_adaptive_sample as eas
+
+        self.eas = eas
+        self.base = AdaptiveCase(B, dtype)
+        ea = self.base.ea
+        self.c = ea.controller(Q, *TSPAN_ADA, S_ADA, dtype,
+                               max_iters=MAX_ITERS_SAMPLE, **ADA_TOL)
+        self.st, _, self.cs = ea.ek0_adaptive_stream_plain(
+            self.base.f, *self.base.args, self.c)
+        shape = (MAX_ITERS_SAMPLE, S, Q + 1, 2, B)
+        if numpy_normals:
+            self.z = convert.normals_from_numpy(
+                np.random.default_rng(seed).standard_normal(shape),
+                device=DEVICE, dtype=dtype)
+        else:
+            g = torch.Generator(device=DEVICE).manual_seed(seed)
+            self.z = torch.randn(shape, generator=g, dtype=dtype, device=DEVICE)
+
+    def kernel(self, z=None):
+        return self.eas.ek0_adaptive_sampler(
+            self.st, self.cs, self.base.m0, self.z if z is None else z, self.c)
+
+    def plain(self):
+        return self.eas.ek0_adaptive_sampler_plain(self.st, self.cs,
+                                                   self.base.m0, self.z, self.c)
+
+    def smoothed(self):
+        """The smoother kernel's means on the plain stream."""
+        return self.base.ea.ek0_adaptive_smoother(self.st, self.cs,
+                                                  self.base.m0, self.c)[0]
+
+
 def same_counts(name, got, ref):
     """Check nacc, nrej, failed and the save points reached equal on every
     member."""
@@ -1583,20 +1732,26 @@ def same_counts(name, got, ref):
           f"equal on every member ({differ} differ)")
 
 
-def bitwise(name, got, ref):
-    """Report whether ``got`` equals ``ref`` bit for bit."""
+def bitwise(name, got, ref, strict=False):
+    """Report whether ``got`` equals ``ref`` bit for bit; with ``strict``,
+    check it."""
     n = int((got != ref).sum())
-    say(f"   {name}: {'bit for bit' if n == 0 else f'{n} entries differ'}")
+    text = f"{name}: {'bit for bit' if n == 0 else f'{n} entries differ'}"
+    if strict:
+        check(n == 0, text)
+    else:
+        say(f"   {text}")
 
 
-def adaptive_vs_plain(label, case, rtol):
+def adaptive_vs_plain(label, case, rtol, strict=False):
     """Phases 19, 21, 22 and 24: each adaptive kernel of ``case`` (EK0 or
     DiagonalEK1) against its plain version on the same inputs: the counts
     on every member, the outputs at ``rtol`` relative (bit-for-bit
     equality reported), the stream kernel through the smoother kernel and
     on its accepted rows directly, the smoother kernel on the plain stream.
     Returns each kernel's largest |kernel - plain| and the plain versions'
-    milliseconds."""
+    milliseconds. ``strict``: bit-for-bit equality is checked, not only
+    reported."""
     n_filter, n_stream, n_smoother = case.names
     (us_p, sd_p, ll_p, cn_p), f_ms = once(case.filter_plain)
     (st_p, ls_p, cs_p), s_ms = once(case.stream_plain)
@@ -1613,12 +1768,12 @@ def adaptive_vs_plain(label, case, rtol):
                          close(f"{name}, lls", ll_k, ll_p, rtol, 0.0))}
     for what, got, ref in (("us", us_k, us_p), ("stds", sd_k, sd_p),
                            ("lls", ll_k, ll_p)):
-        bitwise(f"{name}, {what}", got, ref)
+        bitwise(f"{name}, {what}", got, ref, strict)
     name = f"{label} {n_stream}_kernel"
     same_counts(name, cs_k, cs_p)
     valid = (torch.arange(st_p.shape[0], device=DEVICE)[:, None]
              < cs_p[0].long()[None])[:, None, :].expand(st_p.shape)
-    bitwise(f"{name}, accepted rows", st_k[valid], st_p[valid])
+    bitwise(f"{name}, accepted rows", st_k[valid], st_p[valid], strict)
     err[n_stream] = max(
         close(f"{name}, lls", ls_k, ls_p, rtol, 0.0),
         close(f"{name}, us through the smoother kernel", usm_kk, usm_kp, rtol,
@@ -1629,8 +1784,8 @@ def adaptive_vs_plain(label, case, rtol):
     err[n_smoother] = max(
         close(f"{name}, us", usm_kp, usm_p, rtol, 0.0),
         close(f"{name}, stds", sdm_kp, sdm_p, rtol, 0.0))
-    bitwise(f"{name}, us", usm_kp, usm_p)
-    bitwise(f"{name}, stds", sdm_kp, sdm_p)
+    bitwise(f"{name}, us", usm_kp, usm_p, strict)
+    bitwise(f"{name}, stds", sdm_kp, sdm_p, strict)
     return err, {n_filter: f_ms, n_stream: s_ms, n_smoother: m_ms}
 
 
@@ -1678,14 +1833,13 @@ def adaptive_path(odt, card, case_cls=AdaptiveCase):
     float32 steps that stream s2 = 0, the warp efficiency, and the solves/s
     of each front door. Returns the float32 launches."""
     n_filter, n_stream, n_smoother = case_cls.names
-    ek1d = case_cls is EK1DAdaptiveCase
-    alg_name = "DiagonalEK1" if ek1d else "EK0"
+    alg_name = case_cls.alg_name
 
     def alg_of(smooth):
-        cls = odt.DiagonalEK1 if ek1d else odt.EK0
-        return cls(order=Q, smooth=smooth)
+        return getattr(odt, alg_name)(order=Q, smooth=smooth)
 
-    std_shape = (S_ADA + 1, 2, B_MAIN) if ek1d else (S_ADA + 1, B_MAIN)
+    std_shape = ((S_ADA + 1, 2, B_MAIN) if case_cls.per_dim_stds
+                 else (S_ADA + 1, B_MAIN))
     ts = np.linspace(*TSPAN_ADA, S_ADA + 1)
     doors = {"smoothed": (n_stream, n_smoother), "filter": (n_filter,)}
     launches, sols, worst = {}, {}, {}
@@ -1698,7 +1852,8 @@ def adaptive_path(odt, card, case_cls=AdaptiveCase):
         for door, names in doors.items():
             alg = alg_of(door == "smoothed")
             kw = dict(n_save=S_ADA, **ADA_TOL, max_iters=(
-                MAX_ITERS_PAIR if door == "smoothed" else MAX_ITERS_FILTER))
+                case_cls.max_iters_pair if door == "smoothed"
+                else MAX_ITERS_FILTER))
             reset_counts()
             sol = odt.solve_ensemble(prob, alg, u0s, ps, **kw)
             torch.cuda.synchronize()
@@ -1761,13 +1916,177 @@ def adaptive_path(odt, card, case_cls=AdaptiveCase):
         for door in doors:
             alg = alg_of(door == "smoothed")
             kw = dict(n_save=S_ADA, **ADA_TOL, max_iters=(
-                MAX_ITERS_PAIR if door == "smoothed" else MAX_ITERS_FILTER))
+                case_cls.max_iters_pair if door == "smoothed"
+                else MAX_ITERS_FILTER))
             d_ms = time_ms(lambda: odt.solve_ensemble(prob, alg, u0s, ps, **kw),
                            warmup=2, iters=10)
             say(f"   {str(dtype)[6:]} solve_ensemble({alg_name}, adaptive, "
                 f"{door}): {d_ms:.3f} ms = {B_MAIN / d_ms * 1e3:.0f} solves/s")
         torch.cuda.empty_cache()
     return launches
+
+
+def adaptive_sampler_vs_plain(label, smp, rtol):
+    """Phases 25 and 27: the adaptive sampler kernel on the plain stream
+    against its plain version with the case's normals (bit for bit, and at
+    ``rtol``); then zero normals through the kernel (two samples) against
+    the smoother kernel's and the plain smoother's means on the same
+    stream, bit for bit. Returns the largest |kernel - plain| and the
+    plain version's milliseconds."""
+    ea = smp.base.ea
+    ref, p_ms = once(smp.plain)
+    got = smp.kernel()
+    torch.cuda.synchronize()
+    S = smp.z.shape[1]
+    name = f"{label} ek0_adaptive_sampler_kernel on the plain stream"
+    err = close(f"{name}, samples (S={S})", got, ref, rtol, 0.0)
+    bitwise(f"{name}, samples (S={S})", got, ref, strict=True)
+    del got, ref
+    x0 = smp.kernel(z=torch.zeros_like(smp.z[:, :1]).expand(
+        -1, 2, -1, -1, -1).contiguous())
+    us_k = smp.smoothed()
+    us_p = ea.ek0_adaptive_smoother_plain(smp.st, smp.cs, smp.base.m0,
+                                          smp.c)[0]
+    torch.cuda.synchronize()
+    for what, us in (("smoother kernel's", us_k), ("plain smoother's", us_p)):
+        bitwise(f"{label} zero normals through the sampler kernel (2 samples) "
+                f"vs the {what} means", x0, us[:, None].expand_as(x0),
+                strict=True)
+    return err, p_ms
+
+
+def print_registers(log, names):
+    """The registers and spills that ``nvcc -Xptxas -v`` reported for the
+    kernels ``names`` (each instantiation)."""
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = next((n for n in names if f"{n}_kernel" in line), None)
+            if entry:
+                say(f"   {entry}: {line.split('function')[1].strip()}")
+        elif entry and ("registers" in line or "spill" in line):
+            say(f"     {line.split('ptxas info    :')[-1].strip()}")
+
+
+def adaptive_sampler_path(odt, card):
+    """Phase 26, the sampler: ``sample_ensemble(EK0(), adaptive=True)`` at
+    8192 members over TSPAN_ADA (S_ADA save intervals, ADA_TOL) with S = 1
+    and S_MAIN, float32 and float64, each run with the counts set to 0
+    before it and read after it: one launch of each kernel, shapes, finite
+    samples; zero normals through the front door's kernels against
+    ``solve_ensemble(EK0())``'s smoothed means (bit for bit); the float64
+    calibration of one member tiled across the lanes; the doors' times.
+    Returns the float32 S_MAIN run's launches."""
+    from odefilters_torch.ops import ek0_adaptive as ea
+    from odefilters_torch.ops import ek0_adaptive_sample as eas
+
+    alg = odt.EK0(order=Q)
+    names = ("ek0_adaptive_stream", "ek0_adaptive_sampler")
+    kw = dict(n_steps=S_ADA, adaptive=True, max_iters=MAX_ITERS_SAMPLE,
+              **ADA_TOL)
+    launches = {}
+    for dtype in (torch.float32, torch.float64):
+        label = str(dtype).replace("torch.", "")
+        prob, u0s, ps = inputs(B_MAIN, dtype, TSPAN_ADA)
+        for S in (1, S_MAIN):
+            g = torch.Generator(device=DEVICE).manual_seed(S)
+            reset_counts()
+            us = odt.sample_ensemble(prob, alg, u0s, ps, generator=g,
+                                     n_samples=S, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts(*names)
+            if dtype == torch.float32 and S == S_MAIN:
+                launches = counts
+            want = ((S_ADA + 1, 2, B_MAIN) if S == 1
+                    else (S_ADA + 1, S, 2, B_MAIN))
+            head = f"{label} sample_ensemble(EK0, adaptive) S={S}"
+            check(all(n == 1 for n in counts.values()),
+                  f"{head}: launches in the run {counts}, one each")
+            check(tuple(us.shape) == want and bool(torch.isfinite(us).all()),
+                  f"{head}: samples {tuple(us.shape)}, finite")
+            del us
+        # zero normals through the front door's kernels: the smoothed means
+        sol = odt.solve_ensemble(prob, alg, u0s, ps, n_save=S_ADA,
+                                 max_iters=MAX_ITERS_SAMPLE, **ADA_TOL)
+        m0, ps_t, dt0s = ea._init(prob.f, u0s, ps, TSPAN_ADA, Q, **ADA_TOL)
+        zeros = torch.zeros((MAX_ITERS_SAMPLE, 1, Q + 1, 2, B_MAIN),
+                            dtype=dtype, device=DEVICE)
+        x0 = eas.ek0_adaptive_fused_sample(
+            prob.f, m0, ps_t, dt0s, zeros, *TSPAN_ADA, S_ADA, Q,
+            max_iters=MAX_ITERS_SAMPLE, field=prob.field, **ADA_TOL)[0]
+        torch.cuda.synchronize()
+        bitwise(f"{label} zero normals vs solve_ensemble(EK0())'s smoothed "
+                f"means at {B_MAIN}", x0[:, 0], sol.us, strict=True)
+        del x0, zeros, sol
+    # one member's posterior, tiled across the lanes: 8192 samples
+    prob64, _, _ = inputs(1, torch.float64, TSPAN_ADA)
+    u0t = prob64.u0[None].expand(B_MAIN, 2).contiguous()
+    pt = prob64.p[None].expand(B_MAIN, 4).contiguous()
+    us = odt.sample_ensemble(
+        prob64, alg, u0t, pt,
+        generator=torch.Generator(device=DEVICE).manual_seed(11), **kw)
+    ref = odt.solve_ensemble(prob64, alg, u0t[:1], pt[:1], n_save=S_ADA,
+                             max_iters=MAX_ITERS_SAMPLE, **ADA_TOL)
+    mean_s, std_s = ref.us[:, :, 0], ref.stds[:, 0]
+    se = std_s[:, None] / B_MAIN ** 0.5
+    dmean = (us.mean(dim=2) - mean_s).abs()
+    n_out = int((dmean >= 5.0 * se + 1e-12).sum())
+    check(n_out == 0, f"adaptive calibration (f64, {B_MAIN} samples of one "
+          f"member): empirical mean within 5 standard errors of the smoothed "
+          f"mean at every (save point, dim); {n_out} outside, largest "
+          f"|dmean| / se {float((dmean / se.clamp(min=1e-300))[1:].max()):.3f}")
+    mask = std_s > 1e-8
+    ratio = us.std(dim=2, correction=0)[mask] / std_s[mask, None]
+    worst = float((ratio - 1.0).abs().max())
+    check(worst <= 0.05, f"adaptive calibration: |std ratio - 1| {worst:.4f} "
+          f"<= 0.05 where the smoothed std > 1e-8 ({int(mask.sum())} save "
+          "points)")
+    del us
+    say(f"   timing: median of 10 after 2 warm-ups, CUDA events; card: {card}")
+    prob, u0s, ps = inputs(B_MAIN, torch.float32, TSPAN_ADA)
+    for S in (1, S_MAIN):
+        g = torch.Generator(device=DEVICE).manual_seed(3)
+        d_ms = time_ms(lambda: odt.sample_ensemble(
+            prob, alg, u0s, ps, generator=g, n_samples=S, **kw),
+            warmup=2, iters=10)
+        say(f"   float32 sample_ensemble(EK0, adaptive) S={S}: {d_ms:.3f} ms "
+            f"= {B_MAIN * S / d_ms * 1e3:.0f} sample paths/s")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def adaptive_sampler_timing(card):
+    """Phase 27, the sampler: the kernel against its plain version at 8192
+    members in float32 with S_MAIN normals from ``torch.randn`` (the plain
+    version once), its time at S = 1 and S_MAIN, and its bound from this
+    run's accepted steps. Returns (ms, plain ms, max |kernel - plain|,
+    (bound_ms, bound_by, operations per accepted step and member))."""
+    smp = AdaptiveSamplerCase(B_MAIN, torch.float32, S_MAIN,
+                              numpy_normals=False)
+    err, plain_ms = adaptive_sampler_vs_plain(f"f32 at {B_MAIN}", smp, 1e-5)
+    ms = time_ms(smp.kernel, warmup=3, iters=20)
+    z1 = smp.z[:, :1].contiguous()
+    ms1 = time_ms(lambda: smp.kernel(z=z1), warmup=3, iters=20)
+    say(f"   ek0_adaptive_sampler kernel S=1 {ms1:.4f} ms, S={S_MAIN} "
+        f"{ms:.4f} ms; plain (once) S={S_MAIN} {plain_ms:.1f} ms "
+        f"(card: {card})")
+    # operations: the plain sampler on one member of this ensemble, per
+    # accepted step; bytes: the accepted rows and their normals read once,
+    # the initial means and counts read, the samples written once
+    one = AdaptiveSamplerCase(1, torch.float32, S_MAIN, numpy_normals=False)
+    ops = ops_of(one.plain) / max(int(one.cs[0, 0]), 1)
+    acc = int(smp.cs[0].sum())
+    item = 4
+    nbytes = (acc * (smp.st.shape[1] + S_MAIN * (Q + 1) * 2) * item
+              + smp.base.ea.N_COUNTS * B_MAIN * 4 + (Q + 1) * 2 * B_MAIN * item
+              + (S_ADA + 1) * S_MAIN * 2 * B_MAIN * item)
+    b = bound(nbytes, ops, 1, acc)
+    say(f"   ek0_adaptive_sampler: {ops:.0f} operations per accepted step "
+        f"and member at S={S_MAIN} ({acc} accepted steps); "
+        f"{nbytes / 1e6:.1f} MB; bound {b[0]:.4f} ms by {b[1]}")
+    del smp
+    torch.cuda.empty_cache()
+    return ms, plain_ms, err, b + (ops,)
 
 
 def adaptive_timing(card, case_cls=AdaptiveCase):
@@ -2307,6 +2626,32 @@ def main() -> int:
     da_ms, da_plain_ms, da_err, da_bounds = adaptive_timing(card,
                                                             EK1DAdaptiveCase)
 
+    say(f"== 25. the four new kernels vs plain, B={B_CHECK}, "
+        f"tspan={TSPAN_ADA}, {S_ADA} save intervals, {ADA_TOL}: the adaptive "
+        f"EK1 kernels and the adaptive sampler (S={S_CHECK} numpy normals, "
+        "then zero normals), bit for bit")
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        label = str(dtype).replace("torch.", "")
+        adaptive_vs_plain(label, EK1AdaptiveCase(B_CHECK, dtype), rtol,
+                          strict=True)
+        adaptive_sampler_vs_plain(
+            label, AdaptiveSamplerCase(B_CHECK, dtype, S_CHECK), rtol)
+
+    say(f"== 26. the adaptive EK1 and sampler paths: solve_ensemble(EK1), "
+        f"sample_ensemble(EK0, adaptive=True), B={B_MAIN}, tspan={TSPAN_ADA}, "
+        f"{S_ADA} save intervals, {ADA_TOL}")
+    launches.update(adaptive_path(odt, card, EK1AdaptiveCase))
+    launches.update(adaptive_sampler_path(odt, card))
+
+    say(f"== 27. the four new kernels vs plain and timing, float32, "
+        f"B={B_MAIN}")
+    ea_ms, ea_plain_ms, ea_err, ea_bounds = adaptive_timing(card,
+                                                            EK1AdaptiveCase)
+    sm_ms, sm_plain_ms, sm_err, sm_bound = adaptive_sampler_timing(card)
+    print_registers(built["log"], ("ek1_adaptive", "ek1_adaptive_stream",
+                                   "ek1_adaptive_smoother",
+                                   "ek0_adaptive_sampler"))
+
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
     bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32, S_MAIN)
@@ -2325,15 +2670,20 @@ def main() -> int:
             say(f"  - {f}")
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
-          **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms}
+          **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms, **ea_ms,
+          "ek0_adaptive_sampler": sm_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
                 **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
-                "ek1d_filter": d_plain_ms, **da_plain_ms}
+                "ek1d_filter": d_plain_ms, **da_plain_ms, **ea_plain_ms,
+                "ek0_adaptive_sampler": sm_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
-            **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err}
+            **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err,
+            **ea_err, "ek0_adaptive_sampler": sm_err}
     bounds.update(a_bounds)
     bounds.update(da_bounds)
+    bounds.update(ea_bounds)
     bounds["ek1d_filter"] = d_bound
+    bounds["ek0_adaptive_sampler"] = sm_bound
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -4,10 +4,12 @@ Probabilistic ODE solvers (Gaussian ODE filters) on PyTorch, with the hot
 path in hand-written CUDA kernels for the NVIDIA H100. The JAX package
 ``odefilters`` beside it is the reference; module paths mirror it.
 
-Ported so far, with the IBM prior: the adaptive per-member EK0 ensemble
-solve (the default, as in the JAX package: PI-controlled steps per member,
-filter + RTS smoother over each member's accepted steps, or the filter
-alone), and on a uniform grid the fused EK0 filter + RTS smoother ensemble
+Ported so far, with the IBM prior: the adaptive per-member ensemble
+solves with EK0, DiagonalEK1 and EK1 (the default, as in the JAX package:
+PI-controlled steps per member, filter + RTS smoother over each member's
+accepted steps, or the filter alone), joint posterior samples of the
+adaptive EK0 solve, a single adaptive solve on the same kernels, and on a
+uniform grid the fused EK0 filter + RTS smoother ensemble
 solve (dynamic or static diffusion), the fused EK0 filter with its
 per-member log-likelihood (dynamic or static diffusion) and that
 likelihood's gradient by ``torch.autograd``, joint smoothing-posterior
@@ -40,6 +42,9 @@ ensemble IEKS::
                         n_steps=500)                     # (501, 2, B)
     odt.ieks_ensemble(prob, odt.IEKS(order=3), u0s, ps, n_steps=500,
                       iterations=3)                      # us, stds
+    odt.solve_ensemble(prob, odt.EK1(order=3), u0s, ps)  # adaptive, smoothed
+    odt.sample_ensemble(prob, odt.EK0(order=3), u0s, ps, generator=g,
+                        n_steps=20, adaptive=True)       # (21, 2, B)
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 
@@ -63,6 +68,7 @@ from odefilters_torch.ensemble import (  # noqa: E402
     sample_ensemble,
     solve_ensemble,
 )
+from odefilters_torch.ops.ek1_adaptive import solve_adaptive_single  # noqa: E402
 from odefilters_torch.problem import ODEProblem, ode_problem, remake  # noqa: E402
 
 __all__ = [
@@ -78,5 +84,6 @@ __all__ = [
     "ode_problem",
     "remake",
     "sample_ensemble",
+    "solve_adaptive_single",
     "solve_ensemble",
 ]

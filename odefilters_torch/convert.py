@@ -46,8 +46,9 @@ def ensemble_inputs_from_numpy(u0s, ps, *, device="cuda",
 
 def normals_from_numpy(z, *, device="cuda", dtype=torch.float64):
     """A sampler's standard normals, a ``(T+1, S, nq, d, B)`` numpy array
-    (the layout of the JAX package's ``ek0_fused_sample``), as a contiguous
-    tensor on ``device`` (the CUDA card unless given)."""
+    (the layout of the JAX package's ``ek0_fused_sample``; the adaptive
+    sampler's ``(max_iters, S, nq, d, B)``), as a contiguous tensor on
+    ``device`` (the CUDA card unless given)."""
     z = np.asarray(z)
     if z.ndim != 5:
         raise ValueError(f"normals must be (T+1, S, nq, d, B), got {z.shape}")

@@ -2,9 +2,11 @@
 ``odefilters/ensemble.py``).
 
 Ported so far, with adaptive steps (the default, as in the JAX package),
-with EK0 (`ops.ek0_adaptive`) and DiagonalEK1 (`ops.ek1d_adaptive`): the
-per-member adaptive filter and the adaptive filter + RTS smoother over
-each member's accepted steps. On uniform grids (``adaptive=False``) with
+with EK0 (`ops.ek0_adaptive`), DiagonalEK1 (`ops.ek1d_adaptive`) and EK1
+(`ops.ek1_adaptive`): the per-member adaptive filter and the adaptive
+filter + RTS smoother over each member's accepted steps, and with EK0 the
+joint-posterior sampler over them (`ops.ek0_adaptive_sample`). On uniform
+grids (``adaptive=False``) with
 EK0: the filter + RTS smoother on the fused pair (`ops.ek0_pair`), the
 filter alone with its per-member log-likelihood and gradient
 (`ops.ek0_filter`), both under the dynamic or a static diffusion, and the
@@ -28,11 +30,17 @@ from odefilters_torch.algorithms import AbstractEK
 from odefilters_torch.ops.ek0_adaptive import (
     solve_ensemble_ek0_adaptive, solve_ensemble_ek0_adaptive_smooth,
 )
+from odefilters_torch.ops.ek0_adaptive_sample import (
+    sample_ensemble_ek0_adaptive,
+)
 from odefilters_torch.ops.ek0_filter import solve_ensemble_ek0
 from odefilters_torch.ops.ek0_pair import solve_ensemble_ek0_smooth
 from odefilters_torch.ops.ek0_sample import sample_ensemble_ek0
 from odefilters_torch.ops.ek1_fused import (
     sample_ensemble_ek1, solve_ensemble_ek1,
+)
+from odefilters_torch.ops.ek1_adaptive import (
+    solve_ensemble_ek1_adaptive, solve_ensemble_ek1_adaptive_smooth,
 )
 from odefilters_torch.ops.ek1d import jac_diag_of, solve_ensemble_ek1d
 from odefilters_torch.ops.ek1d_adaptive import (
@@ -51,7 +59,7 @@ class EnsembleKernelSolution:
     (their covariances are not) and from EK0 under fixedMV. ``lls``:
     ``(B,)`` ODE-residual log-likelihoods from the EK0 and DiagonalEK1
     filter paths and the adaptive paths (all NaN under a static diffusion;
-    None from the fixed-grid smoothers and from EK1). ``nacc``, ``nrej``:
+    None from the fixed-grid smoothers and the fixed-grid EK1). ``nacc``, ``nrej``:
     ``(B,)`` int32 accepted and rejected attempts per member, and
     ``failed``: ``(B,)`` bool, from the adaptive paths (None on fixed
     grids). ``diffusions``: the calibrated per-member global sigma^2 under
@@ -92,10 +100,11 @@ def solve_ensemble(
     EK1 and a Jacobian diagonal for DiagonalEK1); CPU tensors run the plain
     versions.
 
-    Adaptive (EK0 or DiagonalEK1, the dynamic diffusion): each member runs
-    its own PI-controlled steps at ``abstol`` / ``reltol``; ``max_iters``
-    bounds each member's attempts (default 1024 with the smoother, whose
-    stream it sizes, else 100 000) and the result carries ``lls``,
+    Adaptive (EK0, DiagonalEK1 or EK1, the dynamic diffusion): each member
+    runs its own PI-controlled steps at ``abstol`` / ``reltol``;
+    ``max_iters`` bounds each member's attempts (default 1024 with the
+    smoother, whose stream it sizes, 512 for EK1's wider stream, else
+    100 000) and the result carries ``lls``,
     ``nacc``, ``nrej`` and ``failed``. Fixed grids: with EK0 and
     ``smooth=False`` the result carries ``lls``, and gradients of it with
     respect to ``u0s`` and ``ps`` flow by ``torch.autograd`` (dynamic
@@ -147,7 +156,7 @@ def solve_ensemble(
 
 def _solve_adaptive(prob, alg, u0s, ps, *, n_save, abstol, reltol, max_iters,
                     mesh) -> EnsembleKernelSolution:
-    """The adaptive branch of `solve_ensemble` (EK0 and DiagonalEK1)."""
+    """The adaptive branch of `solve_ensemble` (EK0, DiagonalEK1, EK1)."""
     if getattr(prob, "mass_matrix", None) is not None:
         raise NotImplementedError(
             "mass-matrix problems are not on the port's fused kernels (the "
@@ -174,10 +183,15 @@ def _solve_adaptive(prob, alg, u0s, ps, *, n_save, abstol, reltol, max_iters,
                 max_iters=100_000 if max_iters is None else max_iters, **kw)
         return EnsembleKernelSolution(*out)
     if alg.is_ek1:
-        raise NotImplementedError(
-            "adaptive EK1 ensemble kernels are not ported yet (ROADMAP.md "
-            "queue 2 items 12 and 16); pass adaptive=False"
-        )
+        if alg.smooth:
+            out = solve_ensemble_ek1_adaptive_smooth(
+                prob.f, prob.jac, u0s, ps, prob.tspan, n_save,
+                max_iters=512 if max_iters is None else max_iters, **kw)
+        else:
+            out = solve_ensemble_ek1_adaptive(
+                prob.f, prob.jac, u0s, ps, prob.tspan, n_save,
+                max_iters=100_000 if max_iters is None else max_iters, **kw)
+        return EnsembleKernelSolution(*out)
     if alg.smooth:
         out = solve_ensemble_ek0_adaptive_smooth(
             prob.f, u0s, ps, prob.tspan, n_save,
@@ -213,15 +227,17 @@ def sample_ensemble(
     ``(n_steps+1, n_samples, d, B)`` for ``n_samples > 1``; all samples of
     a member share one backward pass. The standard normals are drawn from
     ``generator``, which lies on the tensors' device. ``u0s``: ``(B, d)``;
-    ``ps``: ``(B, n_params)``; any ``B >= 1``. EK0 with the dynamic
-    diffusion only, and ``alg.smooth`` must be set (a joint backward draw
-    is a smoothing pass), as in the JAX package.
+    ``ps``: ``(B, n_params)``; any ``B >= 1``. The dynamic diffusion only,
+    and ``alg.smooth`` must be set (a joint backward draw is a smoothing
+    pass), as in the JAX package.
 
-    ``abstol``, ``reltol`` and ``max_iters`` are the JAX signature's
-    settings of the adaptive sampler (``adaptive=True``), which is not
-    ported yet and raises; the fixed grid does not use them. ``generator``
-    takes the place of the JAX package's positional ``key``: the TPU's
-    random bits do not carry over.
+    ``adaptive=True`` (EK0 only, as in the JAX package): the adaptive EK0
+    stream kernel at ``abstol`` / ``reltol`` with at most ``max_iters``
+    attempts a member (which also sizes its stream and its normals) and the
+    backward sampler over each member's accepted steps; ``n_steps`` is then
+    the number of uniform save intervals, and the samples lie on that grid.
+    ``generator`` takes the place of the JAX package's positional ``key``:
+    the TPU's random bits do not carry over.
     """
     if getattr(prob, "mass_matrix", None) is not None:
         raise NotImplementedError(
@@ -239,10 +255,17 @@ def sample_ensemble(
     if not alg.smooth:
         raise ValueError("sampling not implemented for non-smoothed posteriors")
     if adaptive:
-        raise NotImplementedError(
-            "the adaptive sampler is not ported yet (ROADMAP.md queue 1, "
-            "slice 5: queue 2 item 17); pass adaptive=False"
-        )
+        if alg.is_ek1:
+            raise NotImplementedError(
+                "adaptive-solution sampling runs on the EK0 stream pair; use "
+                "adaptive=False for EK1"
+            )
+        us, *_ = sample_ensemble_ek0_adaptive(
+            prob.f, u0s, ps, prob.tspan, n_steps, generator, q=alg.order,
+            n_samples=n_samples, abstol=abstol, reltol=reltol,
+            max_iters=max_iters, prior=alg.prior, mesh=mesh,
+            second_order=prob.second_order, field=prob.field)
+        return us
     if alg.is_ek1:
         return sample_ensemble_ek1(
             prob.f, prob.jac, u0s, ps, prob.tspan, n_steps, generator,

@@ -21,10 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
-SOURCES = ("ek1_fused.cu", "ek1d.cu", "ek0_adaptive.cu", "ek0_pair.cu",
-           "ek0_filter.cu", "ek0_sample.cu")
+SOURCES = ("ek1_adaptive.cu", "ek1_fused.cu", "ek1d.cu", "ek0_adaptive.cu",
+           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
-           "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh")
+           "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,16 +47,17 @@ NVCC_FLAGS = (
 # (scripts/torch_kernel_fma.py --file ek0_pair.cu).
 #
 # The EK1 kernels likewise: their stream's s2 and the static models'
-# sigma^2 are the same innovation statistic. And the adaptive kernels, EK0
-# and DiagonalEK1: their step loop turns a one-ulp difference into another
-# accepted step sequence (the DiagonalEK1 file also holds the fixed-grid
-# filter, whose lls and sigma^2 carry the innovation).
+# sigma^2 are the same innovation statistic. And the adaptive kernels, EK0,
+# DiagonalEK1 and EK1: their step loop turns a one-ulp difference into
+# another accepted step sequence (the DiagonalEK1 file also holds the
+# fixed-grid filter, whose lls and sigma^2 carry the innovation).
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
                 "ek1_fused.cu": ("-fmad=false",),
                 "ek0_adaptive.cu": ("-fmad=false",),
-                "ek1d.cu": ("-fmad=false",)}
+                "ek1d.cu": ("-fmad=false",),
+                "ek1_adaptive.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,8 +81,11 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                       max_iters, consts)
 # ek0_adaptive_smoother: (stream_in, counts, m0, us, stds, B, n_save,
 #                         max_iters, consts)
+# ek0_adaptive_sampler: (stream_in, counts, m0, normals, out, B, S, n_save,
+#                        max_iters, consts)
 # ek1d_filter: (m0_p, ps, us, stds, lls, sig, B, T, mode, consts)
-# ek1d_adaptive, ek1d_adaptive_stream, ek1d_adaptive_smoother: as the
+# ek1d_adaptive, ek1d_adaptive_stream, ek1d_adaptive_smoother,
+# ek1_adaptive, ek1_adaptive_stream, ek1_adaptive_smoother: as the
 #   ek0_adaptive entries
 ENTRIES = {}
 for _s in ("f32", "f64"):
@@ -103,6 +107,10 @@ for _s in ("f32", "f64"):
         f"ek1d_adaptive_fhn_{_s}": (_P,) * 7 + (_I, _I, _I, _D, _P),
         f"ek1d_adaptive_stream_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
         f"ek1d_adaptive_smoother_{_s}": (_P,) * 5 + (_I, _I, _I, _D, _P),
+        f"ek0_adaptive_sampler_{_s}": (_P,) * 5 + (_I,) * 4 + (_D, _P),
+        f"ek1_adaptive_fhn_{_s}": (_P,) * 7 + (_I, _I, _I, _D, _P),
+        f"ek1_adaptive_stream_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
+        f"ek1_adaptive_smoother_{_s}": (_P,) * 5 + (_I, _I, _I, _D, _P),
     })
 
 

@@ -1,4 +1,5 @@
-// Adaptive per-member EK0 ensemble solve for Hopper (sm_90a): three kernels.
+// Adaptive per-member EK0 ensemble solve and its joint posterior samples
+// for Hopper (sm_90a): four kernels.
 //
 // Replaces the TPU kernels in odefilters/ops/pallas_kernels.py:
 //   ek0_adaptive_kernel          <- _ek0_adaptive_kernel (the PI-controlled
@@ -8,10 +9,14 @@
 //                                   loop, streaming each accepted step);
 //   ek0_adaptive_smoother_kernel <- _ek0_adaptive_smoother_kernel (the
 //                                   square-root RTS pass over each member's
-//                                   accepted steps).
+//                                   accepted steps);
+//   ek0_adaptive_sampler_kernel  <- _ek0_adaptive_sampler_kernel (the
+//                                   backward conditioning sampler over the
+//                                   same rows, S samples a member).
 // Their plain PyTorch versions, in the same order of operations, and the
-// Python wrappers are in odefilters_torch/ops/ek0_adaptive.py; the
-// per-member bodies are in ek0_adaptive.cuh.
+// Python wrappers are in odefilters_torch/ops/ek0_adaptive.py and (the
+// sampler) ek0_adaptive_sample.py; the per-member bodies are in
+// ek0_adaptive.cuh.
 //
 // Design: one thread per ensemble member, its whole state in registers for
 // the whole step loop, 64 threads a block, any B >= 1. The covariance is
@@ -38,6 +43,12 @@
 // numbers of attempts, so a warp runs as long as its slowest member: the
 // bound is the operations, at one thread per member about one block of 64
 // per SM, and latency, not bandwidth or the operation rate, bounds them.
+// The sampler walks the smoother's rows with S samples where the smoother
+// carries one smoothed state: a thread keeps a chunk of SC samples in
+// registers (1, 2, 4 or 8; up to 4 in float64) and the grid's y dimension
+// runs over the chunks, each recomputing the shared gain and factor work.
+// The normals are indexed by the member's accepted step, not by the TPU
+// block's attempt row, which depended on the block's lockstep.
 // Built without FMA contraction (ops/_build.py: SOURCE_FLAGS): the loop
 // turns a one-ulp difference into another accepted step sequence, so the
 // kernels round op by op as their plain versions do on the card.
@@ -148,6 +159,66 @@ __global__ void __launch_bounds__(THREADS)
       });
 }
 
+// Backward sampler: samples s0 .. s0 + SC - 1 (s0 = blockIdx.y * SC, those
+// below NS) of member b over rows nacc - 1 .. 0 of its stream, with the
+// normals zn (max_iters, NS, NQ, D, B) (row k for the k-th accepted step),
+// into out (S+1, NS, D, B). Row 0 is the exact initial state, each save row
+// the samples at the step that reached it, the rows past the save points
+// reached the terminal draw.
+template <typename S, int NQ, int D, int SC>
+__global__ void __launch_bounds__(THREADS)
+    ek0_adaptive_sampler_kernel(const S* __restrict__ stream,
+                                const int* __restrict__ counts,
+                                const S* __restrict__ m0,
+                                const S* __restrict__ zn, S* __restrict__ out,
+                                int B, int NS, AdaptConsts<S, NQ> c) {
+  constexpr int V = AdaptLayout<NQ, D>::V;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int s0 = blockIdx.y * SC;
+  const int ns = NS - s0 < SC ? NS - s0 : SC;
+  const size_t sB = (size_t)B;
+  const int K = counts[b], segs = counts[3 * sB + b];
+  S x[SC][NQ][D];
+  auto emit = [&](int k) {
+#pragma unroll
+    for (int s = 0; s < SC; ++s) {
+      if (s >= ns) continue;
+      const size_t o = ((size_t)k * NS + s0 + s) * D * sB + b;
+#pragma unroll
+      for (int j = 0; j < D; ++j) out[o + j * sB] = x[s][0][j];
+    }
+  };
+  auto z_of = [&](int k) {
+    return [=](int s, int l, int j) {
+      return zn[(((size_t)k * NS + s0 + s) * NQ * D + l * D + j) * sB + b];
+    };
+  };
+#pragma unroll
+  for (int s = 0; s < SC; ++s)
+#pragma unroll
+    for (int j = 0; j < D; ++j) x[s][0][j] = m0[j * sB + b];
+  emit(0);
+  if (K == 0) {
+    for (int k = 1; k <= c.n_save; ++k) emit(k);
+    return;
+  }
+  ek0::AdaptRow<S, NQ, D> r;
+  ek0::load_adapt_row<S, NQ, D>(stream, (size_t)(K - 1) * V * sB + b, sB, r);
+  ek0::terminal_draw<S, NQ, D, SC>(r.m, r.L, r.lh, ns, z_of(K - 1), x);
+  for (int k = segs + 1; k <= c.n_save; ++k) emit(k);
+  if (r.mark > S(0.5)) emit((int)r.mark);
+  S pend_lh = r.lh, pend_s2 = r.s2;
+  for (int k = K - 2; k >= 0; --k) {
+    ek0::load_adapt_row<S, NQ, D>(stream, (size_t)k * V * sB + b, sB, r);
+    ek0::sampler_step<S, NQ, D, SC>(c, r.m, r.L, pend_lh, pend_s2, ns,
+                                    z_of(k), x);
+    pend_lh = r.lh;
+    pend_s2 = r.s2;
+    if (r.mark > S(0.5)) emit((int)r.mark);
+  }
+}
+
 namespace {
 
 inline int blocks_for(int B) { return (B + THREADS - 1) / THREADS; }
@@ -191,6 +262,42 @@ int launch_smoother(const void* st, const void* counts, const void* m0,
       <<<blocks_for(B), THREADS, 0, (cudaStream_t)stream>>>(
           (const S*)st, (const int*)counts, (const S*)m0, (S*)us, (S*)stds, B,
           ek0::read_adapt_consts<S, NQ>(k, n_save, max_iters));
+  return (int)cudaGetLastError();
+}
+
+template <typename S, int NQ, int D, int SC>
+void launch_sampler_chunk(const void* st, const void* counts, const void* m0,
+                          const void* zn, void* out, int B, int NS,
+                          const AdaptConsts<S, NQ>& c, cudaStream_t stream) {
+  const dim3 grid(blocks_for(B), (NS + SC - 1) / SC);
+  ek0_adaptive_sampler_kernel<S, NQ, D, SC><<<grid, THREADS, 0, stream>>>(
+      (const S*)st, (const int*)counts, (const S*)m0, (const S*)zn, (S*)out,
+      B, NS, c);
+}
+
+// The chunk of samples a thread keeps in registers: the largest of
+// 1, 2, 4, 8 not above NS, at most MAX_SC.
+template <typename S, int NQ, int D, int MAX_SC>
+int launch_sampler(const void* st, const void* counts, const void* m0,
+                   const void* zn, void* out, int B, int NS, int n_save,
+                   int max_iters, const double* k, void* stream) {
+  if (bad_sizes(B, n_save, max_iters) || NS < 1)
+    return (int)cudaErrorInvalidValue;
+  const AdaptConsts<S, NQ> c =
+      ek0::read_adapt_consts<S, NQ>(k, n_save, max_iters);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (MAX_SC >= 8) {
+    if (NS >= 8) {
+      launch_sampler_chunk<S, NQ, D, 8>(st, counts, m0, zn, out, B, NS, c, s);
+      return (int)cudaGetLastError();
+    }
+  }
+  if (NS >= 4)
+    launch_sampler_chunk<S, NQ, D, 4>(st, counts, m0, zn, out, B, NS, c, s);
+  else if (NS >= 2)
+    launch_sampler_chunk<S, NQ, D, 2>(st, counts, m0, zn, out, B, NS, c, s);
+  else
+    launch_sampler_chunk<S, NQ, D, 1>(st, counts, m0, zn, out, B, NS, c, s);
   return (int)cudaGetLastError();
 }
 
@@ -255,6 +362,24 @@ int ek0_adaptive_smoother_f64(const void* st, const void* counts,
                               void* stream) {
   return launch_smoother<double, 4, 2>(st, counts, m0, us, stds, B, n_save,
                                        max_iters, consts, stream);
+}
+
+// the sampler: (stream, counts, m0, normals, out, B, n_samples, n_save,
+// max_iters, consts, stream)
+int ek0_adaptive_sampler_f32(const void* st, const void* counts,
+                             const void* m0, const void* zn, void* out, int B,
+                             int NS, int n_save, int max_iters,
+                             const double* consts, void* stream) {
+  return launch_sampler<float, 4, 2, 8>(st, counts, m0, zn, out, B, NS,
+                                        n_save, max_iters, consts, stream);
+}
+
+int ek0_adaptive_sampler_f64(const void* st, const void* counts,
+                             const void* m0, const void* zn, void* out, int B,
+                             int NS, int n_save, int max_iters,
+                             const double* consts, void* stream) {
+  return launch_sampler<double, 4, 2, 4>(st, counts, m0, zn, out, B, NS,
+                                         n_save, max_iters, consts, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
 // Per-member bodies of the adaptive EK0 kernels (ek0_adaptive.cu): one
 // attempt of the PI-controlled EK0(dynamic) step loop, the accepted-step
-// stream row and one square-root RTS step over a member's accepted steps,
-// with the parts the DiagonalEK1 kernels (ek1d.cu) share: an attempt's
-// begin and control, the factor's prediction and the backward walk
-// (smooth_member). Their plain PyTorch versions, in the same order of
+// stream row, one square-root RTS step over a member's accepted steps, and
+// the sampler's terminal draw and conditioning step, with the parts the
+// DiagonalEK1 and EK1 kernels (ek1d.cu, ek1_adaptive.cu) share: an
+// attempt's begin and control, the factor's prediction and the backward
+// walk (smooth_member). Their plain PyTorch versions, in the same order of
 // operations, are in odefilters_torch/ops/ek0_adaptive.py (attempt, begin,
-// control, predict_factor, smoother_step, ek0_adaptive_smoother_plain).
+// control, predict_factor, backward_shared, conditioned_mean,
+// smoother_step, ek0_adaptive_smoother_plain) and ek0_adaptive_sample.py
+// (list_cholesky, terminal_draw, sampler_step).
 //
 // The state is carried unpreconditioned and preconditioned afresh at each
 // attempt's step size, as in the JAX kernels, but the covariance is carried
@@ -414,36 +417,35 @@ __device__ __forceinline__ void load_adapt_row(const S* __restrict__ st,
   r.mark = st[row0 + v * sB];
 }
 
-// One square-root RTS step (ek0_adaptive.py: smoother_step) from the
-// filtered state (m_f, L_f) of an accepted step to the smoothed (ms, Ls) of
-// the next one, with the next step's lh (log dt_eff) and s2, in place, in
-// the frame preconditioned at the next step's size (the filtered factor's
-// rows scaled).
-template <typename S, int NQ, int D>
-__device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
-                                              const S (&m_f)[NQ][D],
-                                              const S (&L_f)[NQ][NQ], S lh,
-                                              S s2, S (&ms)[NQ][D],
-                                              S (&Ls)[NQ][NQ]) {
+// The part of a backward step from the filtered state (m_f, L_f) of an
+// accepted step that the smoother and the sampler share
+// (ek0_adaptive.py: backward_shared), in the frame preconditioned at the
+// next accepted step's lh (log dt_eff) with its s2: the preconditioner ps_,
+// the preconditioned mean mh_f, the gain G = Ch_f At^T (Lp Lp^T)^-1 (Lp
+// recomputed by the forward's MGS), the predicted mean mp, and the first
+// 2 NQ rows of the stack: row l holds column l of (I - G At) Lh_f, row
+// NQ + l column l of sq G QLt. Lh_f is the filtered factor with its rows
+// scaled (no Cholesky factorisation).
+template <typename S, int NQ, int D, int K>
+__device__ __forceinline__ void backward_shared(
+    const AdaptConsts<S, NQ>& c, const S (&m_f)[NQ][D],
+    const S (&L_f)[NQ][NQ], S lh, S s2, S (&ps_)[NQ], S (&mh_f)[NQ][D],
+    S (&G)[NQ][NQ], S (&mp)[NQ][D], S (&v)[K][NQ]) {
   constexpr double QH = NQ - 0.5;
-  S ps_[NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) ps_[i] = exp_(S(i - QH) * lh);
-  S Lh[NQ][NQ], mh_f[NQ][D], Lsh[NQ][NQ];
+  S Lh[NQ][NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
 #pragma unroll
     for (int l = 0; l < NQ; ++l) Lh[i][l] = L_f[i][l] * ps_[i];
 #pragma unroll
     for (int j = 0; j < D; ++j) mh_f[i][j] = m_f[i][j] * ps_[i];
-#pragma unroll
-    for (int l = 0; l < NQ; ++l) Lsh[i][l] = ps_[i] * Ls[i][l];
   }
   const S sq = sqrt_(s2);
   S AtL[NQ][NQ], Lp[NQ][NQ];
   at_times<S, NQ, NQ>(c.At, Lh, AtL);
   predict_factor<S, NQ>(c, Lh, sq, Lp);
-  S G[NQ][NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
     S M[NQ];
@@ -456,22 +458,7 @@ __device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
     }
     cho_solve<S, NQ>(Lp, M, G[i]);
   }
-  S mp[NQ][D];
   at_times<S, NQ, D>(c.At, mh_f, mp);
-  S ms_new[NQ][D];
-#pragma unroll
-  for (int i = 0; i < NQ; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      S acc = S(0);
-#pragma unroll
-      for (int l = 0; l < NQ; ++l)
-        acc += G[i][l] * (ms[l][j] * ps_[l] - mp[l][j]);
-      ms_new[i][j] = mh_f[i][j] + acc;
-    }
-  // the stack's rows: row k holds column k of (I - G At) Lh, row NQ + k
-  // column k of sq G QLt, row 2 NQ + k column k of G Lsh
-  S v[3 * NQ][NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
     S IGA[NQ];
@@ -484,18 +471,68 @@ __device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
     }
 #pragma unroll
     for (int l = 0; l < NQ; ++l) {
-      S b1 = S(0), gq = S(0), b3 = S(0);
+      S b1 = S(0), gq = S(0);
 #pragma unroll
       for (int a = 0; a < NQ; ++a) b1 += IGA[a] * Lh[a][l];
 #pragma unroll
       for (int a = l; a < NQ; ++a) gq += G[i][a] * c.QLt[a][l];
-#pragma unroll
-      for (int a = 0; a < NQ; ++a) b3 += G[i][a] * Lsh[a][l];
       v[l][i] = b1;
       v[NQ + l][i] = sq * gq;
-      v[2 * NQ + l][i] = b3;
     }
   }
+}
+
+// mh_f + G (x ps_ - mp), the conditioned mean of one column j in the
+// preconditioned frame, summed as the plain version sums it.
+template <typename S, int NQ, int D>
+__device__ __forceinline__ S conditioned_mean(const S (&mh_f)[NQ][D],
+                                              const S (&G)[NQ][NQ],
+                                              const S (&mp)[NQ][D],
+                                              const S (&ps_)[NQ],
+                                              const S (&x)[NQ][D], int i,
+                                              int j) {
+  S acc = S(0);
+#pragma unroll
+  for (int l = 0; l < NQ; ++l) acc += G[i][l] * (x[l][j] * ps_[l] - mp[l][j]);
+  return mh_f[i][j] + acc;
+}
+
+// One square-root RTS step (ek0_adaptive.py: smoother_step) from the
+// filtered state (m_f, L_f) of an accepted step to the smoothed (ms, Ls) of
+// the next one, with the next step's lh (log dt_eff) and s2, in place, in
+// the frame preconditioned at the next step's size (the filtered factor's
+// rows scaled).
+template <typename S, int NQ, int D>
+__device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
+                                              const S (&m_f)[NQ][D],
+                                              const S (&L_f)[NQ][NQ], S lh,
+                                              S s2, S (&ms)[NQ][D],
+                                              S (&Ls)[NQ][NQ]) {
+  constexpr double QH = NQ - 0.5;
+  S ps_[NQ], mh_f[NQ][D], G[NQ][NQ], mp[NQ][D];
+  // the stack's rows 2 NQ + l: column l of G Lsh
+  S v[3 * NQ][NQ];
+  backward_shared<S, NQ, D, 3 * NQ>(c, m_f, L_f, lh, s2, ps_, mh_f, G, mp, v);
+  S ms_new[NQ][D];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      ms_new[i][j] = conditioned_mean<S, NQ, D>(mh_f, G, mp, ps_, ms, i, j);
+  S Lsh[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Lsh[i][l] = ps_[i] * Ls[i][l];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      S b3 = S(0);
+#pragma unroll
+      for (int a = 0; a < NQ; ++a) b3 += G[i][a] * Lsh[a][l];
+      v[2 * NQ + l][i] = b3;
+    }
   S Ls_new[NQ][NQ];
   mgs_tril<S, NQ, 3 * NQ, false>(v, Ls_new);
 #pragma unroll
@@ -505,6 +542,130 @@ __device__ __forceinline__ void smoother_step(const AdaptConsts<S, NQ>& c,
     for (int j = 0; j < D; ++j) ms[i][j] = pinv * ms_new[i][j];
 #pragma unroll
     for (int l = 0; l < NQ; ++l) Ls[i][l] = pinv * Ls_new[i][l];
+  }
+}
+
+// Lower Cholesky factor of the symmetric C with row and column ZR
+// structurally zero (ek0_adaptive_sample.py: list_cholesky): the R = 0
+// update collapses the measured block to zero variance up to rounding, and
+// a guarded pivot would turn that rounding into an arbitrary direction.
+// Pivots sqrt(max(s, 1e-30)), the entries below times their reciprocals;
+// every term through row or column ZR is skipped.
+template <typename S, int NQ, int ZR>
+__device__ __forceinline__ void cholesky_zero_row(const S (&C)[NQ][NQ],
+                                                  S (&L)[NQ][NQ]) {
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) L[i][l] = S(0);
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    if (i == ZR) continue;
+    S s = C[i][i];
+#pragma unroll
+    for (int k = 0; k < i; ++k)
+      if (k != ZR) s = s - L[i][k] * L[i][k];
+    L[i][i] = sqrt_(floor_at(s, S(1e-30)));
+    const S inv = S(1) / L[i][i];
+#pragma unroll
+    for (int l = i + 1; l < NQ; ++l) {
+      if (l == ZR) continue;
+      S v = C[l][i];
+#pragma unroll
+      for (int k = 0; k < i; ++k)
+        if (k != ZR) v = v - L[l][k] * L[i][k];
+      L[l][i] = v * inv;
+    }
+  }
+}
+
+// The terminal draw of the adaptive sampler (ek0_adaptive_sample.py:
+// terminal_draw) at a member's last accepted step (m, L, lh):
+// x = m + pinv chol0(P L L^T P) z with P = diag(ps_) at lh and chol0 the
+// Cholesky factor with the measured block BX structurally zero, for the
+// samples s < ns of the chunk; z(s, l, j) reads a normal.
+template <typename S, int NQ, int D, int SC, class Z>
+__device__ __forceinline__ void terminal_draw(const S (&m)[NQ][D],
+                                              const S (&L)[NQ][NQ], S lh,
+                                              int ns, Z z,
+                                              S (&x)[SC][NQ][D]) {
+  constexpr double QH = NQ - 0.5;
+  S Lh[NQ][NQ], C[NQ][NQ], Lc[NQ][NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    const S p = exp_(S(i - QH) * lh);
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) Lh[i][l] = L[i][l] * p;
+  }
+#pragma unroll
+  for (int i = 0; i < NQ; ++i)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      S acc = S(0);
+#pragma unroll
+      for (int b = 0; b < NQ; ++b) acc += Lh[i][b] * Lh[l][b];
+      C[i][l] = acc;
+    }
+  cholesky_zero_row<S, NQ, BX>(C, Lc);
+#pragma unroll
+  for (int s = 0; s < SC; ++s) {
+    if (s >= ns) continue;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const S pinv = exp_(S(QH - i) * lh);
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        S acc = S(0);
+#pragma unroll
+        for (int l = 0; l <= i; ++l)
+          if (i != BX && l != BX) acc += Lc[i][l] * z(s, l, j);
+        x[s][i][j] = m[i][j] + pinv * acc;
+      }
+    }
+  }
+}
+
+// One backward conditioning step of the adaptive sampler
+// (ek0_adaptive_sample.py: sampler_step): the samples s < ns of the chunk,
+// drawn at the next accepted step, conditioned on the filtered state
+// (m_f, L_f) with the next step's lh and s2 and re-drawn from the
+// conditional factor Lc (the smoothing stack without its G Ls block):
+// x = pinv ((mh_f + G (x ps_ - mp)) + Lc z), in place.
+template <typename S, int NQ, int D, int SC, class Z>
+__device__ __forceinline__ void sampler_step(const AdaptConsts<S, NQ>& c,
+                                             const S (&m_f)[NQ][D],
+                                             const S (&L_f)[NQ][NQ], S lh,
+                                             S s2, int ns, Z z,
+                                             S (&x)[SC][NQ][D]) {
+  constexpr double QH = NQ - 0.5;
+  S ps_[NQ], mh_f[NQ][D], G[NQ][NQ], mp[NQ][D], Lc[NQ][NQ];
+  {
+    S v[2 * NQ][NQ];
+    backward_shared<S, NQ, D, 2 * NQ>(c, m_f, L_f, lh, s2, ps_, mh_f, G, mp,
+                                      v);
+    mgs_tril<S, NQ, 2 * NQ, false>(v, Lc);
+  }
+#pragma unroll
+  for (int s = 0; s < SC; ++s) {
+    if (s >= ns) continue;
+    S xn[NQ][D];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const S pinv = exp_(S(QH - i) * lh);
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        S lz = S(0);
+#pragma unroll
+        for (int l = 0; l <= i; ++l) lz += Lc[i][l] * z(s, l, j);
+        xn[i][j] =
+            pinv * (conditioned_mean<S, NQ, D>(mh_f, G, mp, ps_, x[s], i, j) +
+                    lz);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) x[s][i][j] = xn[i][j];
   }
 }
 

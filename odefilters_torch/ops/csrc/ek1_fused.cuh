@@ -14,12 +14,14 @@
 #pragma once
 
 #include "ek0_common.cuh"
+#include "ek0_filter.cuh"
 #include "ek0_sample.cuh"
 
 namespace ek1 {
 
 using ek0::cho_solve;
 using ek0::floor_at;
+using ek0::log_;
 using ek0::mgs_tril;
 using ek0::sqrt_;
 
@@ -102,9 +104,10 @@ __device__ __forceinline__ void gram(const S (&Z)[DIM][N],
     }
 }
 
-// y = A x over A's nonzero entries.
-template <typename S, int NQ, int DIM>
-__device__ __forceinline__ void a_times_vec(const Consts<S, NQ, DIM>& c,
+// y = A x over A's nonzero entries. K: any constants with the NQ x NQ
+// blocks At and QLt (Consts, or the adaptive kernels' ek0::AdaptConsts).
+template <typename S, int NQ, int DIM, class K>
+__device__ __forceinline__ void a_times_vec(const K& c,
                                             const S (&x)[NQ * DIM],
                                             S (&y)[NQ * DIM]) {
   constexpr int N = NQ * DIM;
@@ -119,9 +122,9 @@ __device__ __forceinline__ void a_times_vec(const Consts<S, NQ, DIM>& c,
 }
 
 // Y = A X over A's nonzero entries.
-template <typename S, int NQ, int DIM>
+template <typename S, int NQ, int DIM, class K>
 __device__ __forceinline__ void a_times_mat(
-    const Consts<S, NQ, DIM>& c, const S (&X)[NQ * DIM][NQ * DIM],
+    const K& c, const S (&X)[NQ * DIM][NQ * DIM],
     S (&Y)[NQ * DIM][NQ * DIM]) {
   constexpr int N = NQ * DIM;
 #pragma unroll
@@ -139,7 +142,7 @@ __device__ __forceinline__ void a_times_mat(
 // H M for H = (E1 - J E0) P^-1 and an N x N block M given entry by entry:
 // out[a][k] = pinv1 M[DIM + a][k] - sum_b J[a][b] (pinv0 M[b][k]).
 template <typename S, int NQ, int DIM, class Get>
-__device__ __forceinline__ void h_times(const Consts<S, NQ, DIM>& c,
+__device__ __forceinline__ void h_times(S pinv0, S pinv1,
                                         const S (&J)[DIM * DIM], Get M,
                                         S (&out)[DIM][NQ * DIM]) {
   constexpr int N = NQ * DIM;
@@ -147,42 +150,74 @@ __device__ __forceinline__ void h_times(const Consts<S, NQ, DIM>& c,
   for (int a = 0; a < DIM; ++a)
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      S v = c.pinv1 * M(DIM + a, k);
+      S v = pinv1 * M(DIM + a, k);
 #pragma unroll
-      for (int b = 0; b < DIM; ++b) v = v - J[a * DIM + b] * (c.pinv0 * M(b, k));
+      for (int b = 0; b < DIM; ++b) v = v - J[a * DIM + b] * (pinv0 * M(b, k));
       out[a][k] = v;
     }
 }
 
-// One square-root EK1 step from (m, L), updated in place: predict the
-// mean, evaluate the field and its Jacobian (at u_lin when given, the IEKS
-// hook; the field itself at the predicted mean), calibrate the dynamic
-// diffusion s2 = z^T (H Q H^T)^-1 z / DIM (STATIC: the unscaled prior),
-// factor the predicted covariance by MGS of [(A L)^T; (sqrt(s2) QLf)^T]
-// into Lp, and apply the update L = Lp - K H Lp. Returns s2, or under
-// STATIC the step's statistic z^T S^-1 z / DIM.
-template <typename S, int NQ, class F, bool STATIC>
-__device__ __forceinline__ S filter_step(const Consts<S, NQ, F::D>& c,
+// The predicted factor Lp: MGS of the 2N x N stack [(A L)^T; (sq QLf)^T];
+// qsq (the static models' noise squares, ek1_fused.cu) or nullptr.
+template <typename S, int NQ, int DIM, class K>
+__device__ __forceinline__ void predict_lp(const K& c,
+                                           const S (&L)[NQ * DIM][NQ * DIM],
+                                           S sq, S (&Lp)[NQ * DIM][NQ * DIM],
+                                           const S* qsq = nullptr) {
+  constexpr int N = NQ * DIM;
+  S AL[N][N], v[2 * N][N];
+  a_times_mat<S, NQ, DIM>(c, L, AL);
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      v[k][i] = AL[i][k];
+      v[N + k][i] = q_live<DIM>(i, k) ? sq * c.QLt[i / DIM][k / DIM] : S(0);
+    }
+  mgs_tril<S, N, 2 * N, true>(v, Lp, qsq);
+}
+
+// What an adaptive attempt needs of a dynamic step besides the update: the
+// diagonal of H Q H^T (its error estimate) and the log-likelihood increment
+// log N(z; 0, H Lp Lp^T H^T).
+template <typename S, int DIM>
+struct StepStats {
+  S hqh[DIM];
+  S ll_inc;
+};
+
+// One square-root EK1 step from (m, L), updated in place, with the
+// preconditioner entries pinv0, pinv1 of blocks 0 and 1: predict the mean,
+// evaluate the field and its Jacobian (at u_lin when given, the IEKS hook;
+// the field itself at the predicted mean), calibrate the dynamic diffusion
+// s2 = z^T (H Q H^T)^-1 z / DIM (STATIC: the unscaled prior), factor the
+// predicted covariance by MGS of [(A L)^T; (sqrt(s2) QLf)^T] into Lp, and
+// apply the update L = Lp - K H Lp. Returns s2, or under STATIC the step's
+// statistic z^T S^-1 z / DIM. K: Consts (fixed grid) or ek0::AdaptConsts
+// (the adaptive kernels, which also ask for stats).
+template <typename S, int NQ, class F, bool STATIC, class K>
+__device__ __forceinline__ S filter_step(const K& c, S pinv0, S pinv1,
                                          const S* p, S t, const S* u_lin,
                                          S (&m)[NQ * F::D],
                                          S (&L)[NQ * F::D][NQ * F::D],
-                                         S (&Lp)[NQ * F::D][NQ * F::D]) {
+                                         S (&Lp)[NQ * F::D][NQ * F::D],
+                                         StepStats<S, F::D>* stats = nullptr) {
   constexpr int DIM = F::D;
   constexpr int N = NQ * DIM;
   S mp[N];
   a_times_vec<S, NQ, DIM>(c, m, mp);
   S u[DIM], du[DIM], J[DIM * DIM], z[DIM];
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) u[j] = c.pinv0 * mp[j];
+  for (int j = 0; j < DIM; ++j) u[j] = pinv0 * mp[j];
   F()(u, p, t, du);
   F().jac(u_lin ? u_lin : u, p, t, J);
 #pragma unroll
-  for (int a = 0; a < DIM; ++a) z[a] = ek0::innovation(c.pinv1, mp[DIM + a], du[a]);
+  for (int a = 0; a < DIM; ++a) z[a] = ek0::innovation(pinv1, mp[DIM + a], du[a]);
 
   S sq = S(1), s2 = S(1);
   if (!STATIC) {
     S HQ[DIM][N], Sq[DIM][DIM], Lq[DIM][DIM], w[DIM];
-    h_times<S, NQ, DIM>(c, J, [&](int r, int k) {
+    h_times<S, NQ, DIM>(pinv0, pinv1, J, [&](int r, int k) {
       return q_live<DIM>(r, k) ? c.QLt[r / DIM][k / DIM] : S(0);
     }, HQ);
     gram<S, DIM, N>(HQ, Sq);
@@ -193,23 +228,19 @@ __device__ __forceinline__ S filter_step(const Consts<S, NQ, F::D>& c,
     for (int a = 0; a < DIM; ++a) zw += z[a] * w[a];
     s2 = zw * (S(1) / S(DIM));
     sq = sqrt_(floor_at(s2, S(0)));
+    if (stats) {
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) stats->hqh[a] = Sq[a][a];
+    }
   }
 
-  {
-    S AL[N][N], v[2 * N][N];
-    a_times_mat<S, NQ, DIM>(c, L, AL);
-#pragma unroll
-    for (int k = 0; k < N; ++k)
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        v[k][i] = AL[i][k];
-        v[N + k][i] = q_live<DIM>(i, k) ? sq * c.QLt[i / DIM][k / DIM] : S(0);
-      }
-    mgs_tril<S, N, 2 * N, true>(v, Lp, STATIC ? c.qsq : nullptr);
-  }
+  const S* qsq = nullptr;
+  if constexpr (STATIC) qsq = c.qsq;
+  predict_lp<S, NQ, DIM>(c, L, sq, Lp, qsq);
 
   S Z[DIM][N], Sm[DIM][DIM], Ls[DIM][DIM];
-  h_times<S, NQ, DIM>(c, J, [&](int r, int k) { return Lp[r][k]; }, Z);
+  h_times<S, NQ, DIM>(pinv0, pinv1, J, [&](int r, int k) { return Lp[r][k]; },
+                      Z);
   gram<S, DIM, N>(Z, Sm);
   chol<S, DIM>(Sm, Ls);
 #pragma unroll
@@ -235,13 +266,20 @@ __device__ __forceinline__ S filter_step(const Consts<S, NQ, F::D>& c,
       L[r][k] = Lp[r][k] - kz;
     }
   }
-  if (!STATIC) return s2;
+  if (!STATIC && !stats) return s2;
   S ws[DIM];
   cho_solve<S, DIM>(Ls, z, ws);
   S zs = S(0);
 #pragma unroll
   for (int a = 0; a < DIM; ++a) zs += z[a] * ws[a];
-  return zs * (S(1) / S(DIM));
+  if (STATIC) return zs * (S(1) / S(DIM));
+  // log N(z; 0, Ls Ls^T)
+  S logdet = S(0);
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) logdet += log_(floor_at(Ls[a][a], S(1e-30)));
+  stats->ll_inc =
+      S(-0.5) * (zs + S(2) * logdet + S(double(DIM) * ek0::LOG_2PI));
+  return s2;
 }
 
 template <typename S, int N>
@@ -298,8 +336,8 @@ __device__ __forceinline__ void filter_member(
       for (int j = 0; j < DIM; ++j)
         u_lin[j] = lin[((size_t)(k + 1) * DIM + j) * sB + b];
     }
-    S s2 = filter_step<S, NQ, F, STATIC>(c, p, t, lin ? u_lin : nullptr, m,
-                                         L, Lp);
+    S s2 = filter_step<S, NQ, F, STATIC>(c, c.pinv0, c.pinv1, p, t,
+                                         lin ? u_lin : nullptr, m, L, Lp);
     if (STATIC) {
       if (mode == FIXED)
         ek0::static_scalar_update<FIXED, S, DIM>(sig, kf, s2);
@@ -346,9 +384,9 @@ __device__ __forceinline__ S load_predicted(const S* __restrict__ st,
 // G = L_f (A L_f)^T (Lp Lp^T)^-1 (one Cholesky solve per row), the
 // predicted mean mp, and the first 2N rows of the stack: row l holds
 // column l of (I - G A) L_f, row N + l column l of sq G QLf.
-template <typename S, int NQ, int DIM, int K>
+template <typename S, int NQ, int DIM, int K, class C>
 __device__ __forceinline__ void backward_shared(
-    const Consts<S, NQ, DIM>& c, const S (&m_f)[NQ * DIM],
+    const C& c, const S (&m_f)[NQ * DIM],
     const S (&L_f)[NQ * DIM][NQ * DIM], const S (&Lp)[NQ * DIM][NQ * DIM],
     S sq, S (&G)[NQ * DIM][NQ * DIM], S (&mp)[NQ * DIM],
     S (&v)[K][NQ * DIM]) {

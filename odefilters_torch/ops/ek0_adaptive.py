@@ -17,6 +17,12 @@ this module                            ``odefilters/ops/pallas_kernels.py``
                                        loop (shared with ``ek1d_adaptive``)
 ``smoother_step``                      one step of the loop body of
                                        ``_ek0_adaptive_smoother_kernel``
+                                       (its shared part ``backward_shared``,
+                                       ``conditioned_mean``: also the
+                                       sampler's, `ek0_adaptive_sample`)
+``walk_back``                          the walk over each member's accepted
+                                       rows (the smoothers' and the
+                                       sampler's)
 ``ek0_adaptive_plain`` /               ``_ek0_adaptive_kernel`` (CUDA:
 ``ek0_adaptive``                       ``csrc/ek0_adaptive.cu::
                                        ek0_adaptive_kernel``)
@@ -453,19 +459,19 @@ def ek0_adaptive_stream_plain(f: Callable, m0: torch.Tensor, ps: torch.Tensor,
 # -------------------------------------------------------------- backward
 
 
-def smoother_step(m_f, L_f, ms, Ls, lh, s2, *, At, QLt, nq: int, d: int):
-    """One square-root RTS step from the filtered state ``(m_f, L_f)`` of
-    an accepted step to the smoothed ``(ms, Ls)`` of the next one, with the
-    next step's ``lh`` (log dt_eff) and ``s2``, in the frame preconditioned
-    at the next step's size, where the filtered factor is ``ps L_f`` (rows
-    scaled). Returns the unpreconditioned ``(ms, Ls)``."""
+def backward_shared(m_f, L_f, lh, s2, *, At, QLt, nq: int, d: int):
+    """The part of a backward step from the filtered state ``(m_f, L_f)``
+    of an accepted step that the smoother and the sampler share, in the
+    frame preconditioned at the next accepted step's ``lh`` (log dt_eff)
+    with its ``s2``: the preconditioner ``ps_``, the preconditioned mean
+    ``mh_f``, the gain ``G = Ch_f At^T (Lp Lp^T)^-1`` (``Lp`` recomputed by
+    the forward's MGS; ``Lh_f``, the filtered factor with its rows scaled,
+    needs no Cholesky factorisation), the predicted mean ``mp`` and the
+    stack blocks ``b1 = (I - G At) Lh_f`` and ``GQ = sqrt(s2) G QLt``."""
     q_half = nq - 1 + 0.5
     ps_ = [torch.exp((i - q_half) * lh) for i in range(nq)]
-    pinv_ = [torch.exp((q_half - i) * lh) for i in range(nq)]
     Lh_f = [[L_f[i][l] * ps_[i] for l in range(nq)] for i in range(nq)]
     mh_f = [[m_f[i][j] * ps_[i] for j in range(d)] for i in range(nq)]
-    msh = [[ms[i][j] * ps_[i] for j in range(d)] for i in range(nq)]
-    Lsh = [[ps_[i] * Ls[i][l] for l in range(nq)] for i in range(nq)]
     sq_s2 = torch.sqrt(s2)
     AtL = [[_sreduce([_smul(At[i][a], Lh_f[a][b]) for a in range(nq)])
             for b in range(nq)] for i in range(nq)]
@@ -476,9 +482,6 @@ def smoother_step(m_f, L_f, ms, Ls, lh, s2, *, At, QLt, nq: int, d: int):
     G = [list_cho_solve(Lp, M[i], nq) for i in range(nq)]
     mp = [[_sreduce([_smul(At[i][l], mh_f[l][j]) for l in range(nq)])
            for j in range(d)] for i in range(nq)]
-    dm = [[msh[i][j] - mp[i][j] for j in range(d)] for i in range(nq)]
-    ms_new = [[mh_f[i][j] + _sreduce([G[i][l] * dm[l][j] for l in range(nq)])
-               for j in range(d)] for i in range(nq)]
     GA = [[_sreduce([_smul(G[i][a], At[a][l]) for a in range(nq)])
            for l in range(nq)] for i in range(nq)]
     IGA = [[(1.0 if i == l else 0.0) - GA[i][l] for l in range(nq)]
@@ -487,10 +490,35 @@ def smoother_step(m_f, L_f, ms, Ls, lh, s2, *, At, QLt, nq: int, d: int):
            for l in range(nq)] for i in range(nq)]
     GQ = [[sq_s2 * _sreduce([_smul(G[i][a], QLt[a][l]) for a in range(nq)])
            for l in range(nq)] for i in range(nq)]
+    return dict(ps_=ps_, mh_f=mh_f, G=G, mp=mp, b1=b1, GQ=GQ)
+
+
+def conditioned_mean(sh: dict, x, nq: int, d: int):
+    """``mh_f + G (x ps_ - mp)``: the conditioned mean in the preconditioned
+    frame, for the carried ``x`` (smoothed means, or samples)."""
+    ps_, G, mp = sh["ps_"], sh["G"], sh["mp"]
+    dm = [[x[i][j] * ps_[i] - mp[i][j] for j in range(d)] for i in range(nq)]
+    return [[sh["mh_f"][i][j]
+             + _sreduce([G[i][l] * dm[l][j] for l in range(nq)])
+             for j in range(d)] for i in range(nq)]
+
+
+def smoother_step(m_f, L_f, ms, Ls, lh, s2, *, At, QLt, nq: int, d: int):
+    """One square-root RTS step from the filtered state ``(m_f, L_f)`` of
+    an accepted step to the smoothed ``(ms, Ls)`` of the next one, with the
+    next step's ``lh`` (log dt_eff) and ``s2``, in the frame preconditioned
+    at the next step's size, where the filtered factor is ``ps L_f`` (rows
+    scaled). Returns the unpreconditioned ``(ms, Ls)``."""
+    q_half = nq - 1 + 0.5
+    sh = backward_shared(m_f, L_f, lh, s2, At=At, QLt=QLt, nq=nq, d=d)
+    ps_, G = sh["ps_"], sh["G"]
+    pinv_ = [torch.exp((q_half - i) * lh) for i in range(nq)]
+    ms_new = conditioned_mean(sh, ms, nq, d)
+    Lsh = [[ps_[i] * Ls[i][l] for l in range(nq)] for i in range(nq)]
     b3 = [[_sreduce([G[i][a] * Lsh[a][l] for a in range(nq)])
            for l in range(nq)] for i in range(nq)]
-    Ls_new = list_mgs_tril(t_rows(b1, nq) + t_rows(GQ, nq) + t_rows(b3, nq),
-                           3 * nq, nq)
+    Ls_new = list_mgs_tril(t_rows(sh["b1"], nq) + t_rows(sh["GQ"], nq)
+                           + t_rows(b3, nq), 3 * nq, nq)
     return ([[pinv_[i] * ms_new[i][j] for j in range(d)] for i in range(nq)],
             [[pinv_[i] * Ls_new[i][l] for l in range(nq)] for i in range(nq)])
 
@@ -509,6 +537,50 @@ def _std(L):
     return torch.sqrt(_sreduce([x * x for x in L[0]]))
 
 
+def where(mask, a, b):
+    """``torch.where`` over two nested lists of the same structure."""
+    if isinstance(a, (list, tuple)):
+        return [where(mask, x, y) for x, y in zip(a, b)]
+    return torch.where(mask, a, b)
+
+
+def walk_back(st: torch.Tensor, counts: torch.Tensor, outs, carry, *,
+              unpack: Callable, start: Callable, step: Callable,
+              value: Callable) -> None:
+    """Each member's backward pass over its accepted rows ``nacc - 1 ..
+    0`` of the stream ``st`` (the smoothers' and the sampler's), masked per
+    member: the carry at a member's last accepted row k is ``start(k,
+    row)``, one accepted step back ``step(k, row, carry, lh, s2)`` with the
+    next step's ``lh`` (log dt_eff) and ``s2``; ``unpack(st[k])`` ends
+    with ``(lh, s2, save index)``. ``value(carry)`` (a tuple of ``(...,
+    B)`` tensors) is written into ``outs`` (``(S+1, ..., B)`` each; row 0
+    is the caller's) at each row that reached a save point, and at the
+    save points past those reached, the last accepted step's (``carry``'s
+    when a member has none)."""
+    nacc, segs = counts[0].long(), counts[3].long()
+    final = value(carry)
+    pend_lh = pend_s2 = None      # set at each member's last row first
+    for k in range(int(nacc.max()) - 1, -1, -1):
+        row = unpack(st[k])
+        lh, s2, mark = row[-3:]
+        last, inner = nacc - 1 == k, k < nacc - 1
+        if bool(inner.any()):
+            carry = where(inner, step(k, row, carry, pend_lh, pend_s2), carry)
+        if bool(last.any()):
+            carry = where(last, start(k, row), carry)
+            final = where(last, value(carry), final)
+        took = last | inner
+        pend_lh = lh if pend_lh is None else torch.where(took, lh, pend_lh)
+        pend_s2 = s2 if pend_s2 is None else torch.where(took, s2, pend_s2)
+        idx = torch.nonzero(took & (mark > 0.5)).flatten()
+        if idx.numel():
+            r = mark[idx].long()
+            for out, v in zip(outs, value(carry)):
+                out[r, ..., idx] = v[..., idx].movedim(-1, 0)
+    for out, v in zip(outs, final):
+        _fill_tail(out, segs, v)
+
+
 def ek0_adaptive_smoother_plain(st: torch.Tensor, counts: torch.Tensor,
                                 m0: torch.Tensor, c: Controller):
     """The backward pass over each member's accepted steps: the smoothed
@@ -518,48 +590,21 @@ def ek0_adaptive_smoother_plain(st: torch.Tensor, counts: torch.Tensor,
     exact initial state with std 0 (smoothing a point mass leaves it)."""
     nq, d, B = m0.shape
     S = c.n_save
-    At, QLt = _lists(c.At), _lists(c.QLt)
-    nacc, segs = counts[0].long(), counts[3].long()
+    kw = dict(At=_lists(c.At), QLt=_lists(c.QLt), nq=nq, d=d)
     us = torch.empty((S + 1, d, B), dtype=m0.dtype, device=m0.device)
     stds = torch.empty((S + 1, B), dtype=m0.dtype, device=m0.device)
     us[0] = m0[0]
     stds[0] = 0.0
     zero = torch.zeros_like(m0[0, 0])
-    ms = [[m0[i, j] for j in range(d)] for i in range(nq)]
-    Ls = [[zero] * nq for _ in range(nq)]
-    pend_lh, pend_s2 = zero, zero + 1.0
-    final_m, final_std = [m0[0, j] for j in range(d)], zero
-    for k in range(int(nacc.max()) - 1, -1, -1):
-        m_f, L_f, lh, s2, mark = _unpack(st[k], nq, d)
-        last, inner = nacc - 1 == k, k < nacc - 1
-        if bool(inner.any()):
-            ms1, Ls1 = smoother_step(m_f, L_f, ms, Ls, pend_lh, pend_s2,
-                                     At=At, QLt=QLt, nq=nq, d=d)
-            ms = [[torch.where(inner, ms1[i][j], ms[i][j]) for j in range(d)]
-                  for i in range(nq)]
-            Ls = [[torch.where(inner, Ls1[i][l], Ls[i][l]) for l in range(nq)]
-                  for i in range(nq)]
-        if bool(last.any()):
-            # the last accepted step: smoothed = filtered
-            ms = [[torch.where(last, m_f[i][j], ms[i][j]) for j in range(d)]
-                  for i in range(nq)]
-            Ls = [[torch.where(last, L_f[i][l], Ls[i][l]) for l in range(nq)]
-                  for i in range(nq)]
-            final_m = [torch.where(last, m_f[0][j], final_m[j])
-                       for j in range(d)]
-            final_std = torch.where(last, _std(L_f), final_std)
-        took = last | inner
-        pend_lh = torch.where(took, lh, pend_lh)
-        pend_s2 = torch.where(took, s2, pend_s2)
-        idx = torch.nonzero(took & (mark > 0.5)).flatten()
-        if idx.numel():
-            row = mark[idx].long()
-            for j in range(d):
-                us[row, j, idx] = ms[0][j][idx]
-            stds[row, idx] = _std(Ls)[idx]
-    for j in range(d):
-        _fill_tail(us[:, j], segs, final_m[j])
-    _fill_tail(stds, segs, final_std)
+    carry = ([[m0[i, j] for j in range(d)] for i in range(nq)],
+             [[zero] * nq for _ in range(nq)])
+    walk_back(
+        st, counts, (us, stds), carry,
+        unpack=lambda row: _unpack(row, nq, d),
+        start=lambda k, row: row[:2],
+        step=lambda k, row, carry, lh, s2: smoother_step(
+            row[0], row[1], *carry, lh, s2, **kw),
+        value=lambda carry: (torch.stack(carry[0][0]), _std(carry[1])))
     return us, stds
 
 

@@ -60,6 +60,7 @@ import torch
 from odefilters_torch.ops import _launch
 from odefilters_torch.ops import ek0_pair as ep
 from odefilters_torch.ops._blocks import _is0, _lists, _smul, _sreduce
+from odefilters_torch.ops.ek0_filter import _LOG_2PI
 from odefilters_torch.ops.ek0_sample import (
     list_cho_solve, list_mgs_tril, matmul_lists, t_rows,
 )
@@ -125,13 +126,23 @@ def _amul_mat(Af, M, D: int):
              for k in range(D)] for r in range(D)]
 
 
+def predict_lp(Af, QLf, L, sq_s2, D: int):
+    """The predicted factor: MGS of ``[(A L)^T; (sq_s2 QLf)^T]`` (2D x D)."""
+    AL = _amul_mat(Af, L, D)
+    qT = [[sq_s2 * QLf[r][c] if QLf[r][c] != 0.0 else 0.0 for r in range(D)]
+          for c in range(D)]
+    return list_mgs_tril(t_rows(AL, D) + qT, 2 * D, D)
+
+
 def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
-             pinv0: float, pinv1: float, d: int, D: int,
+             pinv0, pinv1, d: int, D: int,
              want_Lp: bool = False, u_lin=None, static_diff=None,
-             calib=None):
+             calib=None, want_stats: bool = False):
     """One square-root EK1 step on the D-vector mean ``m`` and the D x D
     factor ``L`` (lists of ``(B,)`` tensors); ``Af``, ``QLf``: nested Python
-    floats of ``kron(At, I_d)`` and ``kron(QLt, I_d)``.
+    floats of ``kron(At, I_d)`` and ``kron(QLt, I_d)``; ``pinv0``,
+    ``pinv1``: the preconditioner entries of blocks 0 and 1 (Python floats
+    on a fixed grid, per-member tensors in the adaptive loop).
 
     Dynamic diffusion: ``s2 = z^T (H Q H^T)^-1 z / d``. A static model
     (``static_diff`` fixed or fixedMAP) filters with the unscaled prior,
@@ -139,7 +150,9 @@ def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
     ``u_lin``: a ``(d, B)`` linearization point for the Jacobian (the IEKS
     hook); ``f`` is still evaluated at the predicted mean. Returns
     ``(m_new, L_new, s2)``, then ``Lp`` with ``want_Lp``, then the new
-    ``calib`` under a static model."""
+    ``calib`` under a static model, then with ``want_stats`` (dynamic
+    only) the diagonal of ``H Q H^T`` and the log-likelihood increment
+    ``log N(z; 0, S)`` that an adaptive attempt needs."""
     zero = torch.zeros_like(m[0])
     mp = _amul_vec(Af, m, D)
     u_pred = torch.stack([pinv0 * mp[j] for j in range(d)])
@@ -170,16 +183,13 @@ def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
     else:
         QL_lanes = [[torch.zeros_like(zero) if QLf[r][c] == 0.0
                      else QLf[r][c] + zero for c in range(D)] for r in range(D)]
-        Lq = list_chol(gram(hmul_cols(QL_lanes)), d)
+        Sq = gram(hmul_cols(QL_lanes))
+        Lq = list_chol(Sq, d)
         w = list_cho_solve(Lq, z, d)
         s2 = _sum([z[a] * w[a] for a in range(d)]) / d
         sq_s2 = torch.sqrt(torch.clamp(s2, min=0.0))
 
-    # predicted factor: MGS of [(A L)^T; sqrt(s2) QLf^T] (2D x D)
-    AL = _amul_mat(Af, L, D)
-    qT = [[sq_s2 * QLf[r][c] if QLf[r][c] != 0.0 else 0.0 for r in range(D)]
-          for c in range(D)]
-    Lp = list_mgs_tril(t_rows(AL, D) + qT, 2 * D, D)
+    Lp = predict_lp(Af, QLf, L, sq_s2, D)
 
     # update: Z = H Lp, S = Z Z^T, K = Lp Z^T S^-1
     Z = hmul_cols(Lp)
@@ -203,6 +213,13 @@ def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
         out += (Lp,)
     if static_diff is not None:
         out += (calib,)
+    if want_stats:
+        wz = list_cho_solve(Ls, z, d)
+        maha = _sum([z[a] * wz[a] for a in range(d)])
+        logdet = 2.0 * _sum([torch.log(torch.clamp(Ls[a][a], min=1e-30))
+                             for a in range(d)])
+        out += ([Sq[a][a] for a in range(d)],
+                -0.5 * (maha + logdet + d * _LOG_2PI))
     return out
 
 

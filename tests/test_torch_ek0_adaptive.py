@@ -389,8 +389,9 @@ def test_default_is_adaptive():
 @pytest.mark.parametrize(
     "alg, kwargs, match",
     [
-        (odt.EK1(order=Q), {}, "adaptive EK1"),
-        # adaptive DiagonalEK1 runs on its own kernels, with the IBM prior
+        # adaptive EK1 and DiagonalEK1 run on their own kernels, with the
+        # IBM prior
+        (odt.EK1(order=Q, prior="ioup"), {}, "IOUP"),
         (odt.DiagonalEK1(order=Q, prior="ioup"), {}, "IOUP"),
         (odt.EK0(order=Q, smooth=False, prior="ioup"), {}, "IOUP"),
         (odt.EK0(order=Q), dict(mesh=object()), "mesh"),

@@ -338,8 +338,8 @@ def test_sample_ensemble_any_ensemble_size():
          "dynamic diffusion"),
         (odt.DiagonalEK1(order=Q), {}, NotImplementedError, "DiagonalEK1"),
         (odt.EK0(order=Q, smooth=False), {}, ValueError, "non-smoothed"),
-        (odt.EK0(order=Q), dict(adaptive=True), NotImplementedError,
-         "slice 5"),
+        # the adaptive sampler runs on the EK0 stream pair only, as in JAX
+        (odt.EK1(order=Q), dict(adaptive=True), NotImplementedError, "EK0"),
         # EK1 samples on its own kernels; a non-IBM prior is not ported
         (odt.EK1(order=Q, prior="ioup"), {}, NotImplementedError, "IOUP"),
         (odt.EK0(order=Q, prior="ioup"), {}, NotImplementedError, "IOUP"),
@@ -363,7 +363,9 @@ def test_sample_ensemble_raises(alg, kwargs, exc, match):
 def test_sample_ensemble_takes_the_jax_keywords():
     """``abstol``, ``reltol`` and ``max_iters`` of the JAX signature: the
     fixed grid does not use them (the same paths as without them), and with
-    ``adaptive=True`` the call names the roadmap item that ports it."""
+    ``adaptive=True`` they set the adaptive sampler, whose ``n_steps`` save
+    intervals give ``(n_steps+1, d, B)`` samples starting at the initial
+    values."""
     prob, u0s, ps = _fhn_ensemble(4, (0.0, 0.4))
     kw = dict(abstol=1e-6, reltol=1e-3, max_iters=1024)
     a = odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
@@ -371,9 +373,11 @@ def test_sample_ensemble_takes_the_jax_keywords():
     b = odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
                             generator=torch.Generator().manual_seed(3))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
-                            generator=torch.Generator(), adaptive=True, **kw)
+    ada = odt.sample_ensemble(prob, odt.EK0(order=Q), u0s, ps, n_steps=5,
+                              generator=torch.Generator().manual_seed(3),
+                              adaptive=True, **kw)
+    assert ada.shape == (6, D, 4) and torch.isfinite(ada).all()
+    assert torch.equal(ada[0], u0s.T)
 
 
 @pytest.mark.parametrize(

@@ -483,8 +483,9 @@ class _DiagonalEK1(odt.EK1):
          NotImplementedError, "IOUP"),
         ("solve", odt.EK1(order=Q), dict(mesh=object(), adaptive=False),
          NotImplementedError, "mesh"),
-        ("solve", odt.EK1(order=Q), dict(adaptive=True), NotImplementedError,
-         "adaptive"),
+        # the adaptive EK1 kernels run the IBM prior only
+        ("solve", odt.EK1(order=Q, prior="ioup"), dict(adaptive=True),
+         NotImplementedError, "IOUP"),
         ("sample", odt.EK1(order=Q, prior="ioup"), {}, NotImplementedError, "IOUP"),
         ("sample", odt.EK1(order=Q, diffusionmodel="fixed"), {},
          NotImplementedError, "dynamic diffusion"),
