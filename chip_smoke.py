@@ -19,7 +19,9 @@ intervals, abstol 1e-6, reltol 1e-4: the JAX package's
 parameter-inference row); DiagonalEK1: the fixed-grid filter in each
 diffusion mode and the adaptive solve with and without the smoother; and
 in that adaptive setting the dense EK1 solve with and without the smoother
-and the adaptive EK0 sampler. It
+and the adaptive EK0 sampler; and ``odefilters_torch.ensemble_data_loglik``,
+the per-candidate data likelihood and its gradient, at the JAX package's
+data-likelihood row (Lotka-Volterra, 8192 candidates, 120 steps). It
 checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
@@ -141,10 +143,36 @@ Phases:
      lanes as in phase 13, the doors' times);
  27. the four kernels against their plain versions at 8192 members in
      float32 (the sampler at S = 8 with normals from ``torch.randn``), their
-     times, their bounds, and their registers and spills.
+     times, their bounds, and their registers and spills;
+ 28. the three data-likelihood kernels against their plain versions at
+     1000 members, Lotka-Volterra over (0, 3), T = 40, 9 observations on
+     the grid and off it, float64 and float32: dll and ll held where the
+     plain version is finite and non-finite on the same members in both
+     (some members' filters diverge at this step), bit-for-bit equality
+     reported; the gradient's forward's state stream held bit for bit on
+     the members that stay finite; the adjoint on the plain forward's stream with numpy
+     cotangents and calib_grad both ways, on the members that stay finite
+     (float64 at the gradient tolerances of phase 7, float32 reported);
+     the members that diverge at the row's parameter spread, counted;
+ 29. the data likelihood through ``ensemble_data_loglik`` at the JAX
+     package's data-likelihood row (8192 candidates, parameters scaled by
+     U(0.8, 1.2), 120 steps, 9 observations of DOP853 truth with noise std
+     0.05, on the grid and at 9 times off it), float32 and float64, each
+     run with the counts set to 0 before it and read after it: launches
+     1/0/0 for the primal, 0/1/1 for the gradient of sum(dll) in (u0s, ps,
+     ys); finite values and gradients; float32 against float64 on the
+     worst member (within 0.01 nats + 1e-3 |dll|); the float64 primal
+     kernel against its plain version; the float64 adjoint against the
+     plain adjoint at this shape (on the grid); the float64 gradient
+     against central differences; the float32 gradients, with calib_grad
+     both ways, against float64's (reported);
+ 30. the data-likelihood kernels against their plain versions at 8192 x 120
+     in float32 (each plain version once), their times, the front door's
+     candidates/s and gradient candidates/s on and off the grid, the
+     kernels' bounds and registers.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the twenty-one kernels with their launches on
+the line before it lists the twenty-four kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
@@ -153,7 +181,9 @@ are counted per attempt (per smoothing step) and multiplied by the run's
 attempts (accepted steps); the same for the DiagonalEK1 kernels of
 phase 24 and the adaptive EK1 kernels of phase 27; the adaptive sampler's
 operations are its plain version's on one member per accepted step, times
-the run's accepted steps). ``max_abs_err`` is kernel against plain at
+the run's accepted steps; the data-likelihood kernels' operations are
+their plain versions' on one member over this run's step table, times the
+members). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
@@ -161,13 +191,18 @@ for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18,
 S = 8; the filter kernel's means, and its stream through the smoother
 kernel); and at 8192 members in float32 for the adaptive kernels (phase
 21), the DiagonalEK1 kernels (phase 24, the fixed grid at 500 steps
-under the dynamic diffusion) and the four kernels of phase 27. The samplers' times, plain times and bounds
-are those at S = 8. The EK1 launches are those of ``solve_ensemble(EK1)``
+under the dynamic diffusion) and the four kernels of phase 27; at 8192 x
+120 on the grid for the data-likelihood kernels (phase 30 in float32, the
+adjoint in float64 of phase 29). The samplers' times, plain times and
+bounds are those at S = 8. The EK1 launches are those of
+``solve_ensemble(EK1)``
 (filter, smoother) and ``sample_ensemble(EK1, S=8)`` (sampler) in
 float32; the adaptive launches those of the float32 adaptive front doors
 of phases 20, 23 and 26, the DiagonalEK1 filter's those of the float32
 dynamic fixed-grid door of phase 23, the adaptive sampler's those of the
-float32 ``sample_ensemble(EK0, adaptive=True)`` door at S = 8 of phase 26.
+float32 ``sample_ensemble(EK0, adaptive=True)`` door at S = 8 of phase 26,
+the data-likelihood kernels' those of the float32 on-grid primal and
+gradient runs of phase 29.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -258,6 +293,9 @@ SOURCE = {
     "ek1_adaptive": "odefilters_torch/ops/csrc/ek1_adaptive.cu",
     "ek1_adaptive_stream": "odefilters_torch/ops/csrc/ek1_adaptive.cu",
     "ek1_adaptive_smoother": "odefilters_torch/ops/csrc/ek1_adaptive.cu",
+    "ek0_datalik": "odefilters_torch/ops/csrc/ek0_datalik.cu",
+    "ek0_datalik_grad_fwd": "odefilters_torch/ops/csrc/ek0_datalik.cu",
+    "ek0_datalik_grad_bwd": "odefilters_torch/ops/csrc/ek0_datalik.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -281,6 +319,9 @@ REPLACES = {
     "ek1_adaptive": "odefilters/ops/pallas_kernels.py:7075",
     "ek1_adaptive_stream": "odefilters/ops/pallas_kernels.py:9920",
     "ek1_adaptive_smoother": "odefilters/ops/pallas_kernels.py:10209",
+    "ek0_datalik": "odefilters/ops/pallas_kernels.py:1216",
+    "ek0_datalik_grad_fwd": "odefilters/ops/pallas_kernels.py:1375",
+    "ek0_datalik_grad_bwd": "odefilters/ops/pallas_kernels.py:1468",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -536,6 +577,7 @@ def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
     from odefilters_torch.ops import ek0_adaptive as ea
     from odefilters_torch.ops import ek0_adaptive_sample as eas
+    from odefilters_torch.ops import ek0_datalik as ed
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
@@ -563,7 +605,10 @@ def counters():
             "ek0_adaptive_sampler": eas.ek0_adaptive_sampler,
             "ek1_adaptive": e1a.ek1_adaptive,
             "ek1_adaptive_stream": e1a.ek1_adaptive_stream,
-            "ek1_adaptive_smoother": e1a.ek1_adaptive_smoother}
+            "ek1_adaptive_smoother": e1a.ek1_adaptive_smoother,
+            "ek0_datalik": ed.ek0_datalik,
+            "ek0_datalik_grad_fwd": ed.ek0_datalik_grad_fwd,
+            "ek0_datalik_grad_bwd": ed.ek0_datalik_grad_bwd}
 
 
 def reset_counts():
@@ -2311,6 +2356,457 @@ def ek1d_fixed_timing(card):
     return ms, plain_ms, err, b + (ops,)
 
 
+# The data likelihood (phases 28-30): the JAX package's data-likelihood row
+# (benchmarks/run_all.py, tpu_datalik_sweep_pallas and its gradient):
+# Lotka-Volterra over (0, 3) at u0 = (1, 1), parameters scaled per candidate
+# by U(0.8, 1.2), EK0(3), 120 uniform steps, 9 observations (on the grid at
+# DL_OBS_STEPS, or off it at DL_TS_OFF) of DOP853 truth with noise std 0.05.
+DL_TSPAN, DL_T_MAIN, DL_T_CHECK = (0.0, 3.0), 120, 40
+DL_OBS_STEPS = np.array([12, 40, 52, 64, 80, 96, 104, 112, 116])
+DL_TS_OFF = np.linspace(0.31, 2.77, 9)
+DL_NOISE, DL_SPREAD = 0.05, 0.2
+# float32 against float64 on the worst member: |dll32 - dll64| within
+# DL_NATS + DL_REL |dll64| nats. A member's dll sums the misfits of its 9
+# observations, up to ~6e4 nats at the row's parameter spread, and float32
+# keeps it to ~1e-4 of its size; DL_NATS covers the members whose dll is
+# near 0, where a relative limit alone measures nothing.
+DL_NATS, DL_REL = 0.01, 1e-3
+# The check phase's parameter spread at T = 40 (dt = 0.075). At this step
+# some members' filters diverge to non-finite values, in the plain version
+# and the kernel alike: phase 28 holds the two on the same non-finite
+# members and compares the rest, and reports the count at the row's spread.
+DL_SPREAD_CHECK = 0.05
+DL_NAMES = ("ek0_datalik", "ek0_datalik_grad_fwd", "ek0_datalik_grad_bwd")
+
+
+def dl_times(T, grid):
+    """The observation times: on the grid of T steps at the row's steps
+    (scaled to T), or the off-grid times."""
+    if grid == "off":
+        return DL_TS_OFF
+    dt = (DL_TSPAN[1] - DL_TSPAN[0]) / T
+    return np.round(DL_OBS_STEPS * T / DL_T_MAIN) * dt
+
+
+def lv_truth(ts):
+    """Lotka-Volterra at the default u0 and p by DOP853, rtol = atol = 1e-12."""
+    from scipy.integrate import solve_ivp
+
+    def f(t, y):
+        x, yy = y
+        return [1.5 * x - x * yy, -3.0 * yy + x * yy]
+
+    return solve_ivp(f, DL_TSPAN, [1.0, 1.0], method="DOP853", t_eval=ts,
+                     rtol=1e-12, atol=1e-12).y.T
+
+
+def dl_inputs(B, dtype, ts, spread):
+    """The LV problem, u0s (B, 2) all (1, 1), ps scaled by U(1 -/+ spread)
+    and ys: truth + DL_NOISE normals, from default_rng(7)."""
+    from odefilters_torch import models
+
+    prob = models.lotka_volterra(tspan=DL_TSPAN, device=DEVICE, dtype=dtype)
+    rng = np.random.default_rng(7)
+    ys = lv_truth(ts) + DL_NOISE * rng.standard_normal((len(ts), 2))
+    ps = prob.p.cpu().numpy()[None] * rng.uniform(1 - spread, 1 + spread,
+                                                  (B, 4))
+    new = dict(dtype=dtype, device=DEVICE)
+    return (prob, torch.ones((B, 2), **new), torch.tensor(ps, **new),
+            torch.tensor(ys, **new))
+
+
+class DataLik:
+    """The data likelihood's kernel arguments for one ensemble (as the front
+    door makes them), seeded cotangents, and both versions of its three
+    kernels."""
+
+    def __init__(self, B, T, dtype, grid, spread):
+        from odefilters_torch.ops import ek0_datalik as ed
+
+        self.ed = ed
+        self.ts = dl_times(T, grid)
+        self.prob, u0s, ps, ys = dl_inputs(B, dtype, self.ts, spread)
+        self.m0_p, self.ps, self.ys, self.table, self.consts = ed.kernel_inputs(
+            self.prob.f, u0s, ps, DL_TSPAN, T, self.ts, ys, DL_NOISE)
+        rng = np.random.default_rng(1)
+        self.cts = [torch.tensor(rng.standard_normal(B), dtype=dtype,
+                                 device=DEVICE) for _ in range(2)]
+
+    def args(self):
+        return self.prob.f, self.prob.field, self.m0_p, self.ps, self.ys
+
+    def restrict(self, keep):
+        """Keep only the members ``keep`` (a boolean mask)."""
+        self.m0_p = self.m0_p[..., keep].contiguous()
+        self.ps = self.ps[:, keep].contiguous()
+        self.cts = [c[keep].contiguous() for c in self.cts]
+
+    def primal(self):
+        return self.ed.ek0_datalik(*self.args(), self.table, **self.consts)
+
+    def primal_plain(self):
+        return self.ed.ek0_datalik_plain(self.prob.f, *self.args()[2:],
+                                         self.table, **self.consts)
+
+    def grad_fwd(self):
+        return self.ed.ek0_datalik_grad_fwd(*self.args(), self.table,
+                                            **self.consts)
+
+    def grad_fwd_plain(self):
+        return self.ed.ek0_datalik_fwd_stream_plain(
+            self.prob.f, *self.args()[2:], self.table, **self.consts)
+
+    def grad_bwd(self, st, stop_calib):
+        return self.ed.ek0_datalik_grad_bwd(
+            self.prob.f, self.prob.field, st, self.ps, self.ys, *self.cts,
+            self.table, nq=Q + 1, stop_calib=stop_calib, **self.consts)
+
+    def grad_bwd_plain(self, st, stop_calib):
+        dm0, dps, part = self.ed.ek0_datalik_grad_bwd_plain(
+            self.prob.f, st, self.ps, self.ys, *self.cts, self.table,
+            nq=Q + 1, stop_calib=stop_calib, **self.consts)
+        return dm0, dps, torch.sum(part, dim=-1)
+
+
+def dl_hold_grads(name, got, ref, hold):
+    """The adjoint's (dm0, dps, dys) against the plain adjoint's: held in
+    float64 at the gradient tolerances of phase 7 (dm0 and dps against
+    each row's scale over the members, dys entry by entry), reported in
+    float32; bit-for-bit equality reported. Returns the largest |diff|."""
+    for what, g, r in zip(("dm0", "dps", "dys"), got, ref):
+        bitwise(f"{name}, {what}", g, r)
+    if not hold:
+        for what, g, r in zip(("dm0", "dps", "dys"), got, ref):
+            report_grad(f"{name}, {what}", g, r)
+        return max(float((g.double() - r.double()).abs().max())
+                   for g, r in zip(got, ref))
+    return max(close_rows(f"{name}, dm0", got[0], ref[0], 1e-8, 1e-10),
+               close_rows(f"{name}, dps", got[1], ref[1], 1e-8, 1e-10),
+               close(f"{name}, dys", got[2], ref[2], 1e-8, 1e-10))
+
+
+def bitwise_nan(name, got, ref):
+    """Report whether ``got`` equals ``ref`` bit for bit, a NaN in both
+    counting as equal (the data likelihood's members that diverge)."""
+    n = int(((got != ref) & ~(torch.isnan(got) & torch.isnan(ref))).sum())
+    say(f"   {name}: {'bit for bit' if n == 0 else f'{n} entries differ'}")
+
+
+def close_where_finite(name, got, ref, rtol, atol):
+    """`close` on the entries where ``ref`` is finite, after checking that
+    ``got`` is finite exactly there; returns the largest |diff|."""
+    fin = torch.isfinite(ref)
+    check(torch.equal(torch.isfinite(got), fin),
+          f"{name}: non-finite on the same {int((~fin).sum())} entries")
+    return close(name, got[fin], ref[fin], rtol, atol)
+
+
+def datalik_vs_plain(label, case, rtol, atol, hold_grads):
+    """Phases 28 and 30 for one ensemble: the primal kernel and the
+    gradient's forward against their plain versions (dll, ll held where the
+    plain version is finite, the two non-finite on the same members;
+    bit-for-bit equality reported; the stream held bit for bit on the
+    members that stay finite), then on those members the adjoint on the
+    plain forward's stream with calib_grad both ways. Returns each kernel's
+    largest |kernel - plain| and the plain versions' milliseconds."""
+    err, p_ms = {}, {}
+    (dll_p, ll_p), p_ms["ek0_datalik"] = once(case.primal_plain)
+    dll_k, ll_k = case.primal()
+    torch.cuda.synchronize()
+    name = f"{label} ek0_datalik_kernel"
+    bitwise_nan(f"{name}, dll", dll_k, dll_p)
+    bitwise_nan(f"{name}, ll", ll_k, ll_p)
+    err["ek0_datalik"] = max(
+        close_where_finite(f"{name}, dll", dll_k, dll_p, rtol, atol),
+        close_where_finite(f"{name}, ll", ll_k, ll_p, rtol, atol))
+    (dll_p, ll_p, st_p), p_ms["ek0_datalik_grad_fwd"] = once(case.grad_fwd_plain)
+    dll_k, ll_k, st_k = case.grad_fwd()
+    torch.cuda.synchronize()
+    name = f"{label} ek0_datalik_grad_fwd_kernel"
+    for what, g, r in (("dll", dll_k, dll_p), ("ll", ll_k, ll_p)):
+        bitwise_nan(f"{name}, {what}", g, r)
+    err["ek0_datalik_grad_fwd"] = max(
+        close_where_finite(f"{name}, dll", dll_k, dll_p, rtol, atol),
+        close_where_finite(f"{name}, ll", ll_k, ll_p, rtol, atol))
+    keep = (torch.isfinite(st_p).all(dim=(0, 1)) & torch.isfinite(dll_p)
+            & torch.isfinite(ll_p))
+    # the stream, the state after each step's data update, is what the
+    # adjoint reads: held bit for bit on the members that stay finite
+    bitwise(f"{name}, stream on the {int(keep.sum())} members that stay "
+            "finite", st_k[..., keep], st_p[..., keep], strict=True)
+    if not keep.all():
+        case.restrict(keep)
+        st_p = st_p[..., keep].contiguous()
+    err["ek0_datalik_grad_bwd"] = 0.0
+    for stop in (False, True):
+        ref, ms = once(lambda: case.grad_bwd_plain(st_p, stop))
+        if not stop:
+            p_ms["ek0_datalik_grad_bwd"] = ms
+        got = case.grad_bwd(st_p, stop)
+        torch.cuda.synchronize()
+        err["ek0_datalik_grad_bwd"] = max(
+            err["ek0_datalik_grad_bwd"],
+            dl_hold_grads(f"{label} ek0_datalik_grad_bwd_kernel (calib_grad="
+                          f"{not stop}, on the plain stream)", got, ref,
+                          hold_grads))
+    return err, p_ms
+
+
+def datalik_check(card):
+    """Phase 28: the three kernels against their plain versions at B_CHECK
+    members, T = DL_T_CHECK, on the grid and off it, float64 and float32
+    (`datalik_vs_plain`); and the float32 members that diverge at the row's
+    parameter spread at this step, counted in the plain version and the
+    kernel."""
+    for dtype, rtol, atol in ((torch.float64, 1e-10, 1e-12),
+                              (torch.float32, 1e-4, 1e-6)):
+        label = str(dtype).replace("torch.", "")
+        for grid in ("on", "off"):
+            case = DataLik(B_CHECK, DL_T_CHECK, dtype, grid, DL_SPREAD_CHECK)
+            say(f"   {label}, {grid} the grid: {case.table.n_steps} steps, "
+                f"{len(case.table.odd)} odd step lengths")
+            datalik_vs_plain(f"{label} {grid}-grid", case, rtol, atol,
+                             hold_grads=dtype == torch.float64)
+    case = DataLik(B_CHECK, DL_T_CHECK, torch.float32, "on", DL_SPREAD)
+    (dll_p, ll_p), (dll_k, ll_k) = case.primal_plain(), case.primal()
+    torch.cuda.synchronize()
+    bad_p = ~(torch.isfinite(dll_p) & torch.isfinite(ll_p))
+    bad_k = ~(torch.isfinite(dll_k) & torch.isfinite(ll_k))
+    say(f"   float32 at spread {DL_SPREAD}, T={DL_T_CHECK}: "
+        f"{int(bad_p.sum())} of {B_CHECK} members diverge in the plain "
+        f"version, {int(bad_k.sum())} in the kernel, the same members: "
+        f"{bool(torch.equal(bad_p, bad_k))} (reported)")
+    bitwise("float32 at that spread, ek0_datalik_kernel dll",
+            dll_k[~bad_p], dll_p[~bad_p])
+
+
+def dl_door(odt, prob, u0s, ps, ys, ts, calib_grad=True):
+    return odt.ensemble_data_loglik(prob.f, u0s, ps, DL_TSPAN, DL_T_MAIN, ts,
+                                    ys, DL_NOISE, field=prob.field,
+                                    calib_grad=calib_grad)
+
+
+def dl_grad(odt, prob, u0s, ps, ys, ts, calib_grad=True):
+    """Gradient of sum(dll) in (u0s, ps, ys) through the front door."""
+    args = [x.clone().requires_grad_() for x in (u0s, ps, ys)]
+    dll, _ = dl_door(odt, prob, *args, ts, calib_grad)
+    return torch.autograd.grad(dll.sum(), args)
+
+
+def datalik_path(odt, card):
+    """Phase 29: the front door at the row's width, on the grid and off it,
+    float32 and float64, each run with the counts set to 0 before it and
+    read after it: launches, shapes and finite outputs; float32 against
+    float64 on the worst member; the float64 primal kernel against its
+    plain version; the float64 gradient against central differences; the
+    float32 gradients against float64's (reported). On the grid also the
+    float64 adjoint against the plain adjoint at this shape. Returns the
+    float32 on-grid runs' launches and the adjoint's largest |diff|."""
+    launches, err_adjoint = {}, 0.0
+    for grid in ("on", "off"):
+        ts = dl_times(DL_T_MAIN, grid)
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            label = f"{str(dtype).replace('torch.', '')} {grid}-grid"
+            prob, u0s, ps, ys = dl_inputs(B_MAIN, dtype, ts, DL_SPREAD)
+            reset_counts()
+            with torch.no_grad():
+                dll, ll = dl_door(odt, prob, u0s, ps, ys, ts)
+            torch.cuda.synchronize()
+            c_primal = read_counts(*DL_NAMES)
+            reset_counts()
+            g = dl_grad(odt, prob, u0s, ps, ys, ts)
+            torch.cuda.synchronize()
+            c_grad = read_counts(*DL_NAMES)
+            check(tuple(c_primal.values()) == (1, 0, 0)
+                  and tuple(c_grad.values()) == (0, 1, 1),
+                  f"{label}: launches in the primal run {c_primal}, in the "
+                  f"gradient run {c_grad} (1/0/0 and 0/1/1)")
+            if dtype == torch.float32 and grid == "on":
+                launches = {"ek0_datalik": c_primal["ek0_datalik"],
+                            "ek0_datalik_grad_fwd":
+                                c_grad["ek0_datalik_grad_fwd"],
+                            "ek0_datalik_grad_bwd":
+                                c_grad["ek0_datalik_grad_bwd"]}
+            gs = dl_grad(odt, prob, u0s, ps, ys, ts, calib_grad=False)
+            shapes = (tuple(dll.shape), tuple(ll.shape)) + tuple(
+                tuple(x.shape) for x in g)
+            check(shapes == ((B_MAIN,), (B_MAIN,), (B_MAIN, 2), (B_MAIN, 4),
+                             (9, 2)),
+                  f"{label}: shapes dll, ll, d/du0s, d/dps, d/dys {shapes}")
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (dll, ll) + g + gs)
+            check(finite, f"{label}: values and gradients finite")
+            out[dtype] = (prob, u0s, ps, ys, dll, ll, g, gs)
+        prob64, u64, p64, y64, dll64, ll64, g64, gs64 = out[torch.float64]
+        _, _, _, _, dll32, ll32, g32, gs32 = out[torch.float32]
+        # a log-likelihood is held in nats: 0.01 plus 1e-4 of its size
+        err = (dll32.double() - dll64).abs()
+        ratio = err / (DL_NATS + DL_REL * dll64.abs())
+        member = int(ratio.argmax())
+        check(float(ratio[member]) <= 1.0,
+              f"{grid}-grid float32 vs float64 dll, worst member {member}: "
+              f"|diff| {float(err[member]):.3e} nats <= {DL_NATS} + {DL_REL} "
+              f"|dll64| (dll64 {float(dll64[member]):.6f}), "
+              f"{float(ratio[member]):.3f} of the limit; largest |diff| "
+              f"{float(err.max()):.3e}, largest relative "
+              f"{float((err / dll64.abs()).max()):.3e}")
+        rel_ll = (ll32.double() - ll64).abs() / ll64.abs()
+        say(f"   {grid}-grid float32 vs float64 ll: largest relative "
+            f"{float(rel_ll.max()):.3e} (member {int(rel_ll.argmax())}; "
+            "reported)")
+        for what, a, b in (("calib_grad=True", g32, g64),
+                           ("calib_grad=False", gs32, gs64)):
+            text = ", ".join(
+                f"d/d{n} {float((x.double() - y).norm() / y.norm()):.3e}"
+                for n, x, y in zip(("u0s", "ps", "ys"), a, b))
+            say(f"   {grid}-grid float32 vs float64 gradient of sum(dll), "
+                f"{what}: relative norm difference {text} (reported)")
+        case = DataLik(B_MAIN, DL_T_MAIN, torch.float64, grid, DL_SPREAD)
+        (dll_p, ll_p), (dll_k, ll_k) = case.primal_plain(), case.primal()
+        torch.cuda.synchronize()
+        name = f"f64 {grid}-grid ek0_datalik_kernel vs plain at {B_MAIN} x {DL_T_MAIN}"
+        bitwise(f"{name}, dll", dll_k, dll_p)
+        close(f"{name}, dll", dll_k, dll_p, 1e-10, 1e-12)
+        close(f"{name}, ll", ll_k, ll_p, 1e-10, 1e-12)
+        check(torch.equal(dll_k, dll64) and torch.equal(ll_k, ll64),
+              f"{grid}-grid f64: the front door's values are the kernel's")
+        if grid == "on":
+            st = case.grad_fwd_plain()[2]
+            got, ref = case.grad_bwd(st, False), case.grad_bwd_plain(st, False)
+            torch.cuda.synchronize()
+            err_adjoint = dl_hold_grads(
+                f"f64 ek0_datalik_grad_bwd_kernel vs plain at {B_MAIN} x "
+                f"{DL_T_MAIN}", got, ref, hold=True)
+        del case
+        # central differences of sum(dll) in float64 along a seeded direction
+        rng = np.random.default_rng(7)
+        v = [torch.tensor(rng.standard_normal(tuple(x.shape)), device=DEVICE)
+             for x in (u64, p64, y64)]
+        v[1] = v[1] * p64
+        ad = float(sum((a * b).sum() for a, b in zip(g64, v)))
+        for eps in (1e-4, 1e-5, 1e-6):
+            with torch.no_grad():
+                plus, minus = (float(dl_door(odt, prob64, u64 + s * v[0],
+                                             p64 + s * v[1], y64 + s * v[2],
+                                             ts)[0].sum())
+                               for s in (eps, -eps))
+            fd = (plus - minus) / (2 * eps)
+            r = abs(fd - ad) / abs(ad)
+            text = (f"{grid}-grid f64 gradient of sum(dll) vs central "
+                    f"difference, step {eps:g}: autograd {ad:.9e}, difference "
+                    f"{fd:.9e}, relative {r:.3e}")
+            if eps == 1e-6:
+                check(r <= 1e-6, f"{text} <= 1e-6")
+            else:
+                say(f"   {text} (reported)")
+        del out
+        torch.cuda.empty_cache()
+    return launches, err_adjoint
+
+
+def datalik_timing(odt, card):
+    """Phase 30: float32 at the row's width on the grid: each kernel
+    against its plain version (the plain versions run once), the kernels'
+    and the front doors' times (median of 20 after 3 warm-ups, CUDA
+    events) and the primal door's host work (the step table's build, the
+    Taylor init) timed alone, the kernels' bounds from this run's stream and the plain versions'
+    operations on one member of this schedule. Returns (ms, plain ms, max
+    |kernel - plain|, {name: (bound_ms, bound_by, operations per
+    member)})."""
+    from odefilters_torch.ops import ek0_datalik as ed
+
+    case = DataLik(B_MAIN, DL_T_MAIN, torch.float32, "on", DL_SPREAD)
+    err, p_ms = datalik_vs_plain(f"f32 at {B_MAIN} x {DL_T_MAIN}", case, 1e-4,
+                                 1e-6, hold_grads=False)
+    st = case.grad_fwd()[2]
+    ms = {"ek0_datalik": time_ms(case.primal, warmup=3, iters=20),
+          "ek0_datalik_grad_fwd": time_ms(case.grad_fwd, warmup=3, iters=20),
+          "ek0_datalik_grad_bwd": time_ms(lambda: case.grad_bwd(st, False),
+                                          warmup=3, iters=20)}
+    ms_stop = time_ms(lambda: case.grad_bwd(st, True), warmup=3, iters=20)
+    for name in DL_NAMES:
+        say(f"   {name} kernel {ms[name]:.4f} ms, plain {p_ms[name]:.1f} ms "
+            f"(card: {card})")
+    say(f"   ek0_datalik_grad_bwd kernel with calib_grad=False "
+        f"{ms_stop:.4f} ms")
+    for grid in ("on", "off"):
+        ts = dl_times(DL_T_MAIN, grid)
+        prob, u0s, ps, ys = dl_inputs(B_MAIN, torch.float32, ts, DL_SPREAD)
+
+        def primal():
+            with torch.no_grad():
+                dl_door(odt, prob, u0s, ps, ys, ts)
+
+        def table():
+            ed.data_table(DL_TSPAN, DL_T_MAIN, ts, Q, torch.float32, DEVICE)
+
+        def init():
+            with torch.no_grad():
+                ed.initial_means(prob.f, u0s, ps, DL_TSPAN, DL_T_MAIN, Q)
+
+        t_ms = time_ms(table, warmup=3, iters=20)
+        i_ms = time_ms(init, warmup=3, iters=20)
+        d_ms = time_ms(primal, warmup=3, iters=20)
+        g_ms = time_ms(lambda: dl_grad(odt, prob, u0s, ps, ys, ts),
+                       warmup=3, iters=20)
+        gs_ms = time_ms(lambda: dl_grad(odt, prob, u0s, ps, ys, ts, False),
+                        warmup=3, iters=20)
+        say(f"   {grid}-grid float32 ensemble_data_loglik: {d_ms:.3f} ms = "
+            f"{B_MAIN / d_ms * 1e3:.0f} candidates/s; forward + backward of "
+            f"sum(dll): {g_ms:.3f} ms = {B_MAIN / g_ms * 1e3:.0f} gradient "
+            f"candidates/s; with calib_grad=False {gs_ms:.3f} ms; of the "
+            f"primal door: the step table's host build {t_ms:.3f} ms, the "
+            f"Taylor init {i_ms:.3f} ms, the kernel {ms['ek0_datalik']:.4f} "
+            f"ms on the grid")
+    # bounds: the stream and the inputs and outputs each moved once; the
+    # plain versions' operations on one member of this schedule
+    one = DataLik(1, DL_T_MAIN, torch.float32, "on", DL_SPREAD)
+    st1 = one.grad_fwd_plain()[2]
+    ops = {"ek0_datalik": ops_of(one.primal_plain),
+           "ek0_datalik_grad_fwd": ops_of(one.grad_fwd_plain),
+           "ek0_datalik_grad_bwd": ops_of(lambda: one.grad_bwd_plain(st1,
+                                                                     False))}
+    nq, d, n_p, item = Q + 1, 2, 4, 4
+    T, V, n_obs = case.table.n_steps, st.shape[1], case.ys.shape[0]
+    shared = (T * item + 2 * T * 4 + case.table.odd_flat.numel() * 8
+              + n_obs * d * item)
+    init, stream = (nq * d + n_p) * B_MAIN * item, T * V * B_MAIN * item
+    nbytes = {"ek0_datalik": init + shared + 2 * B_MAIN * item,
+              "ek0_datalik_grad_fwd": init + shared + 2 * B_MAIN * item + stream,
+              "ek0_datalik_grad_bwd": stream + n_p * B_MAIN * item + shared
+              + 2 * B_MAIN * item + (nq * d + n_p + n_obs * d) * B_MAIN * item}
+    bounds = {}
+    for name in DL_NAMES:
+        bounds[name] = bound(nbytes[name], ops[name], B_MAIN, 1) + (ops[name],)
+        say(f"   {name}: {ops[name]} operations per member over {T} steps; "
+            f"{nbytes[name] / 1e6:.1f} MB; bound {bounds[name][0]:.4f} ms by "
+            f"{bounds[name][1]}")
+    del case, st
+    torch.cuda.empty_cache()
+    return ms, p_ms, err, bounds
+
+
+def datalik_phases(odt, card, built):
+    """Phases 28-30. Returns (launches on the main path's runs, ms, plain
+    ms, max |kernel - plain|, bounds) of the three data-likelihood
+    kernels."""
+    say(f"== 28. the data-likelihood kernels vs plain, B={B_CHECK}, "
+        f"LV over {DL_TSPAN}, T={DL_T_CHECK}, on and off the grid, float64 "
+        "and float32, calib_grad both ways")
+    datalik_check(card)
+    say(f"== 29. the data likelihood's path: ensemble_data_loglik, B={B_MAIN}, "
+        f"LV over {DL_TSPAN}, T={DL_T_MAIN}, 9 observations on and off the "
+        "grid")
+    launches, err_adjoint = datalik_path(odt, card)
+    say(f"== 30. the data-likelihood kernels vs plain and timing, float32, "
+        f"B={B_MAIN}, T={DL_T_MAIN}")
+    ms, p_ms, err, bounds = datalik_timing(odt, card)
+    err["ek0_datalik_grad_bwd"] = err_adjoint
+    print_registers(built["log"], DL_NAMES)
+    return launches, ms, p_ms, err, bounds
+
+
 def main() -> int:
     say("== 1. environment")
     if not torch.cuda.is_available():
@@ -2652,6 +3148,10 @@ def main() -> int:
                                    "ek1_adaptive_smoother",
                                    "ek0_adaptive_sampler"))
 
+    dl_launches, dl_ms, dl_plain_ms, dl_err, dl_bounds = datalik_phases(
+        odt, card, built)
+    launches.update(dl_launches)
+
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
     bounds = kernel_bounds(B_MAIN, T_MAIN, torch.float32, S_MAIN)
@@ -2671,17 +3171,18 @@ def main() -> int:
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
           **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms, **ea_ms,
-          "ek0_adaptive_sampler": sm_ms}
+          "ek0_adaptive_sampler": sm_ms, **dl_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
                 **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
                 "ek1d_filter": d_plain_ms, **da_plain_ms, **ea_plain_ms,
-                "ek0_adaptive_sampler": sm_plain_ms}
+                "ek0_adaptive_sampler": sm_plain_ms, **dl_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
             **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err,
-            **ea_err, "ek0_adaptive_sampler": sm_err}
+            **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err}
     bounds.update(a_bounds)
     bounds.update(da_bounds)
     bounds.update(ea_bounds)
+    bounds.update(dl_bounds)
     bounds["ek1d_filter"] = d_bound
     bounds["ek0_adaptive_sampler"] = sm_bound
     kernels = [

@@ -15,7 +15,10 @@ per-member log-likelihood (dynamic or static diffusion) and that
 likelihood's gradient by ``torch.autograd``, joint smoothing-posterior
 sample paths (dynamic diffusion), and the same solve (dynamic, fixed or
 fixedMAP; with or without the smoother) and sampler with EK1, and the
-ensemble IEKS::
+ensemble IEKS; and the per-candidate data likelihood of noisy full-state
+observations on or off the grid with its gradient (``ensemble_data_loglik``,
+isotropic EK0). Vector fields with CUDA kernels: FitzHugh-Nagumo and
+Lotka-Volterra::
 
     import torch
     import odefilters_torch as odt
@@ -45,6 +48,10 @@ ensemble IEKS::
     odt.solve_ensemble(prob, odt.EK1(order=3), u0s, ps)  # adaptive, smoothed
     odt.sample_ensemble(prob, odt.EK0(order=3), u0s, ps, generator=g,
                         n_steps=20, adaptive=True)       # (21, 2, B)
+    lv = odt.models.lotka_volterra(tspan=(0.0, 3.0))
+    dll, ll = odt.ensemble_data_loglik(lv.f, u0s, ps, lv.tspan, 120, ts, ys,
+                                       0.05, field=lv.field)  # (B,) each,
+                                       # differentiable in u0s, ps and ys
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 
@@ -68,6 +75,7 @@ from odefilters_torch.ensemble import (  # noqa: E402
     sample_ensemble,
     solve_ensemble,
 )
+from odefilters_torch.ops.ek0_datalik import ensemble_data_loglik  # noqa: E402
 from odefilters_torch.ops.ek1_adaptive import solve_adaptive_single  # noqa: E402
 from odefilters_torch.problem import ODEProblem, ode_problem, remake  # noqa: E402
 
@@ -79,6 +87,7 @@ __all__ = [
     "EnsembleKernelSolution",
     "IEKS",
     "ODEProblem",
+    "ensemble_data_loglik",
     "ieks_ensemble",
     "models",
     "ode_problem",

@@ -15,7 +15,8 @@ import torch
 from odefilters_torch import models
 from odefilters_torch.problem import ODEProblem, resolve_device
 
-_MODELS = {"fitzhugh_nagumo": models.fitzhugh_nagumo}
+_MODELS = {"fitzhugh_nagumo": models.fitzhugh_nagumo,
+           "lotka_volterra": models.lotka_volterra}
 
 
 def problem_from_numpy(model_name: str, u0, p, tspan, *, device="cuda",

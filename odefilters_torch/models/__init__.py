@@ -1,3 +1,3 @@
-from odefilters_torch.models.library import fitzhugh_nagumo
+from odefilters_torch.models.library import fitzhugh_nagumo, lotka_volterra
 
-__all__ = ["fitzhugh_nagumo"]
+__all__ = ["fitzhugh_nagumo", "lotka_volterra"]

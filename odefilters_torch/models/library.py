@@ -49,3 +49,35 @@ def fitzhugh_nagumo(
     return ode_problem(fitzhugh_nagumo_f, u0, tspan, p=p,
                        jac=fitzhugh_nagumo_jac, field="fhn", device=device,
                        dtype=dtype)
+
+
+def lotka_volterra_f(u, p, t):
+    """Lotka-Volterra vector field; ``p = (a, b, c, d)``, in the JAX
+    package's order of operations (``b * x * y`` is ``(b * x) * y``); the
+    CUDA field (``LotkaVolterra`` in ``ops/csrc/fields.cuh``) uses the same
+    order."""
+    a, b, c, d = p
+    x, y = u[0], u[1]
+    return torch.stack([a * x - b * x * y, -c * y + d * x * y])
+
+
+def lotka_volterra_jac(u, p, t):
+    """Jacobian of `lotka_volterra_f` in ``u``, ``(d, d)`` or ``(d, d, B)``;
+    the CUDA field's ``jac`` uses the same order."""
+    a, b, c, d = p
+    x, y = u[0], u[1]
+    return torch.stack([
+        torch.stack([a - b * y, -b * x]),
+        torch.stack([d * y, -c + d * x]),
+    ])
+
+
+def lotka_volterra(
+    u0=(1.0, 1.0), p=(1.5, 1.0, 3.0, 1.0), tspan=(0.0, 7.0), *,
+    device="cuda", dtype=None,
+) -> ODEProblem:
+    """Lotka-Volterra predator-prey, as ``odefilters.models.lotka_volterra``,
+    on the CUDA card unless ``device`` names another."""
+    return ode_problem(lotka_volterra_f, u0, tspan, p=p,
+                       jac=lotka_volterra_jac, field="lv", device=device,
+                       dtype=dtype)

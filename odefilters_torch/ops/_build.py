@@ -22,9 +22,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
 SOURCES = ("ek1_adaptive.cu", "ek1_fused.cu", "ek1d.cu", "ek0_adaptive.cu",
-           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
+           "ek0_datalik.cu", "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
-           "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh")
+           "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
+           "ek0_datalik.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,19 +51,23 @@ NVCC_FLAGS = (
 # sigma^2 are the same innovation statistic. And the adaptive kernels, EK0,
 # DiagonalEK1 and EK1: their step loop turns a one-ulp difference into
 # another accepted step sequence (the DiagonalEK1 file also holds the
-# fixed-grid filter, whose lls and sigma^2 carry the innovation).
+# fixed-grid filter, whose lls and sigma^2 carry the innovation). And the
+# data likelihood's: its ODE log-likelihood is the filter's.
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
                 "ek1_fused.cu": ("-fmad=false",),
                 "ek0_adaptive.cu": ("-fmad=false",),
                 "ek1d.cu": ("-fmad=false",),
-                "ek1_adaptive.cu": ("-fmad=false",)}
+                "ek1_adaptive.cu": ("-fmad=false",),
+                "ek0_datalik.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.POINTER(ctypes.c_double)
 # C entry points and their argument types; the last is the CUDA stream.
+# Those that evaluate the vector field exist once per CUDA field
+# (_launch.CUDA_FIELDS), named ``<kernel>_<field>_<dtype>``.
 # ek0_pair_fwd: (m0_p, ps, stream_out, sig, B, T, mode, consts)
 # ek0_pair_bwd: (stream_in, out, B, T, consts)
 # ek0_filter: (m0_p, ps, us, var, lls, sig, B, T, mode, consts)
@@ -87,31 +92,48 @@ _D = ctypes.POINTER(ctypes.c_double)
 # ek1d_adaptive, ek1d_adaptive_stream, ek1d_adaptive_smoother,
 # ek1_adaptive, ek1_adaptive_stream, ek1_adaptive_smoother: as the
 #   ek0_adaptive entries
+# ek0_datalik: (m0_p, ps, ys, times, codes, odd, dll, ll, B, T, n_obs,
+#               n_odd, consts)
+# ek0_datalik_grad_fwd: (m0_p, ps, ys, times, codes, odd, dll, ll,
+#                        stream_out, B, T, n_obs, n_odd, consts)
+# ek0_datalik_grad_bwd: (stream_in, ps, ys, times, codes, odd, ddll, dall,
+#                        dm0_p, dps, dys, B, T, n_obs, n_odd, stop_calib,
+#                        consts)
+FIELD_ENTRIES = {
+    "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
+    "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "ek0_filter_grad_fwd": (_P,) * 6 + (_I, _I, _D, _P),
+    "ek0_filter_grad_bwd": (_P,) * 7 + (_I, _I, _D, _P),
+    "ek0_filter_states": (_P, _P, _P, _I, _I, _D, _P),
+    "ek1_filter_states": (_P,) * 5 + (_I,) * 4 + (_D, _P),
+    "ek0_adaptive": (_P,) * 7 + (_I, _I, _I, _D, _P),
+    "ek0_adaptive_stream": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "ek1d_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "ek1d_adaptive": (_P,) * 7 + (_I, _I, _I, _D, _P),
+    "ek1d_adaptive_stream": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "ek1_adaptive": (_P,) * 7 + (_I, _I, _I, _D, _P),
+    "ek1_adaptive_stream": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "ek0_datalik": (_P,) * 8 + (_I,) * 4 + (_D, _P),
+    "ek0_datalik_grad_fwd": (_P,) * 9 + (_I,) * 4 + (_D, _P),
+    "ek0_datalik_grad_bwd": (_P,) * 11 + (_I,) * 5 + (_D, _P),
+}
+PLAIN_ENTRIES = {
+    "ek0_pair_bwd": (_P, _P, _I, _I, _D, _P),
+    "ek0_sampler": (_P, _P, _P, _I, _I, _I, _D, _P),
+    "ekd_smoother": (_P, _P, _P, _I, _I, _D, _P),
+    "ekd_sampler": (_P, _P, _P, _I, _I, _I, _D, _P),
+    "ek0_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
+    "ek1d_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
+    "ek0_adaptive_sampler": (_P,) * 5 + (_I,) * 4 + (_D, _P),
+    "ek1_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
+}
 ENTRIES = {}
 for _s in ("f32", "f64"):
-    ENTRIES.update({
-        f"ek0_pair_fwd_fhn_{_s}": (_P,) * 4 + (_I, _I, _I, _D, _P),
-        f"ek0_pair_bwd_{_s}": (_P, _P, _I, _I, _D, _P),
-        f"ek0_filter_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
-        f"ek0_filter_grad_fwd_fhn_{_s}": (_P,) * 6 + (_I, _I, _D, _P),
-        f"ek0_filter_grad_bwd_fhn_{_s}": (_P,) * 7 + (_I, _I, _D, _P),
-        f"ek0_filter_states_fhn_{_s}": (_P, _P, _P, _I, _I, _D, _P),
-        f"ek0_sampler_{_s}": (_P, _P, _P, _I, _I, _I, _D, _P),
-        f"ek1_filter_states_fhn_{_s}": (_P,) * 5 + (_I,) * 4 + (_D, _P),
-        f"ekd_smoother_{_s}": (_P, _P, _P, _I, _I, _D, _P),
-        f"ekd_sampler_{_s}": (_P, _P, _P, _I, _I, _I, _D, _P),
-        f"ek0_adaptive_fhn_{_s}": (_P,) * 7 + (_I, _I, _I, _D, _P),
-        f"ek0_adaptive_stream_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
-        f"ek0_adaptive_smoother_{_s}": (_P,) * 5 + (_I, _I, _I, _D, _P),
-        f"ek1d_filter_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
-        f"ek1d_adaptive_fhn_{_s}": (_P,) * 7 + (_I, _I, _I, _D, _P),
-        f"ek1d_adaptive_stream_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
-        f"ek1d_adaptive_smoother_{_s}": (_P,) * 5 + (_I, _I, _I, _D, _P),
-        f"ek0_adaptive_sampler_{_s}": (_P,) * 5 + (_I,) * 4 + (_D, _P),
-        f"ek1_adaptive_fhn_{_s}": (_P,) * 7 + (_I, _I, _I, _D, _P),
-        f"ek1_adaptive_stream_fhn_{_s}": (_P,) * 6 + (_I, _I, _I, _D, _P),
-        f"ek1_adaptive_smoother_{_s}": (_P,) * 5 + (_I, _I, _I, _D, _P),
-    })
+    for _name, _args in FIELD_ENTRIES.items():
+        for _field in ("fhn", "lv"):
+            ENTRIES[f"{_name}_{_field}_{_s}"] = _args
+    for _name, _args in PLAIN_ENTRIES.items():
+        ENTRIES[f"{_name}_{_s}"] = _args
 
 
 def _nvcc() -> str:

@@ -17,13 +17,13 @@ import torch
 from odefilters_torch.ops import _build
 
 # CUDA vector fields the kernels are instantiated for: name -> (d, n_params).
-CUDA_FIELDS = {"fhn": (2, 4)}
+CUDA_FIELDS = {"fhn": (2, 4), "lv": (2, 4)}
 # The fields whose functor also has a Jacobian ``jac`` (the EK1 kernels
 # evaluate it in the kernel).
-CUDA_JAC_FIELDS = frozenset({"fhn"})
+CUDA_JAC_FIELDS = frozenset({"fhn", "lv"})
 # The fields whose functor also has a Jacobian diagonal ``jac_diag`` (the
 # DiagonalEK1 kernels evaluate it in the kernel).
-CUDA_JAC_DIAG_FIELDS = frozenset({"fhn"})
+CUDA_JAC_DIAG_FIELDS = frozenset({"fhn", "lv"})
 # The kernels are instantiated for this order only (nq = 4).
 CUDA_ORDERS = (3,)
 
@@ -119,12 +119,12 @@ def check_ported(*, prior, second_order: bool, mesh) -> None:
     if prior is not None:
         raise NotImplementedError(
             "IOUP / Matern priors are not ported yet "
-            "(ROADMAP.md queue 1, 'Widen the pair')"
+            "(ROADMAP.md queue 1, item 5, 'Widen the pair')"
         )
     if second_order:
         raise NotImplementedError(
             "second-order problems are not ported yet "
-            "(ROADMAP.md queue 1, 'Widen the pair')"
+            "(ROADMAP.md queue 1, item 5, 'Widen the pair')"
         )
     if mesh is not None:
         raise NotImplementedError("mesh= is not supported: the port runs on one card")

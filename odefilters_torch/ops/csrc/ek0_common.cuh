@@ -28,9 +28,11 @@ struct FwdConsts {
   double hq;
 };
 
-// consts: At (NQ*NQ), Qt (NQ*NQ), then pinv0, pinv1, t0, dt
+// consts: At (NQ*NQ), Qt (NQ*NQ), then pinv0, pinv1, t0, dt (on the host
+// for a launch's constants, on the card for the data likelihood's odd
+// steps)
 template <typename S, int NQ>
-inline FwdConsts<S, NQ> read_fwd_consts(const double* k) {
+__host__ __device__ inline FwdConsts<S, NQ> read_fwd_consts(const double* k) {
   FwdConsts<S, NQ> c;
   int o = 0;
   for (int i = 0; i < NQ; ++i)
@@ -227,8 +229,10 @@ __device__ __forceinline__ void ek0_step(const FwdConsts<S, NQ>& c,
 #pragma unroll
   for (int j = 0; j < D; ++j) v.zz += v.z[j] * v.z[j];
   // zz / (D hq), as PyTorch's CUDA division by a Python number computes it:
-  // a product with the divisor's reciprocal, taken in the working type
-  v.s2 = STATIC ? S(1) : v.zz * (S(1) / S(double(D) * c.hq));
+  // a product with the divisor's reciprocal, taken in double and rounded
+  // once (a reciprocal of the rounded divisor misses it in float wherever
+  // D hq is not a float, e.g. at dt = 0.075)
+  v.s2 = STATIC ? S(1) : v.zz * S(1.0 / (double(D) * c.hq));
 
   S tmp[NQ][NQ];
   at_times_c<S, NQ>(c.At, C, tmp);

@@ -156,54 +156,37 @@ int launch_grad_bwd(const void* st, const void* ps, const void* dus,
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() after the launch. consts: At, Qt (NQ*NQ each), then
-// pinv0, pinv1, t0, dt. Instantiated for q = 3 (NQ = 4) and the FHN field.
+// pinv0, pinv1, t0, dt. Instantiated for q = 3 (NQ = 4) and the FHN and LV
+// fields.
 extern "C" {
 
-int ek0_filter_fhn_f32(const void* m0, const void* ps, void* us, void* var,
-                       void* lls, void* sig, int B, int T, int mode,
-                       const double* consts, void* stream) {
-  return launch_filter<float, 4, Fhn<float>>(m0, ps, us, var, lls, sig, B, T,
-                                             mode, consts, stream);
-}
+#define EK0_FILTER_ENTRIES(NAME, FIELD, S, SUF)                               \
+  int ek0_filter_##NAME##_##SUF(const void* m0, const void* ps, void* us,    \
+                                void* var, void* lls, void* sig, int B,      \
+                                int T, int mode, const double* consts,       \
+                                void* stream) {                              \
+    return launch_filter<S, 4, FIELD<S>>(m0, ps, us, var, lls, sig, B, T,    \
+                                         mode, consts, stream);              \
+  }                                                                          \
+  int ek0_filter_grad_fwd_##NAME##_##SUF(                                    \
+      const void* m0, const void* ps, void* us, void* stds, void* lls,       \
+      void* st, int B, int T, const double* consts, void* stream) {          \
+    return launch_grad_fwd<S, 4, FIELD<S>>(m0, ps, us, stds, lls, st, B, T,  \
+                                           consts, stream);                  \
+  }                                                                          \
+  int ek0_filter_grad_bwd_##NAME##_##SUF(                                    \
+      const void* st, const void* ps, const void* dus, const void* dstds,    \
+      const void* dlls, void* dm0, void* dps, int B, int T,                  \
+      const double* consts, void* stream) {                                  \
+    return launch_grad_bwd<S, 4, FIELD<S>>(st, ps, dus, dstds, dlls, dm0,    \
+                                           dps, B, T, consts, stream);       \
+  }
 
-int ek0_filter_fhn_f64(const void* m0, const void* ps, void* us, void* var,
-                       void* lls, void* sig, int B, int T, int mode,
-                       const double* consts, void* stream) {
-  return launch_filter<double, 4, Fhn<double>>(m0, ps, us, var, lls, sig, B,
-                                               T, mode, consts, stream);
-}
+EK0_FILTER_ENTRIES(fhn, Fhn, float, f32)
+EK0_FILTER_ENTRIES(fhn, Fhn, double, f64)
+EK0_FILTER_ENTRIES(lv, LotkaVolterra, float, f32)
+EK0_FILTER_ENTRIES(lv, LotkaVolterra, double, f64)
 
-int ek0_filter_grad_fwd_fhn_f32(const void* m0, const void* ps, void* us,
-                                void* stds, void* lls, void* st, int B,
-                                int T, const double* consts, void* stream) {
-  return launch_grad_fwd<float, 4, Fhn<float>>(m0, ps, us, stds, lls, st, B,
-                                               T, consts, stream);
-}
-
-int ek0_filter_grad_fwd_fhn_f64(const void* m0, const void* ps, void* us,
-                                void* stds, void* lls, void* st, int B,
-                                int T, const double* consts, void* stream) {
-  return launch_grad_fwd<double, 4, Fhn<double>>(m0, ps, us, stds, lls, st,
-                                                 B, T, consts, stream);
-}
-
-int ek0_filter_grad_bwd_fhn_f32(const void* st, const void* ps,
-                                const void* dus, const void* dstds,
-                                const void* dlls, void* dm0, void* dps,
-                                int B, int T, const double* consts,
-                                void* stream) {
-  return launch_grad_bwd<float, 4, Fhn<float>>(st, ps, dus, dstds, dlls, dm0,
-                                               dps, B, T, consts, stream);
-}
-
-int ek0_filter_grad_bwd_fhn_f64(const void* st, const void* ps,
-                                const void* dus, const void* dstds,
-                                const void* dlls, void* dm0, void* dps,
-                                int B, int T, const double* consts,
-                                void* stream) {
-  return launch_grad_bwd<double, 4, Fhn<double>>(st, ps, dus, dstds, dlls,
-                                                 dm0, dps, B, T, consts,
-                                                 stream);
-}
+#undef EK0_FILTER_ENTRIES
 
 }  // extern "C"

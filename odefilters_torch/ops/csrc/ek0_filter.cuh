@@ -102,9 +102,13 @@ __device__ __forceinline__ void grad_fwd_member(
 // The step is recomputed from (m, C) and reversed line by line. The
 // calibration s2 = zz / (D hq) is differentiated, so z collects cotangents
 // through s2 (the predicted covariance), through the update and through
-// ll_inc. Both clamps pass no cotangent where they clamp. Row and column BX
-// of C and C_new are structural zeros and carry none.
-template <typename S, int NQ, class F>
+// ll_inc; under STOP_CALIB it is not (s2 is a constant of the model, the
+// JAX step's stop_calib), and z collects none through s2. Both clamps pass
+// no cotangent where they clamp. Row and column BX of C and C_new are
+// structural zeros and carry none. Without OUTPUTS the step has no us_row
+// and std outputs, and gus, gstd are not read.
+template <typename S, int NQ, class F, bool OUTPUTS = true,
+          bool STOP_CALIB = false>
 __device__ __forceinline__ void ek0_step_vjp(
     const FwdConsts<S, NQ>& c, const S* p, S t, const S (&m)[NQ][F::D],
     const S (&C)[NQ][NQ], const S (&gus)[F::D], S gstd, S gll,
@@ -115,10 +119,12 @@ __device__ __forceinline__ void ek0_step_vjp(
   const S pb = c.pinv1;
 
   // us_row = pinv0 m_new[0]; std = pinv0 sqrt(max(C_new[0][0], 1e-30))
+  if (OUTPUTS) {
 #pragma unroll
-  for (int j = 0; j < D; ++j) gm[0][j] += c.pinv0 * gus[j];
-  if (v.C_new[0][0] > S(1e-30))
-    gC[0][0] += gstd * c.pinv0 * S(0.5) / sqrt_(v.C_new[0][0]);
+    for (int j = 0; j < D; ++j) gm[0][j] += c.pinv0 * gus[j];
+    if (v.C_new[0][0] > S(1e-30))
+      gC[0][0] += gstd * c.pinv0 * S(0.5) / sqrt_(v.C_new[0][0]);
+  }
 
   // ll_inc = -0.5 (zz inv_s + D (log(max(s, 1e-30)) + log 2 pi))
   S g_zz = S(-0.5) * gll * v.inv_s;
@@ -211,7 +217,7 @@ __device__ __forceinline__ void ek0_step_vjp(
     }
 
   // s2 = zz / (D hq); zz = sum_j z[j]^2
-  g_zz += g_s2 * (S(1) / S(double(D) * c.hq));
+  if (!STOP_CALIB) g_zz += g_s2 * S(1.0 / (double(D) * c.hq));
 #pragma unroll
   for (int j = 0; j < D; ++j) gz[j] += S(2) * v.z[j] * g_zz;
 

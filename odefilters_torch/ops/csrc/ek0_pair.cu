@@ -322,24 +322,25 @@ int launch_bwd(const void* st, void* out, int B, int T, const double* k,
 
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
-// cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4).
-// The forward's mode is the diffusion (ek0::Mode); sig may be null under
-// the dynamic one.
+// cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4),
+// and the FHN and LV fields for the forward. The forward's mode is the
+// diffusion (ek0::Mode); sig may be null under the dynamic one.
 extern "C" {
 
-int ek0_pair_fwd_fhn_f32(const void* m0, const void* ps, void* st, void* sig,
-                         int B, int T, int mode, const double* consts,
-                         void* stream) {
-  return launch_fwd<float, 4, Fhn<float>>(m0, ps, st, sig, B, T, mode, consts,
-                                          stream);
-}
+#define EK0_PAIR_ENTRIES(NAME, FIELD, S, SUF)                                 \
+  int ek0_pair_fwd_##NAME##_##SUF(const void* m0, const void* ps, void* st,  \
+                                  void* sig, int B, int T, int mode,         \
+                                  const double* consts, void* stream) {      \
+    return launch_fwd<S, 4, FIELD<S>>(m0, ps, st, sig, B, T, mode, consts,   \
+                                      stream);                               \
+  }
 
-int ek0_pair_fwd_fhn_f64(const void* m0, const void* ps, void* st, void* sig,
-                         int B, int T, int mode, const double* consts,
-                         void* stream) {
-  return launch_fwd<double, 4, Fhn<double>>(m0, ps, st, sig, B, T, mode,
-                                            consts, stream);
-}
+EK0_PAIR_ENTRIES(fhn, Fhn, float, f32)
+EK0_PAIR_ENTRIES(fhn, Fhn, double, f64)
+EK0_PAIR_ENTRIES(lv, LotkaVolterra, float, f32)
+EK0_PAIR_ENTRIES(lv, LotkaVolterra, double, f64)
+
+#undef EK0_PAIR_ENTRIES
 
 int ek0_pair_bwd_f32(const void* st, void* out, int B, int T,
                      const double* consts, void* stream) {

@@ -187,7 +187,7 @@ SampleConsts<S, NQ> read_consts(const double* k, bool with_grid) {
     c.t0 = S(k[o++]);
     c.dt = S(k[o++]);
     c.pb2 = S(pinv1 * pinv1);
-    c.inv_dhq = S(1) / S(double(D) * k[o++]);
+    c.inv_dhq = S(1.0 / (double(D) * k[o++]));
   }
   return c;
 }
@@ -242,22 +242,22 @@ int launch_sampler(const void* st, const void* zn, void* out, int B, int T,
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4),
-// d = 2, and the FHN field for the filter.
+// d = 2, and the FHN and LV fields for the filter.
 extern "C" {
 
-int ek0_filter_states_fhn_f32(const void* m0, const void* ps, void* st,
-                              int B, int T, const double* consts,
-                              void* stream) {
-  return launch_states<float, 4, Fhn<float>>(m0, ps, st, B, T, consts,
-                                             stream);
-}
+#define EK0_STATES_ENTRIES(NAME, FIELD, S, SUF)                               \
+  int ek0_filter_states_##NAME##_##SUF(const void* m0, const void* ps,       \
+                                       void* st, int B, int T,               \
+                                       const double* consts, void* stream) { \
+    return launch_states<S, 4, FIELD<S>>(m0, ps, st, B, T, consts, stream);  \
+  }
 
-int ek0_filter_states_fhn_f64(const void* m0, const void* ps, void* st,
-                              int B, int T, const double* consts,
-                              void* stream) {
-  return launch_states<double, 4, Fhn<double>>(m0, ps, st, B, T, consts,
-                                               stream);
-}
+EK0_STATES_ENTRIES(fhn, Fhn, float, f32)
+EK0_STATES_ENTRIES(fhn, Fhn, double, f64)
+EK0_STATES_ENTRIES(lv, LotkaVolterra, float, f32)
+EK0_STATES_ENTRIES(lv, LotkaVolterra, double, f64)
+
+#undef EK0_STATES_ENTRIES
 
 // consts: At, QLt (NQ*NQ each), then pinv0
 int ek0_sampler_f32(const void* st, const void* zn, void* out, int B, int T,

@@ -13,8 +13,8 @@ namespace ek0 {
 // Constants of both kernels: the preconditioned IBM transition (upper
 // triangular) and its noise factor QLt (lower triangular), the
 // preconditioner entries of blocks 0 and 1, the grid, pb2 = pinv1^2 folded
-// in double, and inv_dhq = 1 / (D hq) taken in the working type from the
-// rounded divisor, as PyTorch's CUDA division by a Python number does.
+// in double, and inv_dhq = 1 / (D hq), the reciprocal taken in double and
+// rounded once, as PyTorch's CUDA division by a Python number takes it.
 template <typename S, int NQ>
 struct SampleConsts {
   S At[NQ][NQ];

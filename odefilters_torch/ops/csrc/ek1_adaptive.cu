@@ -186,47 +186,34 @@ int launch_smoother(const void* st, const void* counts, const void* m0,
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4),
-// d = 2, and the FHN field (with its Jacobian) for the forwards. consts:
-// those of ek0_adaptive.cu.
+// d = 2, and the FHN and LV fields (with their Jacobians) for the forwards.
+// consts: those of ek0_adaptive.cu.
 extern "C" {
 
-int ek1_adaptive_fhn_f32(const void* m0, const void* ps, const void* dt0s,
-                         void* us, void* stds, void* lls, void* counts, int B,
-                         int n_save, int max_iters, const double* consts,
-                         void* stream) {
-  return launch_filter<float, 4, Fhn<float>>(m0, ps, dt0s, us, stds, lls,
-                                             counts, B, n_save, max_iters,
-                                             consts, stream);
-}
+#define EK1_ADAPTIVE_ENTRIES(NAME, FIELD, S, SUF)                             \
+  int ek1_adaptive_##NAME##_##SUF(                                             \
+      const void* m0, const void* ps, const void* dt0s, void* us,           \
+      void* stds, void* lls, void* counts, int B, int n_save,               \
+      int max_iters, const double* consts, void* stream) {                  \
+    return launch_filter<S, 4, FIELD<S>>(m0, ps, dt0s, us, stds, lls,       \
+                                         counts, B, n_save, max_iters,      \
+                                         consts, stream);                   \
+  }                                                                         \
+  int ek1_adaptive_stream_##NAME##_##SUF(                                      \
+      const void* m0, const void* ps, const void* dt0s, void* st,           \
+      void* lls, void* counts, int B, int n_save, int max_iters,            \
+      const double* consts, void* stream) {                                 \
+    return launch_stream<S, 4, FIELD<S>>(m0, ps, dt0s, st, lls, counts, B,  \
+                                         n_save, max_iters, consts,         \
+                                         stream);                           \
+  }
 
-int ek1_adaptive_fhn_f64(const void* m0, const void* ps, const void* dt0s,
-                         void* us, void* stds, void* lls, void* counts, int B,
-                         int n_save, int max_iters, const double* consts,
-                         void* stream) {
-  return launch_filter<double, 4, Fhn<double>>(m0, ps, dt0s, us, stds, lls,
-                                               counts, B, n_save, max_iters,
-                                               consts, stream);
-}
+EK1_ADAPTIVE_ENTRIES(fhn, Fhn, float, f32)
+EK1_ADAPTIVE_ENTRIES(fhn, Fhn, double, f64)
+EK1_ADAPTIVE_ENTRIES(lv, LotkaVolterra, float, f32)
+EK1_ADAPTIVE_ENTRIES(lv, LotkaVolterra, double, f64)
 
-int ek1_adaptive_stream_fhn_f32(const void* m0, const void* ps,
-                                const void* dt0s, void* st, void* lls,
-                                void* counts, int B, int n_save,
-                                int max_iters, const double* consts,
-                                void* stream) {
-  return launch_stream<float, 4, Fhn<float>>(m0, ps, dt0s, st, lls, counts, B,
-                                             n_save, max_iters, consts,
-                                             stream);
-}
-
-int ek1_adaptive_stream_fhn_f64(const void* m0, const void* ps,
-                                const void* dt0s, void* st, void* lls,
-                                void* counts, int B, int n_save,
-                                int max_iters, const double* consts,
-                                void* stream) {
-  return launch_stream<double, 4, Fhn<double>>(m0, ps, dt0s, st, lls, counts,
-                                               B, n_save, max_iters, consts,
-                                               stream);
-}
+#undef EK1_ADAPTIVE_ENTRIES
 
 int ek1_adaptive_smoother_f32(const void* st, const void* counts,
                               const void* m0, void* us, void* stds, int B,

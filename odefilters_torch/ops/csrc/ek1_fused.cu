@@ -187,26 +187,26 @@ int launch_sampler(const void* st, const void* zn, void* out, int B, int T,
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4),
-// d = 2, and the FHN field and its Jacobian for the filter.
+// d = 2, and the FHN and LV fields and their Jacobians for the filter.
 extern "C" {
 
 // mode: 0 dynamic, 1 fixed, 2 fixedMAP; lin may be null (no IEKS rows;
 // dynamic only); sig is written under a static mode; smooth: stream Lp
-int ek1_filter_states_fhn_f32(const void* m0, const void* ps, const void* lin,
-                              void* st, void* sig, int B, int T, int mode,
-                              int smooth, const double* consts,
-                              void* stream) {
-  return launch_filter<float, 4, Fhn<float>>(m0, ps, lin, st, sig, B, T,
-                                             mode, smooth, consts, stream);
-}
+#define EK1_STATES_ENTRIES(NAME, FIELD, S, SUF)                               \
+  int ek1_filter_states_##NAME##_##SUF(                                      \
+      const void* m0, const void* ps, const void* lin, void* st, void* sig,  \
+      int B, int T, int mode, int smooth, const double* consts,              \
+      void* stream) {                                                        \
+    return launch_filter<S, 4, FIELD<S>>(m0, ps, lin, st, sig, B, T, mode,   \
+                                         smooth, consts, stream);            \
+  }
 
-int ek1_filter_states_fhn_f64(const void* m0, const void* ps, const void* lin,
-                              void* st, void* sig, int B, int T, int mode,
-                              int smooth, const double* consts,
-                              void* stream) {
-  return launch_filter<double, 4, Fhn<double>>(m0, ps, lin, st, sig, B, T,
-                                               mode, smooth, consts, stream);
-}
+EK1_STATES_ENTRIES(fhn, Fhn, float, f32)
+EK1_STATES_ENTRIES(fhn, Fhn, double, f64)
+EK1_STATES_ENTRIES(lv, LotkaVolterra, float, f32)
+EK1_STATES_ENTRIES(lv, LotkaVolterra, double, f64)
+
+#undef EK1_STATES_ENTRIES
 
 int ekd_smoother_f32(const void* st, void* us, void* stds, int B, int T,
                      const double* consts, void* stream) {

@@ -294,62 +294,43 @@ int launch_smoother(const void* st, const void* counts, const void* m0,
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4),
-// d = 2, and the FHN field for the forwards. The filter's consts: At, Qt
-// (NQ*NQ each), then pinv0, pinv1, t0, dt; its mode: 0 dynamic, 1 fixed,
-// 2 fixedMAP, 3 fixedMV. The adaptive consts: those of ek0_adaptive.cu.
+// d = 2, and the FHN and LV fields for the forwards. The filter's consts:
+// At, Qt (NQ*NQ each), then pinv0, pinv1, t0, dt; its mode: 0 dynamic,
+// 1 fixed, 2 fixedMAP, 3 fixedMV. The adaptive consts: those of
+// ek0_adaptive.cu.
 extern "C" {
 
-int ek1d_filter_fhn_f32(const void* m0, const void* ps, void* us, void* stds,
-                        void* lls, void* sig, int B, int T, int mode,
-                        const double* consts, void* stream) {
-  return launch_filter<float, 4, Fhn<float>>(m0, ps, us, stds, lls, sig, B, T,
-                                             mode, consts, stream);
-}
+#define EK1D_ENTRIES(NAME, FIELD, S, SUF)                                     \
+  int ek1d_filter_##NAME##_##SUF(const void* m0, const void* ps, void* us,   \
+                                 void* stds, void* lls, void* sig, int B,    \
+                                 int T, int mode, const double* consts,      \
+                                 void* stream) {                             \
+    return launch_filter<S, 4, FIELD<S>>(m0, ps, us, stds, lls, sig, B, T,   \
+                                         mode, consts, stream);              \
+  }                                                                          \
+  int ek1d_adaptive_##NAME##_##SUF(                                          \
+      const void* m0, const void* ps, const void* dt0s, void* us,            \
+      void* stds, void* lls, void* counts, int B, int n_save,                \
+      int max_iters, const double* consts, void* stream) {                   \
+    return launch_adaptive<S, 4, FIELD<S>>(m0, ps, dt0s, us, stds, lls,      \
+                                           counts, B, n_save, max_iters,     \
+                                           consts, stream);                  \
+  }                                                                          \
+  int ek1d_adaptive_stream_##NAME##_##SUF(                                   \
+      const void* m0, const void* ps, const void* dt0s, void* st,            \
+      void* lls, void* counts, int B, int n_save, int max_iters,             \
+      const double* consts, void* stream) {                                  \
+    return launch_stream<S, 4, FIELD<S>>(m0, ps, dt0s, st, lls, counts, B,   \
+                                         n_save, max_iters, consts,          \
+                                         stream);                            \
+  }
 
-int ek1d_filter_fhn_f64(const void* m0, const void* ps, void* us, void* stds,
-                        void* lls, void* sig, int B, int T, int mode,
-                        const double* consts, void* stream) {
-  return launch_filter<double, 4, Fhn<double>>(m0, ps, us, stds, lls, sig, B,
-                                               T, mode, consts, stream);
-}
+EK1D_ENTRIES(fhn, Fhn, float, f32)
+EK1D_ENTRIES(fhn, Fhn, double, f64)
+EK1D_ENTRIES(lv, LotkaVolterra, float, f32)
+EK1D_ENTRIES(lv, LotkaVolterra, double, f64)
 
-int ek1d_adaptive_fhn_f32(const void* m0, const void* ps, const void* dt0s,
-                          void* us, void* stds, void* lls, void* counts, int B,
-                          int n_save, int max_iters, const double* consts,
-                          void* stream) {
-  return launch_adaptive<float, 4, Fhn<float>>(m0, ps, dt0s, us, stds, lls,
-                                               counts, B, n_save, max_iters,
-                                               consts, stream);
-}
-
-int ek1d_adaptive_fhn_f64(const void* m0, const void* ps, const void* dt0s,
-                          void* us, void* stds, void* lls, void* counts, int B,
-                          int n_save, int max_iters, const double* consts,
-                          void* stream) {
-  return launch_adaptive<double, 4, Fhn<double>>(m0, ps, dt0s, us, stds, lls,
-                                                 counts, B, n_save, max_iters,
-                                                 consts, stream);
-}
-
-int ek1d_adaptive_stream_fhn_f32(const void* m0, const void* ps,
-                                 const void* dt0s, void* st, void* lls,
-                                 void* counts, int B, int n_save,
-                                 int max_iters, const double* consts,
-                                 void* stream) {
-  return launch_stream<float, 4, Fhn<float>>(m0, ps, dt0s, st, lls, counts, B,
-                                             n_save, max_iters, consts,
-                                             stream);
-}
-
-int ek1d_adaptive_stream_fhn_f64(const void* m0, const void* ps,
-                                 const void* dt0s, void* st, void* lls,
-                                 void* counts, int B, int n_save,
-                                 int max_iters, const double* consts,
-                                 void* stream) {
-  return launch_stream<double, 4, Fhn<double>>(m0, ps, dt0s, st, lls, counts,
-                                               B, n_save, max_iters, consts,
-                                               stream);
-}
+#undef EK1D_ENTRIES
 
 int ek1d_adaptive_smoother_f32(const void* st, const void* counts,
                                const void* m0, void* us, void* stds, int B,

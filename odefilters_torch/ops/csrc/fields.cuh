@@ -1,4 +1,5 @@
-// Vector fields the fused kernels are built for.
+// Vector fields the fused kernels are built for: FitzHugh-Nagumo and
+// Lotka-Volterra.
 //
 // Each field is a functor over one ensemble member: D (state dimension),
 // NP (parameter count), operator()(u, p, t, du), its vector-Jacobian
@@ -62,5 +63,55 @@ struct Fhn {
     const S v = u[0];
     jd[0] = S(1) - v * v;
     jd[1] = -tinv * b;
+  }
+};
+
+// Lotka-Volterra, p = (a, b, c, d): "lv". -c * y is the negation of c times
+// y, and b * x * y is (b * x) * y, as in the PyTorch form.
+template <typename S>
+struct LotkaVolterra {
+  static constexpr int D = 2;
+  static constexpr int NP = 4;
+
+  __device__ __forceinline__ void operator()(const S* u, const S* p, S t,
+                                             S* du) const {
+    (void)t;
+    const S a = p[0], b = p[1], c = p[2], d = p[3];
+    const S x = u[0], y = u[1];
+    du[0] = a * x - b * x * y;
+    du[1] = -c * y + d * x * y;
+  }
+
+  __device__ __forceinline__ void vjp(const S* u, const S* p, S t,
+                                      const S* g, S* gu, S* gp) const {
+    (void)t;
+    const S a = p[0], b = p[1], c = p[2], d = p[3];
+    const S x = u[0], y = u[1];
+    gu[0] = g[0] * (a - b * y) + g[1] * (d * y);
+    gu[1] = -g[0] * (b * x) + g[1] * (d * x - c);
+    gp[0] += g[0] * x;
+    gp[1] -= g[0] * (x * y);
+    gp[2] -= g[1] * y;
+    gp[3] += g[1] * (x * y);
+  }
+
+  __device__ __forceinline__ void jac(const S* u, const S* p, S t,
+                                      S* J) const {
+    (void)t;
+    const S a = p[0], b = p[1], c = p[2], d = p[3];
+    const S x = u[0], y = u[1];
+    J[0] = a - b * y;
+    J[1] = -b * x;
+    J[2] = d * y;
+    J[3] = -c + d * x;
+  }
+
+  __device__ __forceinline__ void jac_diag(const S* u, const S* p, S t,
+                                           S* jd) const {
+    (void)t;
+    const S a = p[0], b = p[1], c = p[2], d = p[3];
+    const S x = u[0], y = u[1];
+    jd[0] = a - b * y;
+    jd[1] = -c + d * x;
   }
 };

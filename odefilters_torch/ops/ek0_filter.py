@@ -62,6 +62,12 @@ from odefilters_torch.ops.ek0_pair import static_local_update
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
+def ll_increment(zz, s, inv_s, d: int):
+    """The per-member data log-likelihood of one step, log N(z; 0, s I_d)."""
+    return -0.5 * (zz * inv_s
+                   + d * (torch.log(torch.clamp(s, min=1e-30)) + _LOG_2PI))
+
+
 def _filter_step(m, C, p, t_new, *, f, At, Qt, pinv0, pinv1, d, nq,
                  static_diff=None, calib=None, want_var=False):
     """`ek0_step_filter` that also returns the step's diffusion ``s2``:
@@ -70,9 +76,7 @@ def _filter_step(m, C, p, t_new, *, f, At, Qt, pinv0, pinv1, d, nq,
         m, C, p, t_new, f=f, At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1, d=d,
         nq=nq, static=static_diff is not None,
     )
-    # per-member data log-likelihood log N(z; 0, s I_d)
-    ll_inc = -0.5 * (zz * inv_s
-                     + d * (torch.log(torch.clamp(s, min=1e-30)) + _LOG_2PI))
+    ll_inc = ll_increment(zz, s, inv_s, d)
     us_row = [pinv0 * m_new[0][j] for j in range(d)]
     if want_var:
         std_val = C_new[0][0]       # raw variance; the caller takes the sqrt

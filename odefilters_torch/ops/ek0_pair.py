@@ -147,13 +147,17 @@ def check_diffusion(diffusion: str) -> Optional[str]:
 
 def ek0_step_core(
     m, C, p, t_new, *, f: Callable, At, Qt, pinv0: float, pinv1: float,
-    d: int, nq: int, static: bool = False,
+    d: int, nq: int, static: bool = False, stop_calib: bool = False,
 ):
     """One EK0 filter step on the committed covariance's active block:
     predict the mean, evaluate ``f`` at the predicted state, calibrate
     ``s2 = |z|^2 / (d hq)`` (the Python constant 1.0 under a static
     diffusion, which filters with the unscaled prior), predict the
     covariance's upper triangle, apply the R = 0 update. Measures block 1.
+
+    ``stop_calib``: the dynamic calibration ``s2`` is detached, so a
+    gradient treats it as part of the model (the JAX step's
+    ``stop_calib``); the values are the same.
 
     ``m``: nq x d lists, ``C``: nq x nq lists of ``(B,)`` tensors (row and
     column 1 are never read); ``At``/``Qt``: nested Python floats.
@@ -174,6 +178,8 @@ def ek0_step_core(
     z = [innovation(pb, mp[b][j], du[j]) for j in range(d)]
     zz = _sreduce([zj * zj for zj in z])
     s2 = 1.0 if static else zz / (d * hq)
+    if stop_calib and not static:
+        s2 = s2.detach()
     act = [a for a in range(nq) if a != b]
     tmp_c = {
         (i, c): _sreduce([_smul(At[i][a], C[a][c]) for a in act])
