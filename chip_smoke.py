@@ -21,7 +21,8 @@ diffusion mode and the adaptive solve with and without the smoother; and
 in that adaptive setting the dense EK1 solve with and without the smoother
 and the adaptive EK0 sampler; and ``odefilters_torch.ensemble_data_loglik``,
 the per-candidate data likelihood and its gradient, at the JAX package's
-data-likelihood row (Lotka-Volterra, 8192 candidates, 120 steps). It
+data-likelihood rows (Lotka-Volterra, 8192 candidates, 120 steps:
+full-state observations; prey only; DiagonalEK1; per-member data). It
 checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
@@ -169,10 +170,45 @@ Phases:
  30. the data-likelihood kernels against their plain versions at 8192 x 120
      in float32 (each plain version once), their times, the front door's
      candidates/s and gradient candidates/s on and off the grid, the
-     kernels' bounds and registers.
+     kernels' bounds and registers;
+ 31. the three per-dimension data-likelihood kernels against their plain
+     versions at 1000 members, Lotka-Volterra over (0, 3), T = 40, 3
+     observations on the grid, float64 and float32, EK0 and DiagonalEK1,
+     shared and per-member data, C = [[2, 0]] with scalar noise and the
+     full state with noise (0.1, 0.3): the primal and the gradient's
+     forward bit for bit (checked; NaN members alike), the stream bit for
+     bit on the members that stay finite, the adjoint on the plain
+     forward's stream with calib_grad both ways (float64 at the gradient
+     tolerances of phase 7; float32 with two cotangents, seeded normals on
+     (dll, ll) and on dll only, each output no farther from the float64
+     run's adjoint than 4 times the plain version plus 1e-4 in relative
+     norm where the plain version has a correct digit, ``PD_F32_FACTOR``);
+ 32. the per-dimension path through ``ensemble_data_loglik`` at the JAX
+     package's rows (8192 candidates x 120 steps, 9 observations, noise
+     std 0.05): prey-only observations (C = [[1, 0]], the row's gradient
+     with calib_grad=False), DiagonalEK1 with full-state observations,
+     and per-member observations, float32 and float64, each run with the
+     counts set to 0 before it and read after it: launches 1/0/0 and
+     0/1/1; shapes and finite values and gradients; float32 against
+     float64 member by member within 0.01 nats + 1e-3 |dll| (the
+     DiagonalEK1 row: all but at most ``PD_EK1D_OVER`` members, its
+     float32 plain covariance as on the fixed grid); the float32 gradients
+     against float64's with calib_grad both ways (reported, also without
+     the members farthest apart); the float64 door's values equal to the
+     primal kernel's; the float64 adjoint against the plain adjoint at
+     this shape with calib_grad both ways (within 1e-8 of each row's
+     scale, or 4 times the plain adjoint's own movement under a one-ulp
+     perturbation of its stream, ``PD_F64_FACTOR``); the float64 gradient
+     against central differences of sum(dll) in ps;
+ 33. the per-dimension kernels against their plain versions at 8192 x 120
+     in float32 on each row of phase 32 (each plain version once; the
+     primal and the gradient's forward bit for bit; the adjoint as in
+     phase 31), the prey-only and DiagonalEK1 rows' times, the doors'
+     candidates/s and gradient candidates/s beside the host step table
+     and the Taylor init, the kernels' bounds and registers.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the twenty-four kernels with their launches on
+the line before it lists the twenty-seven kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
@@ -181,9 +217,9 @@ are counted per attempt (per smoothing step) and multiplied by the run's
 attempts (accepted steps); the same for the DiagonalEK1 kernels of
 phase 24 and the adaptive EK1 kernels of phase 27; the adaptive sampler's
 operations are its plain version's on one member per accepted step, times
-the run's accepted steps; the data-likelihood kernels' operations are
-their plain versions' on one member over this run's step table, times the
-members). ``max_abs_err`` is kernel against plain at
+the run's accepted steps; the data-likelihood kernels' operations, both
+paths, are their plain versions' on one member over this run's step
+table, times the members). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
@@ -193,7 +229,9 @@ kernel); and at 8192 members in float32 for the adaptive kernels (phase
 21), the DiagonalEK1 kernels (phase 24, the fixed grid at 500 steps
 under the dynamic diffusion) and the four kernels of phase 27; at 8192 x
 120 on the grid for the data-likelihood kernels (phase 30 in float32, the
-adjoint in float64 of phase 29). The samplers' times, plain times and
+adjoint in float64 of phase 29) and the per-dimension ones (phase 33 in
+float32, prey only; the adjoint with the row's calib_grad=False). The samplers'
+times, plain times and
 bounds are those at S = 8. The EK1 launches are those of
 ``solve_ensemble(EK1)``
 (filter, smoother) and ``sample_ensemble(EK1, S=8)`` (sampler) in
@@ -202,7 +240,9 @@ of phases 20, 23 and 26, the DiagonalEK1 filter's those of the float32
 dynamic fixed-grid door of phase 23, the adaptive sampler's those of the
 float32 ``sample_ensemble(EK0, adaptive=True)`` door at S = 8 of phase 26,
 the data-likelihood kernels' those of the float32 on-grid primal and
-gradient runs of phase 29.
+gradient runs of phase 29, the per-dimension ones those of the float32
+prey-only primal and gradient runs of phase 32; the per-dimension
+adjoint's time is the prey-only row's gradient's, calib_grad=False.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -296,6 +336,9 @@ SOURCE = {
     "ek0_datalik": "odefilters_torch/ops/csrc/ek0_datalik.cu",
     "ek0_datalik_grad_fwd": "odefilters_torch/ops/csrc/ek0_datalik.cu",
     "ek0_datalik_grad_bwd": "odefilters_torch/ops/csrc/ek0_datalik.cu",
+    "ek0_datalik_pd": "odefilters_torch/ops/csrc/ek0_datalik_pd.cu",
+    "ek0_datalik_pd_grad_fwd": "odefilters_torch/ops/csrc/ek0_datalik_pd.cu",
+    "ek0_datalik_pd_grad_bwd": "odefilters_torch/ops/csrc/ek0_datalik_pd.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -322,6 +365,9 @@ REPLACES = {
     "ek0_datalik": "odefilters/ops/pallas_kernels.py:1216",
     "ek0_datalik_grad_fwd": "odefilters/ops/pallas_kernels.py:1375",
     "ek0_datalik_grad_bwd": "odefilters/ops/pallas_kernels.py:1468",
+    "ek0_datalik_pd": "odefilters/ops/pallas_kernels.py:2305",
+    "ek0_datalik_pd_grad_fwd": "odefilters/ops/pallas_kernels.py:2660",
+    "ek0_datalik_pd_grad_bwd": "odefilters/ops/pallas_kernels.py:2756",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -578,6 +624,7 @@ def counters():
     from odefilters_torch.ops import ek0_adaptive as ea
     from odefilters_torch.ops import ek0_adaptive_sample as eas
     from odefilters_torch.ops import ek0_datalik as ed
+    from odefilters_torch.ops import ek0_datalik_pd as edp
     from odefilters_torch.ops import ek0_filter as ef
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
@@ -608,7 +655,10 @@ def counters():
             "ek1_adaptive_smoother": e1a.ek1_adaptive_smoother,
             "ek0_datalik": ed.ek0_datalik,
             "ek0_datalik_grad_fwd": ed.ek0_datalik_grad_fwd,
-            "ek0_datalik_grad_bwd": ed.ek0_datalik_grad_bwd}
+            "ek0_datalik_grad_bwd": ed.ek0_datalik_grad_bwd,
+            "ek0_datalik_pd": edp.ek0_datalik_pd,
+            "ek0_datalik_pd_grad_fwd": edp.ek0_datalik_pd_grad_fwd,
+            "ek0_datalik_pd_grad_bwd": edp.ek0_datalik_pd_grad_bwd}
 
 
 def reset_counts():
@@ -2000,13 +2050,15 @@ def adaptive_sampler_vs_plain(label, smp, rtol):
     return err, p_ms
 
 
-def print_registers(log, names):
+def print_registers(log, names, only=""):
     """The registers and spills that ``nvcc -Xptxas -v`` reported for the
-    kernels ``names`` (each instantiation)."""
+    kernels ``names`` (each instantiation whose mangled name holds
+    ``only``)."""
     entry = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = next((n for n in names if f"{n}_kernel" in line), None)
+            entry = next((n for n in names if f"{n}_kernel" in line
+                          and only in line), None)
             if entry:
                 say(f"   {entry}: {line.split('function')[1].strip()}")
         elif entry and ("registers" in line or "spill" in line):
@@ -2420,6 +2472,9 @@ class DataLik:
     door makes them), seeded cotangents, and both versions of its three
     kernels."""
 
+    NAMES = DL_NAMES
+    TIMED_STOP = False  # the adjoint's plain time: with calib_grad=True
+
     def __init__(self, B, T, dtype, grid, spread):
         from odefilters_torch.ops import ek0_datalik as ed
 
@@ -2485,11 +2540,16 @@ def dl_hold_grads(name, got, ref, hold):
                close(f"{name}, dys", got[2], ref[2], 1e-8, 1e-10))
 
 
-def bitwise_nan(name, got, ref):
+def bitwise_nan(name, got, ref, strict=False):
     """Report whether ``got`` equals ``ref`` bit for bit, a NaN in both
-    counting as equal (the data likelihood's members that diverge)."""
+    counting as equal (the data likelihood's members that diverge); with
+    ``strict``, check it."""
     n = int(((got != ref) & ~(torch.isnan(got) & torch.isnan(ref))).sum())
-    say(f"   {name}: {'bit for bit' if n == 0 else f'{n} entries differ'}")
+    text = f"{name}: {'bit for bit' if n == 0 else f'{n} entries differ'}"
+    if strict:
+        check(n == 0, text)
+    else:
+        say(f"   {text}")
 
 
 def close_where_finite(name, got, ref, rtol, atol):
@@ -2501,31 +2561,36 @@ def close_where_finite(name, got, ref, rtol, atol):
     return close(name, got[fin], ref[fin], rtol, atol)
 
 
-def datalik_vs_plain(label, case, rtol, atol, hold_grads):
-    """Phases 28 and 30 for one ensemble: the primal kernel and the
-    gradient's forward against their plain versions (dll, ll held where the
-    plain version is finite, the two non-finite on the same members;
-    bit-for-bit equality reported; the stream held bit for bit on the
-    members that stay finite), then on those members the adjoint on the
-    plain forward's stream with calib_grad both ways. Returns each kernel's
-    largest |kernel - plain| and the plain versions' milliseconds."""
+def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False):
+    """Phases 28, 30, 31 and 33 for one ensemble: the primal kernel and
+    the gradient's forward against their plain versions (dll, ll held
+    where the plain version is finite, the two non-finite on the same
+    members; bit-for-bit equality, NaN members alike, reported, or with
+    ``strict`` checked; the stream held bit for bit on the members that
+    stay finite), then on those members the adjoint on the plain forward's
+    stream with calib_grad both ways (float32 per-dimension cases:
+    `pd_f32_adjoint`). ``case.NAMES``: its three kernels. Returns each
+    kernel's largest |kernel - plain| (the adjoint's also for each
+    calib_grad, under ``"<name> calib_grad=<bool>"``) and the plain
+    versions' milliseconds."""
+    primal, fwd, bwd = case.NAMES
     err, p_ms = {}, {}
-    (dll_p, ll_p), p_ms["ek0_datalik"] = once(case.primal_plain)
+    (dll_p, ll_p), p_ms[primal] = once(case.primal_plain)
     dll_k, ll_k = case.primal()
     torch.cuda.synchronize()
-    name = f"{label} ek0_datalik_kernel"
-    bitwise_nan(f"{name}, dll", dll_k, dll_p)
-    bitwise_nan(f"{name}, ll", ll_k, ll_p)
-    err["ek0_datalik"] = max(
+    name = f"{label} {primal}_kernel"
+    bitwise_nan(f"{name}, dll", dll_k, dll_p, strict)
+    bitwise_nan(f"{name}, ll", ll_k, ll_p, strict)
+    err[primal] = max(
         close_where_finite(f"{name}, dll", dll_k, dll_p, rtol, atol),
         close_where_finite(f"{name}, ll", ll_k, ll_p, rtol, atol))
-    (dll_p, ll_p, st_p), p_ms["ek0_datalik_grad_fwd"] = once(case.grad_fwd_plain)
+    (dll_p, ll_p, st_p), p_ms[fwd] = once(case.grad_fwd_plain)
     dll_k, ll_k, st_k = case.grad_fwd()
     torch.cuda.synchronize()
-    name = f"{label} ek0_datalik_grad_fwd_kernel"
+    name = f"{label} {fwd}_kernel"
     for what, g, r in (("dll", dll_k, dll_p), ("ll", ll_k, ll_p)):
-        bitwise_nan(f"{name}, {what}", g, r)
-    err["ek0_datalik_grad_fwd"] = max(
+        bitwise_nan(f"{name}, {what}", g, r, strict)
+    err[fwd] = max(
         close_where_finite(f"{name}, dll", dll_k, dll_p, rtol, atol),
         close_where_finite(f"{name}, ll", ll_k, ll_p, rtol, atol))
     keep = (torch.isfinite(st_p).all(dim=(0, 1)) & torch.isfinite(dll_p)
@@ -2537,18 +2602,21 @@ def datalik_vs_plain(label, case, rtol, atol, hold_grads):
     if not keep.all():
         case.restrict(keep)
         st_p = st_p[..., keep].contiguous()
-    err["ek0_datalik_grad_bwd"] = 0.0
+    err[bwd] = 0.0
     for stop in (False, True):
         ref, ms = once(lambda: case.grad_bwd_plain(st_p, stop))
-        if not stop:
-            p_ms["ek0_datalik_grad_bwd"] = ms
+        if stop == case.TIMED_STOP:
+            p_ms[bwd] = ms
         got = case.grad_bwd(st_p, stop)
         torch.cuda.synchronize()
-        err["ek0_datalik_grad_bwd"] = max(
-            err["ek0_datalik_grad_bwd"],
-            dl_hold_grads(f"{label} ek0_datalik_grad_bwd_kernel (calib_grad="
-                          f"{not stop}, on the plain stream)", got, ref,
-                          hold_grads))
+        name = (f"{label} {bwd}_kernel (calib_grad={not stop}, on the plain "
+                "stream)")
+        if hold_grads or not hasattr(case, "grad_bwd_f64"):
+            e = dl_hold_grads(name, got, ref, hold_grads)
+        else:
+            e = pd_f32_adjoint(name, case, st_p, stop, got, ref)
+        err[f"{bwd} calib_grad={not stop}"] = e
+        err[bwd] = max(err[bwd], e)
     return err, p_ms
 
 
@@ -2804,6 +2872,548 @@ def datalik_phases(odt, card, built):
     ms, p_ms, err, bounds = datalik_timing(odt, card)
     err["ek0_datalik_grad_bwd"] = err_adjoint
     print_registers(built["log"], DL_NAMES)
+    return launches, ms, p_ms, err, bounds
+
+
+# The per-dimension data likelihood (phases 31-33): the JAX package's rows
+# tpu_datalik_partial_obs_pallas (prey-only observations, C = [[1, 0]]), its
+# gradient tpu_datalik_partial_obs_grad_pallas (calib_grad=False) and
+# tpu_datalik_ek1d_pallas (DiagonalEK1, full state) of
+# benchmarks/run_all.py:789-820, 848-862, at the width of phases 28-30
+# (8192 candidates, parameters scaled by U(0.8, 1.2), 120 steps, the 9
+# on-grid observations, noise std 0.05), and per-member observations at
+# that width.
+PD_NAMES = ("ek0_datalik_pd", "ek0_datalik_pd_grad_fwd",
+            "ek0_datalik_pd_grad_bwd")
+# The check phase: 3 observations at steps 8, 20 and 32 of T = 40 (the JAX
+# package's own tests), two observation models: C = [[2, 0]] (a scale of 1
+# would hide a missing one) with scalar noise, and the full state with
+# per-dimension noise.
+PD_CHECK_STEPS = np.array([8, 20, 32])
+PD_CHECK_MODELS = {"C=[[2,0]] r=0.1": (np.array([[2.0, 0.0]]), 0.1),
+                   "full r=(0.1,0.3)": (None, np.array([0.1, 0.3]))}
+# The check's cases (DiagonalEK1, model, per-member data): each step and
+# each observation model with shared and with per-member data.
+PD_CHECK_CASES = ((False, "C=[[2,0]] r=0.1", False),
+                  (False, "full r=(0.1,0.3)", True),
+                  (True, "C=[[2,0]] r=0.1", True),
+                  (True, "full r=(0.1,0.3)", False))
+# The path's rows: (obs_matrix, DiagonalEK1, per-member data, the row's
+# gradient's calib_grad).
+PD_ROWS = {"partial": (np.array([[1.0, 0.0]]), False, False, False),
+           "ek1d": (None, True, False, True),
+           "per_member": (None, False, True, True)}
+# The DiagonalEK1 row's float32 dll against float64: every member within
+# DL_NATS + DL_REL |dll64| but at most PD_EK1D_OVER, all finite. It carries
+# the JAX kernel's plain covariance update, which float32 can drive
+# indefinite on a badly fitting member: 1 member of 8192 over the limit in
+# the port, on the card and on the CPU alike, and 15 of 8192 in the JAX
+# kernel's own float32 run on the same inputs (interpret mode on the CPU:
+# test_float32_diagonal_ek1_row_against_jax_float32 in
+# tests/test_torch_ek0_datalik_pd.py). A wrong kernel puts most members
+# over it.
+PD_EK1D_OVER = 8
+# The float32 adjoint (phases 31 and 33) against its plain version on the
+# same stream, and each against the float64 run's adjoint on the same
+# inputs, for two cotangents: seeded normals on (dll, ll), and on dll only
+# (ll's cotangent 0: the gradient of the data log-likelihood that the
+# front door's users take). Held: the kernel no farther from float64 than
+# PD_F32_FACTOR times the plain version, plus PD_F32_ADJOINT, in relative
+# norm, where the plain version has a correct digit (within 1 of float64
+# in every output). Where it has none, the two float32 versions differ by
+# as much as either differs from float64: reported. That happens at 8192 x
+# 120 with calib_grad=True (the calibration's cotangent scales with the
+# residual over hq, and float32 rounds the residual of a well-resolved
+# step to noise) and on the DiagonalEK1 row with the cotangent of ll too
+# (ll sums those residuals).
+PD_F32_FACTOR, PD_F32_ADJOINT = 4.0, 1e-4
+# The float64 adjoint at 8192 x 120 (phase 32): within 1e-8 of each row's
+# scale, or PD_F64_FACTOR times the plain adjoint's own movement when its
+# stream is perturbed by one ulp, whichever is larger. With calib_grad=True
+# that movement exceeds 1e-8 (the prey-only row ~1.5e-8, the DiagonalEK1
+# row ~9e-7: the conditioning that float32 shows, at float64's rounding),
+# and the kernel rounds in another order.
+PD_F64_FACTOR = 4.0
+
+
+def row_scaled(got, ref, members):
+    """(relative norm difference, largest |diff| over its row's scale) of
+    an adjoint output; the rows run over the members (the last axis), or,
+    without a member axis (``members`` false: shared observations), each
+    entry is its own row."""
+    got, ref = got.double(), ref.double()
+    err = (got - ref).abs()
+    scale = ref.abs().amax(dim=-1, keepdim=True) if members else ref.abs()
+    return (float((got - ref).norm() / ref.norm()),
+            float((err / scale.clamp(min=1e-300)).max()))
+
+
+def pd_f32_adjoint(name, case, st, stop_calib, got, ref):
+    """The float32 adjoint ``got`` against its plain version ``ref`` on the
+    stream ``st``, then again with the cotangent of dll only: per output
+    (dm0, dps, dys), the relative norm difference and the largest |diff|
+    over its row's scale, and each version's relative norm distance from
+    the float64 run's adjoint (`DataLikPD.grad_bwd_f64`), held finite and,
+    where the plain version has a correct digit, within PD_F32_FACTOR
+    times the plain version's plus PD_F32_ADJOINT. Returns the largest
+    |kernel - plain| with the first cotangent."""
+    err = None
+    for dll_only in (False, True):
+        if dll_only:
+            got = case.grad_bwd(st, stop_calib, dll_only=True)
+            ref = case.grad_bwd_plain(st, stop_calib, dll_only=True)
+            torch.cuda.synchronize()
+        wit = case.grad_bwd_f64(stop_calib, dll_only)
+        which = "dll only" if dll_only else "dll and ll"
+        rows = [(what, row_scaled(g, r, m), row_scaled(g, w, m)[0],
+                 row_scaled(r, w, m)[0], bool(torch.isfinite(g).all()))
+                for what, g, r, w, m in zip(("dm0", "dps", "dys"), got, ref,
+                                            wit, case.members)]
+        digit = max(dp for *_, dp, _ in rows) < 1.0
+        for what, (rn, rs), dk, dp, finite in rows:
+            text = (f"{name}, cotangent of {which}, {what}: kernel vs plain "
+                    f"relative norm difference {rn:.3e}, largest |diff| / its "
+                    f"row's scale {rs:.3e}; from the float64 run's adjoint: "
+                    f"kernel {dk:.3e}, plain {dp:.3e}; finite={finite}")
+            if digit:
+                check(finite and dk <= PD_F32_FACTOR * dp + PD_F32_ADJOINT,
+                      f"{text}; held: kernel <= {PD_F32_FACTOR:g} x plain + "
+                      f"{PD_F32_ADJOINT:g}")
+            else:
+                check(finite, f"{text} (reported: the plain float32 adjoint "
+                      "has no correct digit here)")
+        if err is None:
+            err = max(float((g.double() - r.double()).abs().max())
+                      for g, r in zip(got, ref))
+    return err
+
+
+def pd_f64_adjoint(name, got, ref, moved, members):
+    """The float64 adjoint ``got`` against its plain version ``ref``, per
+    output: the largest |diff| over its row's scale held within 1e-8 or
+    PD_F64_FACTOR times that of ``moved`` (the plain adjoint on the stream
+    perturbed by one ulp), whichever is larger; all finite."""
+    for what, g, r, mv, m in zip(("dm0", "dps", "dys"), got, ref, moved,
+                                 members):
+        rs, floor = row_scaled(g, r, m)[1], row_scaled(mv, r, m)[1]
+        limit = max(1e-8, PD_F64_FACTOR * floor)
+        finite = bool(torch.isfinite(g).all())
+        check(finite and rs <= limit,
+              f"{name}, {what}: largest |diff| / its row's scale {rs:.3e} <= "
+              f"{limit:.3e} (1e-8, or {PD_F64_FACTOR:g} x {floor:.3e}: the "
+              f"plain adjoint's own movement under a one-ulp perturbation of "
+              f"its stream); max |diff| "
+              f"{float((g.double() - r.double()).abs().max()):.3e}; "
+              f"finite={finite}")
+
+
+def pd_obs(ys, ts, C, B, per_member):
+    """The observations of ``C @ u(t)`` (C None: the full state): shared,
+    ``ys`` of `dl_inputs` through C; per member ``(B, n_obs, d_obs)``, the
+    DOP853 truth through C plus DL_NOISE normals from default_rng(11)."""
+    C = np.eye(2) if C is None else C
+    if not per_member:
+        return ys @ torch.tensor(C.T, dtype=ys.dtype, device=ys.device)
+    truth = lv_truth(ts) @ C.T
+    rng = np.random.default_rng(11)
+    y = truth[None] + DL_NOISE * rng.standard_normal((B,) + truth.shape)
+    return torch.tensor(y, dtype=ys.dtype, device=DEVICE)
+
+
+class DataLikPD:
+    """The per-dimension data likelihood's kernel arguments for one
+    ensemble (as the front door makes them), seeded cotangents, and both
+    versions of its three kernels. The plain versions take the problem's
+    Jacobian diagonal (``jac``'s diagonal, in the CUDA field's order of
+    operations); the kernels evaluate the field's own."""
+
+    NAMES = PD_NAMES
+    TIMED_STOP = True  # the JAX row's gradient: calib_grad=False
+
+    def __init__(self, B, T, dtype, ts, spread, C, noise, diagonal,
+                 per_member):
+        from odefilters_torch.ops import ek0_datalik as ed
+        from odefilters_torch.ops import ek0_datalik_pd as edp
+        from odefilters_torch.ops import ek1d
+
+        self.edp = edp
+        self.spec = (B, T, ts, spread, C, noise, diagonal, per_member)
+        self.keep, self.twin = None, None
+        self.prob, u0s, ps, ys = dl_inputs(B, dtype, ts, spread)
+        ys = pd_obs(ys, ts, C, B, per_member)
+        self.m0_p, self.ps, self.ys, self.table, self.consts = \
+            ed.pd_kernel_inputs(self.prob.f, u0s, ps, DL_TSPAN, T, ts, ys,
+                                noise, Q, obs_matrix=C)
+        self.jd = ek1d.jac_diag_of(self.prob) if diagonal else None
+        self.members = (True, True, per_member)
+        rng = np.random.default_rng(1)
+        self.cts = [torch.tensor(rng.standard_normal(B), dtype=dtype,
+                                 device=DEVICE) for _ in range(2)]
+
+    def restrict(self, keep):
+        """Keep only the members ``keep`` (a boolean mask)."""
+        self.keep = keep
+        self.m0_p = self.m0_p[..., keep].contiguous()
+        self.ps = self.ps[:, keep].contiguous()
+        self.cts = [c[keep].contiguous() for c in self.cts]
+        if self.ys.ndim == 3:
+            self.ys = self.ys[..., keep].contiguous()
+
+    def primal(self):
+        return self.edp.ek0_datalik_pd(
+            self.prob.f, self.jd, self.prob.field, self.m0_p, self.ps,
+            self.ys, self.table, **self.consts)
+
+    def primal_plain(self):
+        return self.edp.ek0_datalik_pd_plain(
+            self.prob.f, self.jd, self.m0_p, self.ps, self.ys, self.table,
+            **self.consts)
+
+    def grad_fwd(self):
+        return self.edp.ek0_datalik_pd_grad_fwd(
+            self.prob.f, self.jd, self.prob.field, self.m0_p, self.ps,
+            self.ys, self.table, **self.consts)
+
+    def grad_fwd_plain(self):
+        return self.edp.ek0_datalik_pd_fwd_stream_plain(
+            self.prob.f, self.jd, self.m0_p, self.ps, self.ys, self.table,
+            **self.consts)
+
+    def _cts(self, dll_only):
+        """The cotangents of (dll, ll); with ``dll_only``, ll's is 0."""
+        ddll, dall = self.cts
+        return ddll, torch.zeros_like(dall) if dll_only else dall
+
+    def grad_bwd(self, st, stop_calib, dll_only=False):
+        return self.edp.ek0_datalik_pd_grad_bwd(
+            self.prob.f, self.jd, self.prob.field, st, self.ps, self.ys,
+            *self._cts(dll_only), self.table, nq=Q + 1,
+            stop_calib=stop_calib, **self.consts)
+
+    def grad_bwd_plain(self, st, stop_calib, dll_only=False):
+        dm0, dps, part = self.edp.ek0_datalik_pd_grad_bwd_plain(
+            self.prob.f, self.jd, st, self.ps, self.ys, *self._cts(dll_only),
+            self.table, nq=Q + 1, stop_calib=stop_calib, **self.consts)
+        return dm0, dps, part if self.ys.ndim == 3 else torch.sum(part, -1)
+
+    def grad_bwd_f64(self, stop_calib, dll_only=False):
+        """The float64 run's plain adjoint on the members kept: the same
+        ensemble in float64, its own plain stream, this case's cotangents
+        upcast; what the float32 adjoint approximates."""
+        if self.twin is None:
+            twin = DataLikPD(*self.spec[:2], torch.float64, *self.spec[2:])
+            if self.keep is not None:
+                twin.restrict(self.keep)
+            twin.cts = [c.double() for c in self.cts]
+            self.twin = twin, twin.grad_fwd_plain()[2]
+        twin, st = self.twin
+        return twin.grad_bwd_plain(st, stop_calib, dll_only)
+
+
+def pd_check():
+    """Phase 31: the three per-dimension kernels against their plain
+    versions at B_CHECK members, T = DL_T_CHECK, 3 observations, float64
+    and float32, in each case of PD_CHECK_CASES (`datalik_vs_plain`,
+    strict: the primal and the gradient's forward bit for bit, NaN members
+    alike)."""
+    ts = PD_CHECK_STEPS * (DL_TSPAN[1] - DL_TSPAN[0]) / DL_T_CHECK
+    for dtype, rtol, atol in ((torch.float64, 1e-10, 1e-12),
+                              (torch.float32, 1e-4, 1e-6)):
+        for diagonal, model, per_member in PD_CHECK_CASES:
+            C, noise = PD_CHECK_MODELS[model]
+            label = (f"{str(dtype).replace('torch.', '')} "
+                     f"{'DiagonalEK1' if diagonal else 'EK0'} {model} "
+                     f"{'per-member' if per_member else 'shared'} ys")
+            case = DataLikPD(B_CHECK, DL_T_CHECK, dtype, ts, DL_SPREAD_CHECK,
+                             C, noise, diagonal, per_member)
+            datalik_vs_plain(label, case, rtol, atol,
+                             hold_grads=dtype == torch.float64, strict=True)
+
+
+def pd_door(odt, prob, u0s, ps, ys, ts, row, calib_grad=True):
+    C, diagonal, _, _ = PD_ROWS[row]
+    return odt.ensemble_data_loglik(
+        prob.f, u0s, ps, DL_TSPAN, DL_T_MAIN, ts, ys, DL_NOISE,
+        field=prob.field, obs_matrix=C, diagonal_ek1=diagonal,
+        calib_grad=calib_grad)
+
+
+def pd_grad(odt, prob, u0s, ps, ys, ts, row, calib_grad):
+    """Gradient of sum(dll) in (u0s, ps, ys) through the front door."""
+    args = [x.clone().requires_grad_() for x in (u0s, ps, ys)]
+    dll, _ = pd_door(odt, prob, *args, ts, row, calib_grad)
+    return torch.autograd.grad(dll.sum(), args)
+
+
+def pd_path(odt):
+    """Phase 32: the front door at the rows of PD_ROWS, float32 and
+    float64, each run with the counts set to 0 before it and read after it:
+    launches 1/0/0 for the primal, 0/1/1 for the row's gradient of sum(dll)
+    in (u0s, ps, ys); shapes and finite values and gradients; float32
+    against float64 on the worst member (DL_NATS + DL_REL |dll|; the
+    DiagonalEK1 row: all but at most PD_EK1D_OVER members) and the float32
+    gradients' relative norm difference from float64 with calib_grad both
+    ways, also without the members over that limit and without the 10
+    members farthest apart; the float64 door's values equal to the primal
+    kernel's; the float64 adjoint against the plain adjoint at this shape
+    with calib_grad both ways (`pd_f64_adjoint`); the float64 gradient
+    (calib_grad=True)
+    against central differences of sum(dll) in ps. Returns the float32
+    partial row's launches."""
+    launches = {}
+    ts = dl_times(DL_T_MAIN, "on")
+    for row, (C, diagonal, per_member, row_calib) in PD_ROWS.items():
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            label = f"{str(dtype).replace('torch.', '')} {row}"
+            prob, u0s, ps, ys = dl_inputs(B_MAIN, dtype, ts, DL_SPREAD)
+            ys = pd_obs(ys, ts, C, B_MAIN, per_member)
+            reset_counts()
+            with torch.no_grad():
+                dll, ll = pd_door(odt, prob, u0s, ps, ys, ts, row)
+            torch.cuda.synchronize()
+            c_primal = read_counts(*PD_NAMES)
+            reset_counts()
+            g = pd_grad(odt, prob, u0s, ps, ys, ts, row, row_calib)
+            torch.cuda.synchronize()
+            c_grad = read_counts(*PD_NAMES)
+            check(tuple(c_primal.values()) == (1, 0, 0)
+                  and tuple(c_grad.values()) == (0, 1, 1),
+                  f"{label}: launches in the primal run {c_primal}, in the "
+                  f"gradient run (calib_grad={row_calib}) {c_grad} (1/0/0 "
+                  "and 0/1/1)")
+            if dtype == torch.float32 and row == "partial":
+                launches = {"ek0_datalik_pd": c_primal["ek0_datalik_pd"],
+                            "ek0_datalik_pd_grad_fwd":
+                                c_grad["ek0_datalik_pd_grad_fwd"],
+                            "ek0_datalik_pd_grad_bwd":
+                                c_grad["ek0_datalik_pd_grad_bwd"]}
+            shapes = (tuple(dll.shape), tuple(ll.shape)) + tuple(
+                tuple(x.shape) for x in g)
+            check(shapes == ((B_MAIN,), (B_MAIN,), (B_MAIN, 2), (B_MAIN, 4),
+                             tuple(ys.shape)),
+                  f"{label}: shapes dll, ll, d/du0s, d/dps, d/dys {shapes}")
+            finite = all(bool(torch.isfinite(x).all()) for x in (dll, ll) + g)
+            check(finite, f"{label}: values and gradients finite")
+            g_other = pd_grad(odt, prob, u0s, ps, ys, ts, row, not row_calib)
+            out[dtype] = (prob, u0s, ps, ys, dll, ll,
+                          {row_calib: g, not row_calib: g_other})
+        prob64, u64, p64, y64, dll64, ll64, g64 = out[torch.float64]
+        dll32, g32 = out[torch.float32][4], out[torch.float32][6]
+        err = (dll32.double() - dll64).abs()
+        ratio = err / (DL_NATS + DL_REL * dll64.abs())
+        member = int(ratio.argmax())
+        over = ratio > 1
+        text = (f"{row} float32 vs float64 dll, worst member {member}: |diff| "
+                f"{float(err[member]):.3e} nats <= {DL_NATS} + {DL_REL} "
+                f"|dll64| (dll64 {float(dll64[member]):.6f}), "
+                f"{float(ratio[member]):.3f} of the limit; "
+                f"{int(over.sum())} members over it "
+                f"{torch.nonzero(over).flatten().tolist()[:20]}; the next "
+                f"{float(ratio[~over].max()):.3f} of it; largest |diff| "
+                f"{float(err.max()):.3e}")
+        finite = bool(torch.isfinite(dll32).all())
+        if diagonal:
+            check(finite and int(over.sum()) <= PD_EK1D_OVER,
+                  f"{text}; held: at most {PD_EK1D_OVER} members over it "
+                  "(DiagonalEK1's float32 plain covariance), all finite")
+        else:
+            check(finite and float(ratio[member]) <= 1.0, text)
+        for calib in (row_calib, not row_calib):
+            gap = ((g32[calib][0].double() - g64[calib][0]).norm(dim=1)
+                   + (g32[calib][1].double() - g64[calib][1]).norm(dim=1))
+            far = torch.zeros_like(over)
+            far[torch.argsort(gap, descending=True)[:10]] = True
+            parts = []
+            for n, x, y in zip(("u0s", "ps", "ys"), g32[calib], g64[calib]):
+                x = x.double()
+                text = f"d/d{n} {float((x - y).norm() / y.norm()):.3e}"
+                if n != "ys":
+                    text += " (" + ", ".join(
+                        f"without {what} "
+                        f"{float((x - y)[~m].norm() / y[~m].norm()):.3e}"
+                        for what, m in (("those over the dll limit", over),
+                                        ("the 10 farthest apart", far))) + ")"
+                parts.append(text)
+            say(f"   {row} float32 vs float64 gradient of sum(dll), calib_grad="
+                f"{calib}: relative norm difference {', '.join(parts)}; the "
+                f"10 members farthest apart "
+                f"{torch.nonzero(far).flatten().tolist()} (reported)")
+        case = DataLikPD(B_MAIN, DL_T_MAIN, torch.float64, ts, DL_SPREAD, C,
+                         DL_NOISE, diagonal, per_member)
+        dll_k, ll_k = case.primal()
+        check(torch.equal(dll_k, dll64) and torch.equal(ll_k, ll64),
+              f"{row} f64: the front door's values are the primal kernel's")
+        st = case.grad_fwd_plain()[2]
+        rng = np.random.default_rng(3)
+        st_ulp = st * (1 + 2.0 ** -52 * torch.tensor(
+            rng.standard_normal(tuple(st.shape)), device=DEVICE))
+        for stop in (True, False):
+            got = case.grad_bwd(st, stop)
+            ref = case.grad_bwd_plain(st, stop)
+            moved = case.grad_bwd_plain(st_ulp, stop)
+            torch.cuda.synchronize()
+            pd_f64_adjoint(f"{row} f64 ek0_datalik_pd_grad_bwd_kernel "
+                           f"(calib_grad={not stop}) vs plain at {B_MAIN} x "
+                           f"{DL_T_MAIN}", got, ref, moved, case.members)
+        del case, st, st_ulp
+        # central differences of sum(dll) in ps, float64, along a seeded
+        # direction, against the calib_grad=True gradient
+        g_full = g64[True]
+        rng = np.random.default_rng(7)
+        v = torch.tensor(rng.standard_normal(tuple(p64.shape)),
+                         device=DEVICE) * p64
+        ad = float((g_full[1] * v).sum())
+        for eps in (1e-4, 1e-5, 1e-6):
+            with torch.no_grad():
+                plus, minus = (float(pd_door(odt, prob64, u64, p64 + s * v,
+                                             y64, ts, row)[0].sum())
+                               for s in (eps, -eps))
+            fd = (plus - minus) / (2 * eps)
+            r = abs(fd - ad) / abs(ad)
+            text = (f"{row} f64 gradient of sum(dll) in ps vs central "
+                    f"difference, step {eps:g}: autograd {ad:.9e}, difference "
+                    f"{fd:.9e}, relative {r:.3e}")
+            if eps == 1e-6:
+                check(r <= 1e-6, f"{text} <= 1e-6")
+            else:
+                say(f"   {text} (reported)")
+        del out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def pd_bounds(case, T, item):
+    """{name: (bound_ms, bound_by, operations per member)} of the three
+    per-dimension kernels at B_MAIN members: the bytes each must move (the
+    table, the observations, the stream, inputs and outputs once) and the
+    plain versions' operations on one member of the same model over T
+    steps, times B_MAIN."""
+    nq, d, n_p = Q + 1, 2, 4
+    ts = dl_times(DL_T_MAIN, "on")
+    one = DataLikPD(1, T, torch.float32, ts, DL_SPREAD, *case)
+    st1 = one.grad_fwd_plain()[2]
+    ops = {"ek0_datalik_pd": ops_of(one.primal_plain),
+           "ek0_datalik_pd_grad_fwd": ops_of(one.grad_fwd_plain),
+           "ek0_datalik_pd_grad_bwd": ops_of(
+               lambda: one.grad_bwd_plain(st1, True))}
+    n_obs, d_obs = one.ys.shape[:2]
+    V = st1.shape[1]
+    per_member_ys = n_obs * d_obs * B_MAIN * item if one.ys.ndim == 3 else 0
+    shared = (T * item + 2 * T * 4 + (0 if one.ys.ndim == 3
+                                      else n_obs * d_obs * item))
+    init = (nq * d + n_p) * B_MAIN * item
+    stream = T * V * B_MAIN * item
+    outs = 2 * B_MAIN * item
+    nbytes = {"ek0_datalik_pd": init + shared + per_member_ys + outs,
+              "ek0_datalik_pd_grad_fwd": init + shared + per_member_ys + outs
+              + stream,
+              "ek0_datalik_pd_grad_bwd": stream + n_p * B_MAIN * item + shared
+              + per_member_ys + outs + init + n_obs * d_obs * B_MAIN * item}
+    return {name: bound(nbytes[name], ops[name], B_MAIN, 1) + (ops[name],
+                                                               nbytes[name])
+            for name in PD_NAMES}
+
+
+def pd_timing(odt, card):
+    """Phase 33: float32 at the rows' width: each row's kernels against
+    their plain versions (`datalik_vs_plain`, strict: the primal and the
+    gradient's forward bit for bit; the adjoint by `pd_f32_adjoint`), the
+    kernels' times (median of 20 after 3 warm-ups, CUDA events; the
+    adjoint with the partial row's calib_grad=False, the other reported)
+    of the partial and DiagonalEK1 rows, the doors' candidates/s and
+    gradient candidates/s beside the host step table and the Taylor init
+    timed alone, and the kernels' bounds. Returns (ms, plain ms, max
+    |kernel - plain|, bounds) of the partial row."""
+    from odefilters_torch.ops import ek0_datalik as ed
+
+    ts = dl_times(DL_T_MAIN, "on")
+    ms_rows = {}
+    for row in ("partial", "ek1d", "per_member"):
+        C, diagonal, per_member, _ = PD_ROWS[row]
+        case = DataLikPD(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD, C,
+                         DL_NOISE, diagonal, per_member)
+        e, pm = datalik_vs_plain(f"f32 {row} at {B_MAIN} x {DL_T_MAIN}", case,
+                                 1e-4, 1e-6, hold_grads=False, strict=True)
+        if row == "partial":
+            err, p_ms = e, pm
+        if row == "per_member":
+            del case
+            continue
+        st = case.grad_fwd()[2]
+        ms = {"ek0_datalik_pd": time_ms(case.primal, warmup=3, iters=20),
+              "ek0_datalik_pd_grad_fwd": time_ms(case.grad_fwd, warmup=3,
+                                                 iters=20),
+              "ek0_datalik_pd_grad_bwd": time_ms(
+                  lambda: case.grad_bwd(st, True), warmup=3, iters=20)}
+        ms_full = time_ms(lambda: case.grad_bwd(st, False), warmup=3,
+                          iters=20)
+        say(f"   {row}: " + ", ".join(f"{n} kernel {ms[n]:.4f} ms"
+                                      for n in PD_NAMES)
+            + f" (calib_grad=True: {ms_full:.4f} ms) (card: {card})")
+        ms_rows[row] = ms
+        del case, st
+        torch.cuda.empty_cache()
+    for name in PD_NAMES:
+        say(f"   {name}: plain {p_ms[name]:.1f} ms (partial row)")
+    for row in ("partial", "ek1d"):
+        C, diagonal, per_member, row_calib = PD_ROWS[row]
+        prob, u0s, ps, ys = dl_inputs(B_MAIN, torch.float32, ts, DL_SPREAD)
+        ys = pd_obs(ys, ts, C, B_MAIN, per_member)
+
+        def primal():
+            with torch.no_grad():
+                pd_door(odt, prob, u0s, ps, ys, ts, row)
+
+        def table():
+            ed.data_table(DL_TSPAN, DL_T_MAIN, ts, Q, torch.float32, DEVICE)
+
+        def init():
+            with torch.no_grad():
+                ed.initial_means(prob.f, u0s, ps, DL_TSPAN, DL_T_MAIN, Q)
+
+        t_ms = time_ms(table, warmup=3, iters=20)
+        i_ms = time_ms(init, warmup=3, iters=20)
+        d_ms = time_ms(primal, warmup=3, iters=20)
+        g_ms = time_ms(lambda: pd_grad(odt, prob, u0s, ps, ys, ts, row,
+                                       row_calib), warmup=3, iters=20)
+        say(f"   {row} float32 ensemble_data_loglik: {d_ms:.3f} ms = "
+            f"{B_MAIN / d_ms * 1e3:.0f} candidates/s; forward + backward of "
+            f"sum(dll) (calib_grad={row_calib}): {g_ms:.3f} ms = "
+            f"{B_MAIN / g_ms * 1e3:.0f} gradient candidates/s; of the primal "
+            f"door: the step table's host build {t_ms:.3f} ms, the Taylor "
+            f"init {i_ms:.3f} ms, the kernel "
+            f"{ms_rows[row]['ek0_datalik_pd']:.4f} ms")
+    C, diagonal, per_member, _ = PD_ROWS["partial"]
+    bounds = pd_bounds((C, DL_NOISE, diagonal, per_member), DL_T_MAIN, 4)
+    for name in PD_NAMES:
+        b_ms, b_by, ops, nbytes = bounds[name]
+        say(f"   {name}: {ops} operations per member over {DL_T_MAIN} steps; "
+            f"{nbytes / 1e6:.1f} MB; bound {b_ms:.4f} ms by {b_by}")
+    return ms_rows["partial"], p_ms, err, {n: b[:3] for n, b in bounds.items()}
+
+
+def pd_phases(odt, card, built):
+    """Phases 31-33. Returns (launches on the main path's runs, ms, plain
+    ms, max |kernel - plain|, bounds) of the three per-dimension kernels."""
+    say(f"== 31. the per-dimension data-likelihood kernels vs plain, "
+        f"B={B_CHECK}, LV over {DL_TSPAN}, T={DL_T_CHECK}, 3 observations, "
+        "EK0 and DiagonalEK1, shared and per-member data, float64 and "
+        "float32, calib_grad both ways")
+    pd_check()
+    say(f"== 32. the per-dimension path: ensemble_data_loglik, B={B_MAIN}, "
+        f"LV over {DL_TSPAN}, T={DL_T_MAIN}, 9 observations: prey only, "
+        "DiagonalEK1, per-member data")
+    launches = pd_path(odt)
+    say(f"== 33. the per-dimension kernels vs plain and timing, float32, "
+        f"B={B_MAIN}, T={DL_T_MAIN}")
+    ms, p_ms, err, bounds = pd_timing(odt, card)
+    # the adjoint as the main path ran it: the partial row's gradient,
+    # calib_grad=False
+    err["ek0_datalik_pd_grad_bwd"] = err["ek0_datalik_pd_grad_bwd "
+                                         "calib_grad=False"]
+    # the path's instantiations: float32, Lotka-Volterra
+    print_registers(built["log"], PD_NAMES, only="LotkaVolterraIf")
     return launches, ms, p_ms, err, bounds
 
 
@@ -3151,6 +3761,9 @@ def main() -> int:
     dl_launches, dl_ms, dl_plain_ms, dl_err, dl_bounds = datalik_phases(
         odt, card, built)
     launches.update(dl_launches)
+    pd_launches, pd_ms, pd_plain_ms, pd_err, pd_bounds_ = pd_phases(
+        odt, card, built)
+    launches.update(pd_launches)
 
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
@@ -3171,18 +3784,20 @@ def main() -> int:
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
           **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms, **ea_ms,
-          "ek0_adaptive_sampler": sm_ms, **dl_ms}
+          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
                 **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
                 "ek1d_filter": d_plain_ms, **da_plain_ms, **ea_plain_ms,
-                "ek0_adaptive_sampler": sm_plain_ms, **dl_plain_ms}
+                "ek0_adaptive_sampler": sm_plain_ms, **dl_plain_ms,
+                **pd_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
             **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err,
-            **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err}
+            **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err, **pd_err}
     bounds.update(a_bounds)
     bounds.update(da_bounds)
     bounds.update(ea_bounds)
     bounds.update(dl_bounds)
+    bounds.update(pd_bounds_)
     bounds["ek1d_filter"] = d_bound
     bounds["ek0_adaptive_sampler"] = sm_bound
     kernels = [

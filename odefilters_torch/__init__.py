@@ -15,10 +15,11 @@ per-member log-likelihood (dynamic or static diffusion) and that
 likelihood's gradient by ``torch.autograd``, joint smoothing-posterior
 sample paths (dynamic diffusion), and the same solve (dynamic, fixed or
 fixedMAP; with or without the smoother) and sampler with EK1, and the
-ensemble IEKS; and the per-candidate data likelihood of noisy full-state
-observations on or off the grid with its gradient (``ensemble_data_loglik``,
-isotropic EK0). Vector fields with CUDA kernels: FitzHugh-Nagumo and
-Lotka-Volterra::
+ensemble IEKS; and the per-candidate data likelihood with its gradient
+(``ensemble_data_loglik``): noisy full-state observations on or off the
+grid (isotropic EK0), and on the grid partial one-hot observations,
+per-dimension noise, per-member data and DiagonalEK1. Vector fields with
+CUDA kernels: FitzHugh-Nagumo and Lotka-Volterra::
 
     import torch
     import odefilters_torch as odt
@@ -52,6 +53,9 @@ Lotka-Volterra::
     dll, ll = odt.ensemble_data_loglik(lv.f, u0s, ps, lv.tspan, 120, ts, ys,
                                        0.05, field=lv.field)  # (B,) each,
                                        # differentiable in u0s, ps and ys
+    odt.ensemble_data_loglik(lv.f, u0s, ps, lv.tspan, 120, ts, ys[:, :1],
+                             0.05, obs_matrix=[[1.0, 0.0]],
+                             field=lv.field)  # prey only, ts on the grid
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from odefilters_torch import models
+from odefilters_torch.ops.ek0_datalik_pd import pd_layout
 from odefilters_torch.problem import ODEProblem, resolve_device
 
 _MODELS = {"fitzhugh_nagumo": models.fitzhugh_nagumo,
@@ -80,6 +81,26 @@ def state_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
     ], axis=1)
     return torch.as_tensor(np.ascontiguousarray(rows), dtype=dtype,
                            device=resolve_device(device))
+
+
+def pd_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
+                        dtype=torch.float64):
+    """The JAX package's per-dimension data-likelihood stream (the residual
+    of ``_ek0_datalik_pd_vjp_fwd``) as numpy, ``(nb, T, nq, W, 8, 128)``
+    with ``W = d + d nq`` and derivative row i ``[m[i] (d) | C_0[i] (nq) |
+    ... | C_{d-1}[i] (nq)]``, reordered into the port's stream ``(T, V, B)``
+    (``ops.ek0_datalik_pd.pd_layout``: the rows i one after the other,
+    ``V = nq W``; member ``blk*1024 + sub*128 + lane``), on ``device`` (the
+    CUDA card unless given)."""
+    st = np.asarray(st)
+    W, V = pd_layout(nq, d)
+    if st.ndim != 6 or st.shape[2:4] != (nq, W):
+        raise ValueError(
+            f"expected a (nb, T, {nq}, {W}, sub, lane) stream, got {st.shape}"
+        )
+    nb, T, _, _, sub, lane = st.shape
+    x = st.transpose(1, 2, 3, 0, 4, 5).reshape(T, V, nb * sub * lane)
+    return torch.tensor(x, dtype=dtype, device=resolve_device(device))
 
 
 def ek1_normals_from_numpy(z, *, device="cuda", dtype=torch.float64):

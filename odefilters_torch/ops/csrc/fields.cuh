@@ -7,7 +7,10 @@
 // (df/dp)^T g to gp (the filter's hand-written adjoint calls it), and its
 // Jacobian jac(u, p, t, J), J = df/du row-major D x D (the EK1 kernels
 // evaluate it in the kernel), and its diagonal jac_diag(u, p, t, jd), the
-// entries J[j][j] as jac computes them (the DiagonalEK1 kernels). The
+// entries J[j][j] as jac computes them (the DiagonalEK1 kernels), with its
+// vector-Jacobian product jac_diag_vjp(u, p, t, g, gu, gp), which writes
+// gu = (d jd/du)^T g and adds (d jd/dp)^T g to gp (the per-dimension data
+// likelihood's hand-written DiagonalEK1 adjoint). The
 // order of operations follows the model's PyTorch form in
 // odefilters_torch/models/library.py, which the plain versions evaluate
 // and differentiate by autograd; a field is selected by the name that
@@ -64,6 +67,19 @@ struct Fhn {
     jd[0] = S(1) - v * v;
     jd[1] = -tinv * b;
   }
+
+  // jd = (1 - v^2, -tinv b)
+  __device__ __forceinline__ void jac_diag_vjp(const S* u, const S* p, S t,
+                                               const S* g, S* gu,
+                                               S* gp) const {
+    (void)t;
+    const S b = p[1], tinv = p[2];
+    const S v = u[0];
+    gu[0] = -g[0] * (v + v);
+    gu[1] = S(0);
+    gp[1] -= g[1] * tinv;
+    gp[2] -= g[1] * b;
+  }
 };
 
 // Lotka-Volterra, p = (a, b, c, d): "lv". -c * y is the negation of c times
@@ -113,5 +129,20 @@ struct LotkaVolterra {
     const S x = u[0], y = u[1];
     jd[0] = a - b * y;
     jd[1] = -c + d * x;
+  }
+
+  // jd = (a - b y, -c + d x)
+  __device__ __forceinline__ void jac_diag_vjp(const S* u, const S* p, S t,
+                                               const S* g, S* gu,
+                                               S* gp) const {
+    (void)t;
+    const S b = p[1], d = p[3];
+    const S x = u[0], y = u[1];
+    gu[0] = g[1] * d;
+    gu[1] = -g[0] * b;
+    gp[0] += g[0];
+    gp[1] -= g[0] * y;
+    gp[2] -= g[1];
+    gp[3] += g[1] * x;
   }
 };

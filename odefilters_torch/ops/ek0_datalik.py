@@ -25,10 +25,14 @@ this module                            ``odefilters/ops/pallas_kernels.py``
                                        ``ek0_datalik_grad_bwd_kernel``)
 ``EK0DataLik``                         the ``jax.custom_vjp``
                                        ``_ek0_datalik_vjp``
-``kernel_inputs``                      its Taylor init, preconditioning
-                                       and schedule
+``kernel_inputs``,                     its Taylor init, preconditioning
+``pd_kernel_inputs``                   and schedule (isotropic; per
+                                       dimension: its one-hot rows and
+                                       noise vector)
 ``ensemble_data_loglik``               ``ensemble_data_loglik_pallas``
-                                       (its isotropic EK0 path)
+                                       (its isotropic EK0 path here, its
+                                       per-dimension EK0 / DiagonalEK1
+                                       path in `ek0_datalik_pd`)
 =====================================  ======================================
 
 The filter is the EK0 filter with the dynamic diffusion
@@ -77,9 +81,11 @@ import numpy as np
 import torch
 
 from odefilters_torch.ops import _launch
+from odefilters_torch.ops import ek0_datalik_pd as edp
 from odefilters_torch.ops import ek0_pair as ep
 from odefilters_torch.ops._blocks import _lists, _sreduce
 from odefilters_torch.ops.ek0_filter import ll_increment
+from odefilters_torch.ops.ek1d import auto_jac_diag
 
 _LOG_2PI = math.log(2.0 * math.pi)
 BX = 1  # the measured derivative block
@@ -615,8 +621,9 @@ class EK0DataLik(torch.autograd.Function):
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"ensemble_data_loglik: {what} is not ported yet ({item}); the port "
-        "runs the isotropic EK0 path: full-state observations, scalar noise, "
-        "observations shared by all members"
+        "runs the EK0 and DiagonalEK1 paths: (scaled) one-hot observation "
+        "rows, scalar or per-dimension noise, observations shared by all "
+        "members or per member"
     )
 
 
@@ -700,6 +707,40 @@ def kernel_inputs(prob_f: Callable, u0s, ps, tspan, n_steps: int, ts_data,
         table, consts
 
 
+def pd_kernel_inputs(prob_f: Callable, u0s, ps, tspan, n_steps: int, ts_data,
+                     ys, obs_noise_std, q: int = 3, *, obs_matrix=None,
+                     schedule=None):
+    """What `ensemble_data_loglik` hands the per-dimension kernels for an
+    ensemble ``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``, observations
+    ``ys`` ``(n_obs, d_obs)`` or ``(B, n_obs, d_obs)`` of the (scaled)
+    one-hot rows ``obs_matrix`` (None: the identity) with noise std
+    ``obs_noise_std`` (a scalar or ``(d_obs,)``): ``(m0_p, ps_t, ys,
+    table, consts)``, `initial_means`, the observations in the solve's
+    dtype (per member as ``(n_obs, d_obs, B)``, so that the kernels' reads
+    coalesce over the members), `data_table` (on the grid; ``schedule`` as
+    there) and the constants ``At, Qt, pinv0, pinv1, obs_dims, obs_scales,
+    r2s``. Differentiable in ``u0s``, ``ps`` and ``ys``."""
+    d = u0s.shape[1]
+    C_sel = np.eye(d) if obs_matrix is None else np.asarray(obs_matrix,
+                                                            np.float64)
+    obs_dims, obs_scales = edp.obs_rows(C_sel)
+    r_std = np.asarray(obs_noise_std, np.float64)
+    r2s = np.full(len(obs_dims), float(r_std) ** 2) if r_std.ndim == 0 \
+        else r_std ** 2
+    dt = (float(tspan[1]) - float(tspan[0])) / int(n_steps)
+    m0_p, ps_t = initial_means(prob_f, u0s, ps, tspan, n_steps, q)
+    table = data_table(tspan, n_steps, ts_data, q, u0s.dtype, u0s.device,
+                       schedule)
+    At, Qt, _, p = ep.pair_constants(q, dt)
+    consts = dict(At=At, Qt=Qt, pinv0=float(1.0 / p[0]),
+                  pinv1=float(1.0 / p[1]), obs_dims=obs_dims,
+                  obs_scales=obs_scales, r2s=tuple(float(r) for r in r2s))
+    ys = torch.as_tensor(ys, device=u0s.device).to(u0s.dtype)
+    if ys.ndim == 3:
+        ys = ys.permute(1, 2, 0).contiguous()
+    return m0_p, ps_t, ys, table, consts
+
+
 def ensemble_data_loglik(
     prob_f: Callable,
     u0s: torch.Tensor,
@@ -724,15 +765,26 @@ def ensemble_data_loglik(
 ):
     """Per-member marginal data log-likelihood of an ensemble of B
     candidates ``(u0, p)`` (``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``,
-    any B) from the fused EK0 filter over ``n_steps`` uniform steps of
-    ``tspan``, with dynamic diffusion.
+    any B) from the fused EK0 (or, with ``diagonal_ek1``, DiagonalEK1)
+    filter over ``n_steps`` uniform steps of ``tspan``, with dynamic
+    diffusion.
 
-    ``ts_data``: strictly increasing observation times in ``(t0, t1]``, on
-    the uniform grid or off it (merged into it on the host, as
-    `odefilters_torch.datalik._merged_grid` does); ``ys`` ``(n_obs, d)``:
-    full-state observations shared by all members, with noise std
-    ``obs_noise_std`` (a scalar). ``field``: the CUDA vector field of
-    ``prob_f`` (``ODEProblem.field``), which the kernels need on the card.
+    ``ts_data``: strictly increasing observation times in ``(t0, t1]``;
+    ``ys``: the observations, ``(n_obs, d_obs)`` shared by all members or
+    ``(B, n_obs, d_obs)`` per member, of ``obs_matrix @ u(t)`` (``(d_obs,
+    d)`` (scaled) one-hot rows; None: the full state) with noise std
+    ``obs_noise_std`` (a scalar or a ``(d_obs,)`` vector). ``jac_diag``:
+    the Jacobian diagonal ``(u, p, t) -> (d, B)`` for ``diagonal_ek1``
+    (None: d JVPs of ``prob_f``; the card's kernels evaluate the CUDA
+    field's own). ``field``: the CUDA vector field of ``prob_f``
+    (``ODEProblem.field``), which the kernels need on the card.
+
+    Full-state observations with scalar noise shared by all members run
+    the isotropic EK0 kernels, with the observation times on the uniform
+    grid or off it (merged into it on the host, as
+    `odefilters_torch.datalik._merged_grid` does); every other observation
+    model runs the per-dimension kernels (`ek0_datalik_pd`), on the grid
+    only, as in the JAX package.
 
     Returns ``(data_ll, ode_ll)``, each ``(B,)``, differentiable in
     ``u0s``, ``ps`` and ``ys``. ``calib_grad=False`` treats the per-step
@@ -741,11 +793,12 @@ def ensemble_data_loglik(
     where the full one is dominated by innovations at the solver's
     accuracy floor.
 
-    The JAX package's other observation models raise
-    ``NotImplementedError``: ``obs_matrix``, per-dimension noise,
-    per-member ``ys`` and ``diagonal_ek1`` (ROADMAP.md queue 2, item 19),
-    ``ek1`` (item 20), ``second_order`` and ``prior`` (queue 1, item 5) and
-    ``mesh``. ``jac`` and ``jac_diag`` serve those paths only.
+    Raises as the JAX package does: ``ValueError`` for dense observation
+    rows ("one-hot") and for ``ek1`` with ``diagonal_ek1``,
+    ``NotImplementedError`` for off-grid times outside the isotropic
+    path. Not ported yet (``NotImplementedError``): ``ek1`` (ROADMAP.md
+    queue 2, item 20), ``second_order`` and ``prior`` (queue 1, item 5);
+    ``mesh``. ``jac`` serves the EK1 path only.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -792,18 +845,21 @@ def ensemble_data_loglik(
     _launch.check_ported(prior=prior, second_order=second_order, mesh=None)
     if ek1:
         _not_ported("ek1=True", "ROADMAP.md queue 2, item 20")
-    if diagonal_ek1:
-        _not_ported("diagonal_ek1=True", "ROADMAP.md queue 2, item 19")
-    if C_np is not None:
-        _not_ported("obs_matrix", "ROADMAP.md queue 2, item 19")
-    if r_std.ndim != 0:
-        _not_ported("per-dimension noise", "ROADMAP.md queue 2, item 19")
-    if y_batched:
-        _not_ported("per-member observations", "ROADMAP.md queue 2, item 19")
-    m0_p, ps_t, ys, table, consts = kernel_inputs(
-        prob_f, u0s, ps, tspan, n_steps, ts_data, ys, float(r_std), q,
-        schedule)
+    if iso:
+        m0_p, ps_t, ys, table, consts = kernel_inputs(
+            prob_f, u0s, ps, tspan, n_steps, ts_data, ys, float(r_std), q,
+            schedule)
+    else:
+        m0_p, ps_t, ys, table, consts = pd_kernel_inputs(
+            prob_f, u0s, ps, tspan, n_steps, ts_data, ys, r_std, q,
+            obs_matrix=C_np, schedule=schedule)
     want_grad = torch.is_grad_enabled() and (
         m0_p.requires_grad or ps_t.requires_grad or ys.requires_grad)
-    return EK0DataLik.apply(m0_p, ps_t, ys, prob_f, field, table, consts,
-                            not calib_grad, want_grad)
+    if iso:
+        return EK0DataLik.apply(m0_p, ps_t, ys, prob_f, field, table, consts,
+                                not calib_grad, want_grad)
+    jd = None
+    if diagonal_ek1:
+        jd = jac_diag if jac_diag is not None else auto_jac_diag(prob_f)
+    return edp.EK0DataLikPD.apply(m0_p, ps_t, ys, prob_f, jd, field, table,
+                                  consts, not calib_grad, want_grad)

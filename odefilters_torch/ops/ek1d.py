@@ -11,7 +11,8 @@ this module                         ``odefilters/ops/pallas_kernels.py`` and
 ``jac_diag_of``                     the front door's choice of the Jacobian
                                     diagonal (``ensemble.py``)
 ``ek1d_pd_step``                    ``_ek1d_pd_step_lists`` (dynamic and
-                                    static; the f32 residual rounded once)
+                                    static, ``stop_calib``; the f32
+                                    residual rounded once)
 ``ek1d_filter_plain`` /             ``_ek1d_kernel`` (CUDA:
 ``ek1d_filter``                     ``csrc/ek1d.cu::ek1d_filter_kernel``)
 ``ek1d_fused_filter``               ``ek1d_fused_filter``
@@ -94,12 +95,15 @@ def jac_diag_of(prob) -> Optional[Callable]:
 
 def ek1d_pd_step(m, C, p, t_new, *, f: Callable, jac_diag: Callable, At, Qt,
                  pinv0: float, pinv1: float, d: int, nq: int,
-                 static_diff: Optional[str] = None, calib=None):
+                 static_diff: Optional[str] = None, calib=None,
+                 stop_calib: bool = False):
     """One DiagonalEK1 step with per-dimension covariances. ``m``: nq x d
     and ``C``: d blocks of nq x nq, lists of ``(B,)`` tensors; ``At``,
     ``Qt``: nested Python floats. Returns ``(m_new, C_new, ll_inc)``, and
     the updated ``calib = (sig, k)`` under a static diffusion (which
-    filters with the unscaled prior, s2 = 1)."""
+    filters with the unscaled prior, s2 = 1). ``stop_calib``: the dynamic
+    s2 is detached, so a gradient treats it as part of the model (the
+    values are the same)."""
     mp = [[_sreduce([At[i][l] * m[l][j] for l in range(nq) if At[i][l] != 0.0])
            for j in range(d)] for i in range(nq)]
     u_pred = torch.stack([pinv0 * mp[0][j] for j in range(d)])
@@ -118,6 +122,8 @@ def ek1d_pd_step(m, C, p, t_new, *, f: Callable, jac_diag: Callable, At, Qt,
     else:
         hq = [h_quad(Qt, j) for j in range(d)]
         s2 = _sreduce([z[j] * z[j] / hq[j] for j in range(d)]) / d
+        if stop_calib:
+            s2 = s2.detach()
 
     m_new = [[None] * d for _ in range(nq)]
     C_new, inv_s_list, ll_inc = [], [], None

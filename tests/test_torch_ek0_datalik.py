@@ -526,11 +526,18 @@ def _door_args(**over):
     return args
 
 
+# The per-dimension path (obs_matrix, a noise vector, per-member ys,
+# DiagonalEK1) runs on the grid only, as in the JAX package: off the grid
+# it raises.
+OFF = np.array([0.55, 1.5])
+
+
 @pytest.mark.parametrize("over,item", [
-    (dict(obs_matrix=np.eye(D)), "item 19"),
-    (dict(obs_noise_std=np.array([0.1, 0.2])), "item 19"),
-    (dict(ys=torch.zeros(4, 2, D, dtype=torch.float64)), "item 19"),
-    (dict(diagonal_ek1=True), "item 19"),
+    (dict(obs_matrix=np.eye(D), ts_data=OFF), "off-grid"),
+    (dict(obs_noise_std=np.array([0.1, 0.2]), ts_data=OFF), "off-grid"),
+    (dict(ys=torch.zeros(4, 2, D, dtype=torch.float64), ts_data=OFF),
+     "off-grid"),
+    (dict(diagonal_ek1=True, ts_data=OFF), "off-grid"),
     (dict(ek1=True), "item 20"),
     (dict(second_order=True, u0s=torch.ones(4, 2 * D, dtype=torch.float64)),
      "item 5"),

@@ -221,6 +221,62 @@ def test_step_matches_jax_over_chained_steps(diffusion):
                                            rtol=1e-12, atol=1e-12 * scale.max())
 
 
+@pytest.mark.parametrize("stop_calib", [False, True])
+def test_step_stop_calib_matches_jax(stop_calib):
+    """`ek1d_pd_step(stop_calib=...)` == `_ek1d_pd_step_lists(stop_calib=
+    ...)` in value (rtol 1e-12) and VJP (1e-10 of the scale over the
+    members); the values equal the default's bit for bit, and the
+    ``stop_calib=True`` VJP is the default's without the s2 path."""
+    m, C, ps = _conditioned_state(n=32)
+    kw = _step_consts()
+    At, Qt, _ = ek1d.filter_constants(Q, DT_FIX, torch.float64)
+    jkw = dict(At=At, Qt=Qt, pinv0=kw["pinv0"], pinv1=kw["pinv1"], d=D, nq=NQ)
+    jprob = odf.models.fitzhugh_nagumo()
+    prob = odt.models.fitzhugh_nagumo(device="cpu")
+    t = 0.52
+
+    def jfun(m, C, p):
+        return pk._ek1d_pd_step_lists(
+            m, C, p, jnp.float64(t), f=jprob.f, jac_diag=_jax_jac_diag(jprob),
+            stop_calib=stop_calib, **jkw)
+
+    def tfun(m, C, p, **over):
+        return ek1d.ek1d_pd_step(m, C, p, torch.tensor(t, dtype=torch.float64),
+                                 f=prob.f, jac_diag=fhn_jac_diag, **kw, **over)
+
+    jin = ([[jnp.asarray(m[i, j]) for j in range(D)] for i in range(NQ)],
+           [[[jnp.asarray(C[j, i, l]) for l in range(NQ)] for i in range(NQ)]
+            for j in range(D)], jnp.asarray(ps))
+    tin = ([[_t(m[i, j]) for j in range(D)] for i in range(NQ)],
+           [[[_t(C[j, i, l]) for l in range(NQ)] for i in range(NQ)]
+            for j in range(D)], _t(ps))
+    jout, jvjp = jax.vjp(jfun, *jin)
+    tout, tvjp = torch.func.vjp(
+        lambda *a: tfun(*a, stop_calib=stop_calib), *tin)
+    dout, dvjp = torch.func.vjp(tfun, *tin)
+    leaves = jax.tree_util.tree_leaves
+    for g, r, dflt in zip(leaves(tout), leaves(jout), leaves(dout)):
+        np.testing.assert_allclose(_np(g), np.asarray(r), rtol=1e-12,
+                                   atol=1e-300)
+        assert torch.equal(g, dflt)
+    rng = np.random.default_rng(9)
+    cm, cC, ci = (rng.standard_normal((NQ, D, 32)),
+                  rng.standard_normal((D, NQ, NQ, 32)), rng.standard_normal(32))
+    jct = ([[jnp.asarray(cm[i, j]) for j in range(D)] for i in range(NQ)],
+           [[[jnp.asarray(cC[j, i, l]) for l in range(NQ)] for i in range(NQ)]
+            for j in range(D)], jnp.asarray(ci))
+    tct = ([[_t(cm[i, j]) for j in range(D)] for i in range(NQ)],
+           [[[_t(cC[j, i, l]) for l in range(NQ)] for i in range(NQ)]
+            for j in range(D)], _t(ci))
+    got = tvjp(tct)
+    for g, r in zip(leaves(got), leaves(jvjp(jct))):
+        g, r = _np(g), np.asarray(r)
+        scale = np.abs(r).max(axis=-1, keepdims=True)
+        assert np.all(np.abs(g - r) <= 1e-10 * scale)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(dvjp(tct))))
+    assert same != stop_calib
+
+
 # ---------------------------------------------------------- fixed grid
 
 
