@@ -22,7 +22,8 @@ in that adaptive setting the dense EK1 solve with and without the smoother
 and the adaptive EK0 sampler; and ``odefilters_torch.ensemble_data_loglik``,
 the per-candidate data likelihood and its gradient, at the JAX package's
 data-likelihood rows (Lotka-Volterra, 8192 candidates, 120 steps:
-full-state observations; prey only; DiagonalEK1; per-member data). It
+full-state observations; prey only; DiagonalEK1; per-member data; dense
+EK1 with full-state and per-member data). It
 checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
@@ -205,10 +206,37 @@ Phases:
      primal and the gradient's forward bit for bit; the adjoint as in
      phase 31), the prey-only and DiagonalEK1 rows' times, the doors'
      candidates/s and gradient candidates/s beside the host step table
-     and the Taylor init, the kernels' bounds and registers.
+     and the Taylor init, the kernels' bounds and registers;
+ 34. the three dense EK1 data-likelihood kernels against their plain
+     versions at 1000 members, Lotka-Volterra over (0, 3), T = 40, 3
+     observations on the grid: in float64 C = [[1, 0], [1, 1]] with noise
+     (0.1, 0.2) and per-member data, the full state with noise 0.05 and
+     shared data, C = [[2, 0]] with noise 0.1 and per-member data; in
+     float32 the first; the primal and the gradient's forward bit for bit
+     (checked; NaN members alike), the stream bit for bit on the members
+     that stay finite, the adjoint on the plain forward's stream with
+     calib_grad both ways (float64 at the gradient tolerances of phase 7;
+     float32 as phase 31);
+ 35. the dense EK1 path through ``ensemble_data_loglik(ek1=True)`` at the
+     JAX package's EK1 row (8192 candidates x 120 steps, 9 full-state
+     observations, noise std 0.05) and with per-member observations,
+     float32 and float64, each run with the counts set to 0 before it and
+     read after it: launches 1/0/0 and 0/1/1 (the gradient of sum(dll)
+     with calib_grad=False); shapes and finite values and gradients;
+     float32 against float64 on the worst member within 0.01 nats + 1e-3
+     |dll|; the float32 gradients against float64's with calib_grad both
+     ways (reported); the float64 door's values equal to the primal
+     kernel's; the float64 gradient against central differences of sum(dll)
+     in ps;
+ 36. the dense EK1 kernels against their plain versions at that shape in
+     float32 on both rows of phase 35 (each plain version once; the primal
+     and the gradient's forward bit for bit; the adjoint as in phase 31),
+     the full-state row's times, the door's candidates/s and gradient
+     candidates/s beside the host step table and the Taylor init, the
+     kernels' bounds and registers.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the twenty-seven kernels with their launches on
+the line before it lists the thirty kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
@@ -219,7 +247,10 @@ phase 24 and the adaptive EK1 kernels of phase 27; the adaptive sampler's
 operations are its plain version's on one member per accepted step, times
 the run's accepted steps; the data-likelihood kernels' operations, both
 paths, are their plain versions' on one member over this run's step
-table, times the members). ``max_abs_err`` is kernel against plain at
+table, times the members; the dense EK1 kernels' operations are their
+plain versions' on one member over a one-step table without and with an
+observation, weighted by the run's steps of each kind, times the
+members). ``max_abs_err`` is kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
@@ -230,8 +261,10 @@ kernel); and at 8192 members in float32 for the adaptive kernels (phase
 under the dynamic diffusion) and the four kernels of phase 27; at 8192 x
 120 on the grid for the data-likelihood kernels (phase 30 in float32, the
 adjoint in float64 of phase 29) and the per-dimension ones (phase 33 in
-float32, prey only; the adjoint with the row's calib_grad=False). The samplers'
-times, plain times and
+float32, prey only; the adjoint with the row's calib_grad=False) and the
+dense EK1 ones (phase 36 in float32, the full state; the adjoint with
+calib_grad=False on the plain stream). The samplers' times, plain times
+and
 bounds are those at S = 8. The EK1 launches are those of
 ``solve_ensemble(EK1)``
 (filter, smoother) and ``sample_ensemble(EK1, S=8)`` (sampler) in
@@ -241,8 +274,10 @@ dynamic fixed-grid door of phase 23, the adaptive sampler's those of the
 float32 ``sample_ensemble(EK0, adaptive=True)`` door at S = 8 of phase 26,
 the data-likelihood kernels' those of the float32 on-grid primal and
 gradient runs of phase 29, the per-dimension ones those of the float32
-prey-only primal and gradient runs of phase 32; the per-dimension
-adjoint's time is the prey-only row's gradient's, calib_grad=False.
+prey-only primal and gradient runs of phase 32, the dense EK1 ones those
+of the float32 full-state primal and gradient runs of phase 35; the
+per-dimension and dense EK1 adjoints' times are those of their rows'
+gradients, calib_grad=False.
 
 Tolerances. A kernel's output is held against the plain version in the
 solution space: the forward kernel's stream goes through the plain
@@ -339,6 +374,9 @@ SOURCE = {
     "ek0_datalik_pd": "odefilters_torch/ops/csrc/ek0_datalik_pd.cu",
     "ek0_datalik_pd_grad_fwd": "odefilters_torch/ops/csrc/ek0_datalik_pd.cu",
     "ek0_datalik_pd_grad_bwd": "odefilters_torch/ops/csrc/ek0_datalik_pd.cu",
+    "ek1_datalik": "odefilters_torch/ops/csrc/ek1_datalik.cu",
+    "ek1_datalik_grad_fwd": "odefilters_torch/ops/csrc/ek1_datalik.cu",
+    "ek1_datalik_grad_bwd": "odefilters_torch/ops/csrc/ek1_datalik.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -368,6 +406,9 @@ REPLACES = {
     "ek0_datalik_pd": "odefilters/ops/pallas_kernels.py:2305",
     "ek0_datalik_pd_grad_fwd": "odefilters/ops/pallas_kernels.py:2660",
     "ek0_datalik_pd_grad_bwd": "odefilters/ops/pallas_kernels.py:2756",
+    "ek1_datalik": "odefilters/ops/pallas_kernels.py:2521",
+    "ek1_datalik_grad_fwd": "odefilters/ops/pallas_kernels.py:3087",
+    "ek1_datalik_grad_bwd": "odefilters/ops/pallas_kernels.py:3147",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -629,6 +670,7 @@ def counters():
     from odefilters_torch.ops import ek0_pair as ep
     from odefilters_torch.ops import ek0_sample as es
     from odefilters_torch.ops import ek1_adaptive as e1a
+    from odefilters_torch.ops import ek1_datalik as e1dl
     from odefilters_torch.ops import ek1_fused as e1
     from odefilters_torch.ops import ek1d
     from odefilters_torch.ops import ek1d_adaptive as eda
@@ -658,7 +700,10 @@ def counters():
             "ek0_datalik_grad_bwd": ed.ek0_datalik_grad_bwd,
             "ek0_datalik_pd": edp.ek0_datalik_pd,
             "ek0_datalik_pd_grad_fwd": edp.ek0_datalik_pd_grad_fwd,
-            "ek0_datalik_pd_grad_bwd": edp.ek0_datalik_pd_grad_bwd}
+            "ek0_datalik_pd_grad_bwd": edp.ek0_datalik_pd_grad_bwd,
+            "ek1_datalik": e1dl.ek1_datalik,
+            "ek1_datalik_grad_fwd": e1dl.ek1_datalik_grad_fwd,
+            "ek1_datalik_grad_bwd": e1dl.ek1_datalik_grad_bwd}
 
 
 def reset_counts():
@@ -3101,7 +3146,7 @@ class DataLikPD:
         ensemble in float64, its own plain stream, this case's cotangents
         upcast; what the float32 adjoint approximates."""
         if self.twin is None:
-            twin = DataLikPD(*self.spec[:2], torch.float64, *self.spec[2:])
+            twin = type(self)(*self.spec[:2], torch.float64, *self.spec[2:])
             if self.keep is not None:
                 twin.restrict(self.keep)
             twin.cts = [c.double() for c in self.cts]
@@ -3414,6 +3459,360 @@ def pd_phases(odt, card, built):
                                          "calib_grad=False"]
     # the path's instantiations: float32, Lotka-Volterra
     print_registers(built["log"], PD_NAMES, only="LotkaVolterraIf")
+    return launches, ms, p_ms, err, bounds
+
+
+# The dense EK1 data likelihood (phases 34-36): the JAX package's row
+# tpu_datalik_ek1_pallas (benchmarks/run_all.py:739-752, 836-846, "the
+# stiff-inference configuration"): Lotka-Volterra over (0, 3), EK1(3), 8192
+# candidates with parameters scaled by U(0.8, 1.2), 120 steps, the 9
+# on-grid observations of the full state with noise std 0.05; and the
+# same with per-member observations.
+EK1_NAMES = ("ek1_datalik", "ek1_datalik_grad_fwd", "ek1_datalik_grad_bwd")
+# The check phase: 3 observations at steps 8, 20 and 32 of T = 40, three
+# observation models: a dense C (a full-state one would hide a transposed
+# C) with noise (0.1, 0.2) (a scalar one would hide a transposed R), the
+# full state with scalar noise 0.05, and C = [[2, 0]] (d_obs = 1, a scale of
+# 1 would hide a missing one).
+EK1_CHECK_MODELS = {
+    "C=[[1,0],[1,1]] r=(0.1,0.2)": (np.array([[1.0, 0.0], [1.0, 1.0]]),
+                                    np.array([0.1, 0.2])),
+    "full r=0.05": (None, 0.05),
+    "C=[[2,0]] r=0.1": (np.array([[2.0, 0.0]]), 0.1)}
+# The check's cases (model, per-member data) in float64; float32 runs the
+# first (its adjoint held against the float64 run's, PD_F32_FACTOR).
+EK1_CHECK_CASES = (("C=[[1,0],[1,1]] r=(0.1,0.2)", True),
+                   ("full r=0.05", False),
+                   ("C=[[2,0]] r=0.1", True))
+# The path's rows: per-member data or not; the full state, noise 0.05.
+EK1_ROWS = {"full": False, "per_member": True}
+
+
+class DataLikEK1(DataLikPD):
+    """The dense EK1 data likelihood's kernel arguments for one ensemble
+    (as the front door makes them), seeded cotangents, and both versions of
+    its three kernels. The plain versions take the problem's Jacobian (in
+    the CUDA field's order of operations); the kernels evaluate the
+    field's own."""
+
+    NAMES = EK1_NAMES
+    TIMED_STOP = True  # the row's gradient: calib_grad=False
+
+    def __init__(self, B, T, dtype, ts, spread, C, noise, per_member):
+        from odefilters_torch.ops import ek0_datalik as ed
+        from odefilters_torch.ops import ek1_datalik as e1d
+
+        self.e1d = e1d
+        self.spec = (B, T, ts, spread, C, noise, per_member)
+        self.keep, self.twin = None, None
+        self.prob, u0s, ps, ys = dl_inputs(B, dtype, ts, spread)
+        ys = pd_obs(ys, ts, C, B, per_member)
+        self.m0_p, self.ps, self.ys, self.table, self.consts = \
+            ed.ek1_kernel_inputs(self.prob.f, u0s, ps, DL_TSPAN, T, ts, ys,
+                                 noise, Q, obs_matrix=C)
+        self.members = (True, True, per_member)
+        rng = np.random.default_rng(1)
+        self.cts = [torch.tensor(rng.standard_normal(B), dtype=dtype,
+                                 device=DEVICE) for _ in range(2)]
+
+    def _plain(self):
+        return self.prob.f, self.prob.jac
+
+    def primal(self):
+        return self.e1d.ek1_datalik(*self._plain(), self.prob.field,
+                                    self.m0_p, self.ps, self.ys, self.table,
+                                    **self.consts)
+
+    def primal_plain(self):
+        return self.e1d.ek1_datalik_plain(*self._plain(), self.m0_p, self.ps,
+                                          self.ys, self.table, **self.consts)
+
+    def grad_fwd(self):
+        return self.e1d.ek1_datalik_grad_fwd(
+            *self._plain(), self.prob.field, self.m0_p, self.ps, self.ys,
+            self.table, **self.consts)
+
+    def grad_fwd_plain(self):
+        return self.e1d.ek1_datalik_fwd_stream_plain(
+            *self._plain(), self.m0_p, self.ps, self.ys, self.table,
+            **self.consts)
+
+    def grad_bwd(self, st, stop_calib, dll_only=False):
+        return self.e1d.ek1_datalik_grad_bwd(
+            *self._plain(), self.prob.field, st, self.ps, self.ys,
+            *self._cts(dll_only), self.table, nq=Q + 1,
+            stop_calib=stop_calib, **self.consts)
+
+    def grad_bwd_plain(self, st, stop_calib, dll_only=False):
+        dm0, dps, part = self.e1d.ek1_datalik_grad_bwd_plain(
+            *self._plain(), st, self.ps, self.ys, *self._cts(dll_only),
+            self.table, nq=Q + 1, stop_calib=stop_calib, **self.consts)
+        return dm0, dps, part if self.ys.ndim == 3 else torch.sum(part, -1)
+
+
+def ek1dl_check():
+    """Phase 34: the three dense EK1 kernels against their plain versions at
+    B_CHECK members, T = DL_T_CHECK, 3 observations, each case of
+    EK1_CHECK_CASES in float64 and the first in float32
+    (`datalik_vs_plain`, strict: the primal and the gradient's forward bit
+    for bit, NaN members alike; the float64 adjoint by `dl_hold_grads`,
+    the float32 by `pd_f32_adjoint`)."""
+    ts = PD_CHECK_STEPS * (DL_TSPAN[1] - DL_TSPAN[0]) / DL_T_CHECK
+    for dtype, rtol, atol, cases in (
+            (torch.float64, 1e-10, 1e-12, EK1_CHECK_CASES),
+            (torch.float32, 1e-4, 1e-6, EK1_CHECK_CASES[:1])):
+        for model, per_member in cases:
+            C, noise = EK1_CHECK_MODELS[model]
+            label = (f"{str(dtype).replace('torch.', '')} EK1 {model} "
+                     f"{'per-member' if per_member else 'shared'} ys")
+            case = DataLikEK1(B_CHECK, DL_T_CHECK, dtype, ts, DL_SPREAD_CHECK,
+                              C, noise, per_member)
+            datalik_vs_plain(label, case, rtol, atol,
+                             hold_grads=dtype == torch.float64, strict=True)
+
+
+def ek1dl_door(odt, prob, u0s, ps, ys, ts, calib_grad=True):
+    return odt.ensemble_data_loglik(
+        prob.f, u0s, ps, DL_TSPAN, DL_T_MAIN, ts, ys, DL_NOISE,
+        field=prob.field, ek1=True, jac=prob.jac, calib_grad=calib_grad)
+
+
+def ek1dl_grad(odt, prob, u0s, ps, ys, ts, calib_grad):
+    """Gradient of sum(dll) in (u0s, ps, ys) through the front door."""
+    args = [x.clone().requires_grad_() for x in (u0s, ps, ys)]
+    dll, _ = ek1dl_door(odt, prob, *args, ts, calib_grad)
+    return torch.autograd.grad(dll.sum(), args)
+
+
+def ek1dl_path(odt):
+    """Phase 35: the front door with ek1=True at the rows of EK1_ROWS,
+    float32 and float64, each run with the counts set to 0 before it and
+    read after it: launches 1/0/0 for the primal, 0/1/1 for the gradient of
+    sum(dll) in (u0s, ps, ys) with calib_grad=False (the gradient the
+    float32 users take); shapes and finite values and gradients;
+    float32 against float64 on the worst member (DL_NATS + DL_REL |dll|)
+    and the float32 gradients' relative norm difference from float64 with
+    calib_grad both ways (reported); the float64 door's values equal to the
+    primal kernel's; the float64 gradient (calib_grad=True) against central
+    differences of sum(dll) in ps. Returns the float32 full row's
+    launches."""
+    launches = {}
+    ts = dl_times(DL_T_MAIN, "on")
+    for row, per_member in EK1_ROWS.items():
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            label = f"{str(dtype).replace('torch.', '')} EK1 {row}"
+            prob, u0s, ps, ys = dl_inputs(B_MAIN, dtype, ts, DL_SPREAD)
+            ys = pd_obs(ys, ts, None, B_MAIN, per_member)
+            reset_counts()
+            with torch.no_grad():
+                dll, ll = ek1dl_door(odt, prob, u0s, ps, ys, ts)
+            torch.cuda.synchronize()
+            c_primal = read_counts(*EK1_NAMES)
+            reset_counts()
+            g = ek1dl_grad(odt, prob, u0s, ps, ys, ts, False)
+            torch.cuda.synchronize()
+            c_grad = read_counts(*EK1_NAMES)
+            check(tuple(c_primal.values()) == (1, 0, 0)
+                  and tuple(c_grad.values()) == (0, 1, 1),
+                  f"{label}: launches in the primal run {c_primal}, in the "
+                  f"gradient run (calib_grad=False) {c_grad} (1/0/0 and "
+                  "0/1/1)")
+            if dtype == torch.float32 and row == "full":
+                launches = {"ek1_datalik": c_primal["ek1_datalik"],
+                            "ek1_datalik_grad_fwd":
+                                c_grad["ek1_datalik_grad_fwd"],
+                            "ek1_datalik_grad_bwd":
+                                c_grad["ek1_datalik_grad_bwd"]}
+            shapes = (tuple(dll.shape), tuple(ll.shape)) + tuple(
+                tuple(x.shape) for x in g)
+            check(shapes == ((B_MAIN,), (B_MAIN,), (B_MAIN, 2), (B_MAIN, 4),
+                             tuple(ys.shape)),
+                  f"{label}: shapes dll, ll, d/du0s, d/dps, d/dys {shapes}")
+            g_full = ek1dl_grad(odt, prob, u0s, ps, ys, ts, True)
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (dll, ll) + g + g_full)
+            check(finite, f"{label}: values and gradients finite")
+            out[dtype] = (prob, u0s, ps, ys, dll, ll,
+                          {False: g, True: g_full})
+        prob64, u64, p64, y64, dll64, ll64, g64 = out[torch.float64]
+        dll32, g32 = out[torch.float32][4], out[torch.float32][6]
+        err = (dll32.double() - dll64).abs()
+        ratio = err / (DL_NATS + DL_REL * dll64.abs())
+        member = int(ratio.argmax())
+        check(bool(torch.isfinite(dll32).all()) and float(ratio[member]) <= 1,
+              f"EK1 {row} float32 vs float64 dll, worst member {member}: "
+              f"|diff| {float(err[member]):.3e} nats <= {DL_NATS} + {DL_REL} "
+              f"|dll64| (dll64 {float(dll64[member]):.6f}), "
+              f"{float(ratio[member]):.3f} of the limit; largest |diff| "
+              f"{float(err.max()):.3e}")
+        for calib in (False, True):
+            text = ", ".join(
+                f"d/d{n} {float((x.double() - y).norm() / y.norm()):.3e}"
+                for n, x, y in zip(("u0s", "ps", "ys"), g32[calib],
+                                   g64[calib]))
+            say(f"   EK1 {row} float32 vs float64 gradient of sum(dll), "
+                f"calib_grad={calib}: relative norm difference {text} "
+                "(reported)")
+        case = DataLikEK1(B_MAIN, DL_T_MAIN, torch.float64, ts, DL_SPREAD,
+                          None, DL_NOISE, per_member)
+        dll_k, ll_k = case.primal()
+        check(torch.equal(dll_k, dll64) and torch.equal(ll_k, ll64),
+              f"EK1 {row} f64: the front door's values are the primal "
+              "kernel's")
+        del case
+        # central differences of sum(dll) in ps, float64, along a seeded
+        # direction, against the calib_grad=True gradient
+        rng = np.random.default_rng(7)
+        v = torch.tensor(rng.standard_normal(tuple(p64.shape)),
+                         device=DEVICE) * p64
+        ad = float((g64[True][1] * v).sum())
+        for eps in (1e-4, 1e-5, 1e-6):
+            with torch.no_grad():
+                plus, minus = (float(ek1dl_door(odt, prob64, u64, p64 + s * v,
+                                              y64, ts)[0].sum())
+                               for s in (eps, -eps))
+            fd = (plus - minus) / (2 * eps)
+            r = abs(fd - ad) / abs(ad)
+            text = (f"EK1 {row} f64 gradient of sum(dll) in ps vs central "
+                    f"difference, step {eps:g}: autograd {ad:.9e}, difference "
+                    f"{fd:.9e}, relative {r:.3e}")
+            if eps == 1e-6:
+                check(r <= 1e-6, f"{text} <= 1e-6")
+            else:
+                say(f"   {text} (reported)")
+        del out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def ek1dl_bounds(case, st, item):
+    """{name: (bound_ms, bound_by, operations per member)} of the three
+    EK1 kernels at ``case``'s members: the bytes each must move (the table,
+    the observations, the stream, inputs and outputs once) and the plain
+    versions' operations on one member of the same model, counted on a
+    one-step table without and with an observation and weighted by this
+    schedule's steps of each kind."""
+    from odefilters_torch.ops import ek0_datalik as ed
+
+    nq, d, n_p = Q + 1, 2, 4
+    B, T = case.m0_p.shape[2], case.table.n_steps
+    n_obs, d_obs = case.ys.shape[:2]
+    one = DataLikEK1(1, T, torch.float32, *case.spec[2:])
+    all_ys = one.ys
+    dt = (DL_TSPAN[1] - DL_TSPAN[0]) / T
+    ops = {n: 0 for n in EK1_NAMES}
+    for seg, count in (((1,), T - n_obs), ((1, 0), n_obs)):
+        one.table = ed.step_table(DL_TSPAN[0], dt, Q, torch.float32, DEVICE,
+                                  seg_lens=seg)
+        one.ys = all_ys[:len(seg) - 1].contiguous()
+        st1 = one.grad_fwd_plain()[2]
+        ops["ek1_datalik"] += count * ops_of(one.primal_plain)
+        ops["ek1_datalik_grad_fwd"] += count * ops_of(one.grad_fwd_plain)
+        ops["ek1_datalik_grad_bwd"] += count * ops_of(
+            lambda: one.grad_bwd_plain(st1, True))
+    V = st.shape[1]
+    per_member_ys = n_obs * d_obs * B * item if case.ys.ndim == 3 else 0
+    shared = (T * item + 2 * T * 4 + (0 if case.ys.ndim == 3
+                                      else n_obs * d_obs * item))
+    init = (nq * d + n_p) * B * item
+    stream = T * V * B * item
+    outs = 2 * B * item
+    nbytes = {"ek1_datalik": init + shared + per_member_ys + outs,
+              "ek1_datalik_grad_fwd": init + shared + per_member_ys + outs
+              + stream,
+              "ek1_datalik_grad_bwd": stream + n_p * B * item + shared
+              + per_member_ys + outs + init + n_obs * d_obs * B * item}
+    return {name: bound(nbytes[name], ops[name], B, 1) + (ops[name],
+                                                          nbytes[name])
+            for name in EK1_NAMES}
+
+
+def ek1dl_timing(odt, card):
+    """Phase 36: float32 at the rows' width: each row's kernels against
+    their plain versions (`datalik_vs_plain`, strict: the primal and the
+    gradient's forward bit for bit; the adjoint by `pd_f32_adjoint`), the
+    full row's kernel times (median of 20 after 3 warm-ups, CUDA events;
+    the adjoint with the row's calib_grad=False, the other reported), the
+    door's candidates/s and gradient candidates/s beside the host step
+    table and the Taylor init timed alone, and the kernels' bounds. Returns
+    (ms, plain ms, max |kernel - plain|, bounds) of the full row."""
+    from odefilters_torch.ops import ek0_datalik as ed
+
+    ts = dl_times(DL_T_MAIN, "on")
+    for row, per_member in EK1_ROWS.items():
+        case = DataLikEK1(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD,
+                          None, DL_NOISE, per_member)
+        e, pm = datalik_vs_plain(f"f32 EK1 {row} at {B_MAIN} x {DL_T_MAIN}",
+                                 case, 1e-4, 1e-6, hold_grads=False,
+                                 strict=True)
+        if row == "full":
+            err, p_ms, timed = e, pm, case
+    case = timed
+    st = case.grad_fwd()[2]
+    ms = {"ek1_datalik": time_ms(case.primal, warmup=3, iters=20),
+          "ek1_datalik_grad_fwd": time_ms(case.grad_fwd, warmup=3, iters=20),
+          "ek1_datalik_grad_bwd": time_ms(lambda: case.grad_bwd(st, True),
+                                          warmup=3, iters=20)}
+    ms_full = time_ms(lambda: case.grad_bwd(st, False), warmup=1, iters=5)
+    for n in EK1_NAMES:
+        say(f"   {n} kernel {ms[n]:.4f} ms, plain (once) {p_ms[n]:.1f} ms "
+            f"(card: {card})")
+    say(f"   ek1_datalik_grad_bwd kernel with calib_grad=True "
+        f"{ms_full:.4f} ms")
+    prob, u0s, ps, ys = dl_inputs(B_MAIN, torch.float32, ts, DL_SPREAD)
+
+    def primal():
+        with torch.no_grad():
+            ek1dl_door(odt, prob, u0s, ps, ys, ts)
+
+    def table():
+        ed.data_table(DL_TSPAN, DL_T_MAIN, ts, Q, torch.float32, DEVICE)
+
+    def init():
+        with torch.no_grad():
+            ed.initial_means(prob.f, u0s, ps, DL_TSPAN, DL_T_MAIN, Q)
+
+    t_ms = time_ms(table, warmup=3, iters=20)
+    i_ms = time_ms(init, warmup=3, iters=20)
+    d_ms = time_ms(primal, warmup=3, iters=20)
+    g_ms = time_ms(lambda: ek1dl_grad(odt, prob, u0s, ps, ys, ts, False),
+                   warmup=3, iters=20)
+    say(f"   EK1 float32 ensemble_data_loglik: {d_ms:.3f} ms = "
+        f"{B_MAIN / d_ms * 1e3:.0f} candidates/s; forward + backward of "
+        f"sum(dll) (calib_grad=False): {g_ms:.3f} ms = "
+        f"{B_MAIN / g_ms * 1e3:.0f} gradient candidates/s; of the primal "
+        f"door: the step table's host build {t_ms:.3f} ms, the Taylor init "
+        f"{i_ms:.3f} ms, the kernel {ms['ek1_datalik']:.4f} ms")
+    bounds = ek1dl_bounds(case, st, 4)
+    for n in EK1_NAMES:
+        b_ms, b_by, ops, nbytes = bounds[n]
+        say(f"   {n}: {ops} operations per member over {DL_T_MAIN} steps; "
+            f"{nbytes / 1e6:.1f} MB; bound {b_ms:.4f} ms by {b_by}")
+    del case, timed, st
+    torch.cuda.empty_cache()
+    return ms, p_ms, err, {n: b[:3] for n, b in bounds.items()}
+
+
+def ek1dl_phases(odt, card, built):
+    """Phases 34-36. Returns (launches on the main path's runs, ms, plain
+    ms, max |kernel - plain|, bounds) of the three dense EK1 kernels."""
+    say(f"== 34. the dense EK1 data-likelihood kernels vs plain, "
+        f"B={B_CHECK}, LV over {DL_TSPAN}, T={DL_T_CHECK}, 3 observations, "
+        "dense C, full state, C = [[2, 0]], shared and per-member data, "
+        "float64 and float32, calib_grad both ways")
+    ek1dl_check()
+    say(f"== 35. the dense EK1 path: ensemble_data_loglik(ek1=True), "
+        f"B={B_MAIN}, LV over {DL_TSPAN}, T={DL_T_MAIN}, 9 observations of "
+        "the full state: shared and per-member data")
+    launches = ek1dl_path(odt)
+    say(f"== 36. the dense EK1 kernels vs plain and timing, float32, "
+        f"B={B_MAIN}, T={DL_T_MAIN}")
+    ms, p_ms, err, bounds = ek1dl_timing(odt, card)
+    # the adjoint as the main path ran it: calib_grad=False
+    err["ek1_datalik_grad_bwd"] = err["ek1_datalik_grad_bwd calib_grad=False"]
+    # the path's instantiations: float32, Lotka-Volterra
+    print_registers(built["log"], EK1_NAMES, only="LotkaVolterraIf")
     return launches, ms, p_ms, err, bounds
 
 
@@ -3764,6 +4163,9 @@ def main() -> int:
     pd_launches, pd_ms, pd_plain_ms, pd_err, pd_bounds_ = pd_phases(
         odt, card, built)
     launches.update(pd_launches)
+    e1_launches, e1_ms, e1_plain_ms, e1_err, e1_bounds = ek1dl_phases(
+        odt, card, built)
+    launches.update(e1_launches)
 
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
@@ -3784,20 +4186,22 @@ def main() -> int:
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
           **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms, **ea_ms,
-          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms}
+          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms, **e1_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
                 **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
                 "ek1d_filter": d_plain_ms, **da_plain_ms, **ea_plain_ms,
                 "ek0_adaptive_sampler": sm_plain_ms, **dl_plain_ms,
-                **pd_plain_ms}
+                **pd_plain_ms, **e1_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
             **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err,
-            **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err, **pd_err}
+            **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err, **pd_err,
+            **e1_err}
     bounds.update(a_bounds)
     bounds.update(da_bounds)
     bounds.update(ea_bounds)
     bounds.update(dl_bounds)
     bounds.update(pd_bounds_)
+    bounds.update(e1_bounds)
     bounds["ek1d_filter"] = d_bound
     bounds["ek0_adaptive_sampler"] = sm_bound
     kernels = [

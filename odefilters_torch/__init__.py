@@ -18,8 +18,9 @@ fixedMAP; with or without the smoother) and sampler with EK1, and the
 ensemble IEKS; and the per-candidate data likelihood with its gradient
 (``ensemble_data_loglik``): noisy full-state observations on or off the
 grid (isotropic EK0), and on the grid partial one-hot observations,
-per-dimension noise, per-member data and DiagonalEK1. Vector fields with
-CUDA kernels: FitzHugh-Nagumo and Lotka-Volterra::
+per-dimension noise, per-member data, DiagonalEK1 and, with ``ek1=True``,
+dense EK1 with any observation matrix. Vector fields with CUDA kernels:
+FitzHugh-Nagumo and Lotka-Volterra::
 
     import torch
     import odefilters_torch as odt
@@ -56,6 +57,9 @@ CUDA kernels: FitzHugh-Nagumo and Lotka-Volterra::
     odt.ensemble_data_loglik(lv.f, u0s, ps, lv.tspan, 120, ts, ys[:, :1],
                              0.05, obs_matrix=[[1.0, 0.0]],
                              field=lv.field)  # prey only, ts on the grid
+    odt.ensemble_data_loglik(lv.f, u0s, ps, lv.tspan, 120, ts, ys, 0.05,
+                             obs_matrix=[[1.0, 0.0], [1.0, 1.0]], ek1=True,
+                             jac=lv.jac, field=lv.field)  # dense EK1
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 

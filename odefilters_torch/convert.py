@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from odefilters_torch import models
+from odefilters_torch.ops import ek1_datalik
 from odefilters_torch.ops.ek0_datalik_pd import pd_layout
 from odefilters_torch.problem import ODEProblem, resolve_device
 
@@ -139,3 +140,27 @@ def ek1_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
                                for c in range(r + 1)], axis=1))
     return torch.as_tensor(np.ascontiguousarray(np.concatenate(parts, axis=1)),
                            dtype=dtype, device=resolve_device(device))
+
+
+def ek1_datalik_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
+                                  dtype=torch.float64):
+    """The JAX package's dense EK1 data-likelihood stream (the residual of
+    ``_ek1_datalik_vjp_fwd``) as numpy, ``(nb, T, D, D+1, 8, 128)`` with
+    row r ``[L[r] (D) | m[r]]``, D = d nq, reordered into the port's
+    stream ``(T, V, B)`` (``ops.ek1_datalik.pack_state``: ``[m (D) | L
+    (D*D, row-major)]``; member ``blk*1024 + sub*128 + lane``), on
+    ``device`` (the CUDA card unless given)."""
+    st = np.asarray(st)
+    D = d * nq
+    if st.ndim != 6 or st.shape[2:4] != (D, D + 1):
+        raise ValueError(
+            f"expected a (nb, T, {D}, {D + 1}, sub, lane) EK1 data-likelihood "
+            f"stream, got {st.shape}"
+        )
+    nb, T, _, _, sub, lane = st.shape
+    x = st.transpose(1, 2, 3, 0, 4, 5).reshape(T, D, D + 1, nb * sub * lane)
+    rows = ek1_datalik.pack_state([x[:, r, D] for r in range(D)],
+                                  [[x[:, r, c] for c in range(D)]
+                                   for r in range(D)])
+    return torch.tensor(np.stack(rows, axis=1), dtype=dtype,
+                        device=resolve_device(device))

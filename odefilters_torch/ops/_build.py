@@ -21,12 +21,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
-SOURCES = ("ek1_adaptive.cu", "ek1_fused.cu", "ek0_datalik_pd.cu", "ek1d.cu",
-           "ek0_adaptive.cu", "ek0_datalik.cu", "ek0_pair.cu", "ek0_filter.cu",
-           "ek0_sample.cu")
+SOURCES = ("ek1_datalik.cu", "ek1_adaptive.cu", "ek1_fused.cu",
+           "ek0_datalik_pd.cu", "ek1d.cu", "ek0_adaptive.cu", "ek0_datalik.cu",
+           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
            "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
-           "ek0_datalik.cuh", "ek0_datalik_pd.cuh")
+           "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,8 +53,8 @@ NVCC_FLAGS = (
 # DiagonalEK1 and EK1: their step loop turns a one-ulp difference into
 # another accepted step sequence (the DiagonalEK1 file also holds the
 # fixed-grid filter, whose lls and sigma^2 carry the innovation). And the
-# data likelihood's, isotropic and per dimension: its ODE log-likelihood
-# is the filter's.
+# data likelihood's, isotropic, per dimension and dense EK1: its ODE
+# log-likelihood is the filter's.
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
@@ -63,7 +63,8 @@ SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek1d.cu": ("-fmad=false",),
                 "ek1_adaptive.cu": ("-fmad=false",),
                 "ek0_datalik.cu": ("-fmad=false",),
-                "ek0_datalik_pd.cu": ("-fmad=false",)}
+                "ek0_datalik_pd.cu": ("-fmad=false",),
+                "ek1_datalik.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -109,6 +110,11 @@ _D = ctypes.POINTER(ctypes.c_double)
 # ek0_datalik_pd_grad_bwd: (stream_in, ps, ys, times, codes, ddll, dall,
 #                           dm0_p, dps, dys, B, T, n_rows, jd, yb,
 #                           stop_calib, consts)
+# ek1_datalik: (m0_p, ps, ys, times, codes, dll, ll, B, T, yb, consts)
+# ek1_datalik_grad_fwd: (m0_p, ps, ys, times, codes, dll, ll, stream_out, B,
+#                        T, yb, consts)
+# ek1_datalik_grad_bwd: (stream_in, ps, ys, times, codes, ddll, dall, dm0_p,
+#                        dps, dys, B, T, yb, stop_calib, consts)
 FIELD_ENTRIES = {
     "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
     "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
@@ -129,6 +135,9 @@ FIELD_ENTRIES = {
     "ek0_datalik_pd": (_P,) * 7 + (_I,) * 5 + (_D, _P),
     "ek0_datalik_pd_grad_fwd": (_P,) * 8 + (_I,) * 5 + (_D, _P),
     "ek0_datalik_pd_grad_bwd": (_P,) * 10 + (_I,) * 6 + (_D, _P),
+    "ek1_datalik": (_P,) * 7 + (_I,) * 3 + (_D, _P),
+    "ek1_datalik_grad_fwd": (_P,) * 8 + (_I,) * 3 + (_D, _P),
+    "ek1_datalik_grad_bwd": (_P,) * 10 + (_I,) * 4 + (_D, _P),
 }
 PLAIN_ENTRIES = {
     "ek0_pair_bwd": (_P, _P, _I, _I, _D, _P),

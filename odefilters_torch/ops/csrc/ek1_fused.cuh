@@ -157,16 +157,12 @@ __device__ __forceinline__ void h_times(S pinv0, S pinv1,
     }
 }
 
-// The predicted factor Lp: MGS of the 2N x N stack [(A L)^T; (sq QLf)^T];
-// qsq (the static models' noise squares, ek1_fused.cu) or nullptr.
+// The prediction's 2N x N stack [(A L)^T; (sq QLf)^T], from AL = A L.
 template <typename S, int NQ, int DIM, class K>
-__device__ __forceinline__ void predict_lp(const K& c,
-                                           const S (&L)[NQ * DIM][NQ * DIM],
-                                           S sq, S (&Lp)[NQ * DIM][NQ * DIM],
-                                           const S* qsq = nullptr) {
+__device__ __forceinline__ void predict_stack(
+    const K& c, const S (&AL)[NQ * DIM][NQ * DIM], S sq,
+    S (&v)[2 * NQ * DIM][NQ * DIM]) {
   constexpr int N = NQ * DIM;
-  S AL[N][N], v[2 * N][N];
-  a_times_mat<S, NQ, DIM>(c, L, AL);
 #pragma unroll
   for (int k = 0; k < N; ++k)
 #pragma unroll
@@ -174,6 +170,26 @@ __device__ __forceinline__ void predict_lp(const K& c,
       v[k][i] = AL[i][k];
       v[N + k][i] = q_live<DIM>(i, k) ? sq * c.QLt[i / DIM][k / DIM] : S(0);
     }
+}
+
+// The predicted factor Lp: MGS of predict_stack; qsq (the static models'
+// noise squares, ek1_fused.cu) or nullptr; AL_out, when given, receives
+// A L.
+template <typename S, int NQ, int DIM, class K>
+__device__ __forceinline__ void predict_lp(
+    const K& c, const S (&L)[NQ * DIM][NQ * DIM], S sq,
+    S (&Lp)[NQ * DIM][NQ * DIM], const S* qsq = nullptr,
+    S (*AL_out)[NQ * DIM] = nullptr) {
+  constexpr int N = NQ * DIM;
+  S AL[N][N], v[2 * N][N];
+  a_times_mat<S, NQ, DIM>(c, L, AL);
+  if (AL_out) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < N; ++k) AL_out[i][k] = AL[i][k];
+  }
+  predict_stack<S, NQ, DIM>(c, AL, sq, v);
   mgs_tril<S, N, 2 * N, true>(v, Lp, qsq);
 }
 
@@ -186,6 +202,28 @@ struct StepStats {
   S ll_inc;
 };
 
+// What the reverse of a dynamic step reads of it (ek1_datalik.cuh:
+// step_vjp): the quantities of filter_step, in its order of operations.
+template <typename S, int NQ, int DIM>
+struct StepRec {
+  static constexpr int N = NQ * DIM;
+  S mp[N];           // predicted mean
+  S u[DIM];          // predicted solution pinv0 mp[0..DIM-1]
+  S J[DIM * DIM];    // the field's Jacobian at u
+  S z[DIM];          // residual pinv1 mp[DIM + a] - f(u)[a]
+  S HQ[DIM][N];      // H QLf
+  S Lq[DIM][DIM];    // Cholesky factor of H Q H^T
+  S w[DIM];          // (H Q H^T)^-1 z
+  S s2, sq;          // diffusion and sqrt(max(s2, 0))
+  S AL[N][N];        // A L
+  S Lp[N][N];        // predicted factor (upper entries zero)
+  S Z[DIM][N];       // H Lp
+  S Ls[DIM][DIM];    // Cholesky factor of Z Z^T
+  S LpZt[N][DIM];    // Lp Z^T
+  S Kg[N][DIM];      // gain rows
+  S ws[DIM];         // (Z Z^T)^-1 z
+};
+
 // One square-root EK1 step from (m, L), updated in place, with the
 // preconditioner entries pinv0, pinv1 of blocks 0 and 1: predict the mean,
 // evaluate the field and its Jacobian (at u_lin when given, the IEKS hook;
@@ -193,15 +231,18 @@ struct StepStats {
 // s2 = z^T (H Q H^T)^-1 z / DIM (STATIC: the unscaled prior), factor the
 // predicted covariance by MGS of [(A L)^T; (sqrt(s2) QLf)^T] into Lp, and
 // apply the update L = Lp - K H Lp. Returns s2, or under STATIC the step's
-// statistic z^T S^-1 z / DIM. K: Consts (fixed grid) or ek0::AdaptConsts
-// (the adaptive kernels, which also ask for stats).
+// statistic z^T S^-1 z / DIM. K: Consts (fixed grid), ek0::AdaptConsts
+// (the adaptive kernels, which also ask for stats) or ek1dl::DlConsts (the
+// data likelihood's, whose adjoint also asks for rec: the step's
+// intermediates, so that it reverses the very step the forward ran).
 template <typename S, int NQ, class F, bool STATIC, class K>
 __device__ __forceinline__ S filter_step(const K& c, S pinv0, S pinv1,
                                          const S* p, S t, const S* u_lin,
                                          S (&m)[NQ * F::D],
                                          S (&L)[NQ * F::D][NQ * F::D],
                                          S (&Lp)[NQ * F::D][NQ * F::D],
-                                         StepStats<S, F::D>* stats = nullptr) {
+                                         StepStats<S, F::D>* stats = nullptr,
+                                         StepRec<S, NQ, F::D>* rec = nullptr) {
   constexpr int DIM = F::D;
   constexpr int N = NQ * DIM;
   S mp[N];
@@ -213,6 +254,17 @@ __device__ __forceinline__ S filter_step(const K& c, S pinv0, S pinv1,
   F().jac(u_lin ? u_lin : u, p, t, J);
 #pragma unroll
   for (int a = 0; a < DIM; ++a) z[a] = ek0::innovation(pinv1, mp[DIM + a], du[a]);
+  if (rec) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) rec->mp[r] = mp[r];
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+      rec->u[a] = u[a];
+      rec->z[a] = z[a];
+    }
+#pragma unroll
+    for (int a = 0; a < DIM * DIM; ++a) rec->J[a] = J[a];
+  }
 
   S sq = S(1), s2 = S(1);
   if (!STATIC) {
@@ -232,11 +284,23 @@ __device__ __forceinline__ S filter_step(const K& c, S pinv0, S pinv1,
 #pragma unroll
       for (int a = 0; a < DIM; ++a) stats->hqh[a] = Sq[a][a];
     }
+    if (rec) {
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) {
+        rec->w[a] = w[a];
+#pragma unroll
+        for (int b = 0; b < DIM; ++b) rec->Lq[a][b] = Lq[a][b];
+#pragma unroll
+        for (int k = 0; k < N; ++k) rec->HQ[a][k] = HQ[a][k];
+      }
+      rec->s2 = s2;
+      rec->sq = sq;
+    }
   }
 
   const S* qsq = nullptr;
   if constexpr (STATIC) qsq = c.qsq;
-  predict_lp<S, NQ, DIM>(c, L, sq, Lp, qsq);
+  predict_lp<S, NQ, DIM>(c, L, sq, Lp, qsq, rec ? rec->AL : nullptr);
 
   S Z[DIM][N], Sm[DIM][DIM], Ls[DIM][DIM];
   h_times<S, NQ, DIM>(pinv0, pinv1, J, [&](int r, int k) { return Lp[r][k]; },
@@ -254,6 +318,15 @@ __device__ __forceinline__ S filter_step(const K& c, S pinv0, S pinv1,
       lz[a] = acc;
     }
     cho_solve<S, DIM>(Ls, lz, kg);
+    if (rec) {
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) {
+        rec->LpZt[r][a] = lz[a];
+        rec->Kg[r][a] = kg[a];
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) rec->Lp[r][k] = Lp[r][k];
+    }
     S km = S(0);
 #pragma unroll
     for (int a = 0; a < DIM; ++a) km += kg[a] * z[a];
@@ -266,9 +339,20 @@ __device__ __forceinline__ S filter_step(const K& c, S pinv0, S pinv1,
       L[r][k] = Lp[r][k] - kz;
     }
   }
-  if (!STATIC && !stats) return s2;
+  if (!STATIC && !stats && !rec) return s2;
   S ws[DIM];
   cho_solve<S, DIM>(Ls, z, ws);
+  if (rec) {
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+      rec->ws[a] = ws[a];
+#pragma unroll
+      for (int b = 0; b < DIM; ++b) rec->Ls[a][b] = Ls[a][b];
+#pragma unroll
+      for (int k = 0; k < N; ++k) rec->Z[a][k] = Z[a][k];
+    }
+  }
+  if (!STATIC && !stats) return s2;
   S zs = S(0);
 #pragma unroll
   for (int a = 0; a < DIM; ++a) zs += z[a] * ws[a];

@@ -10,7 +10,11 @@
 // entries J[j][j] as jac computes them (the DiagonalEK1 kernels), with its
 // vector-Jacobian product jac_diag_vjp(u, p, t, g, gu, gp), which writes
 // gu = (d jd/du)^T g and adds (d jd/dp)^T g to gp (the per-dimension data
-// likelihood's hand-written DiagonalEK1 adjoint). The
+// likelihood's hand-written DiagonalEK1 adjoint), and the vector-Jacobian
+// product of the whole Jacobian, jac_vjp(u, p, t, G, gu, gp), which for a
+// row-major D x D cotangent G writes gu[k] = sum_ab G[a][b] dJ_ab/du_k and
+// adds sum_ab G[a][b] dJ_ab/dp_i to gp[i] (the dense EK1 data likelihood's
+// hand-written adjoint). The
 // order of operations follows the model's PyTorch form in
 // odefilters_torch/models/library.py, which the plain versions evaluate
 // and differentiate by autograd; a field is selected by the name that
@@ -80,6 +84,18 @@ struct Fhn {
     gp[1] -= g[1] * tinv;
     gp[2] -= g[1] * b;
   }
+
+  // J = [[1 - v^2, -1], [tinv, -tinv b]]
+  __device__ __forceinline__ void jac_vjp(const S* u, const S* p, S t,
+                                          const S* G, S* gu, S* gp) const {
+    (void)t;
+    const S b = p[1], tinv = p[2];
+    const S v = u[0];
+    gu[0] = -G[0] * (v + v);
+    gu[1] = S(0);
+    gp[1] -= G[3] * tinv;
+    gp[2] += G[2] - G[3] * b;
+  }
 };
 
 // Lotka-Volterra, p = (a, b, c, d): "lv". -c * y is the negation of c times
@@ -144,5 +160,19 @@ struct LotkaVolterra {
     gp[1] -= g[0] * y;
     gp[2] -= g[1];
     gp[3] += g[1] * x;
+  }
+
+  // J = [[a - b y, -b x], [d y, -c + d x]]
+  __device__ __forceinline__ void jac_vjp(const S* u, const S* p, S t,
+                                          const S* G, S* gu, S* gp) const {
+    (void)t;
+    const S b = p[1], d = p[3];
+    const S x = u[0], y = u[1];
+    gu[0] = -G[1] * b + G[3] * d;
+    gu[1] = -G[0] * b + G[2] * d;
+    gp[0] += G[0];
+    gp[1] -= G[0] * y + G[1] * x;
+    gp[2] -= G[3];
+    gp[3] += G[2] * y + G[3] * x;
   }
 };

@@ -26,13 +26,16 @@ this module                            ``odefilters/ops/pallas_kernels.py``
 ``EK0DataLik``                         the ``jax.custom_vjp``
                                        ``_ek0_datalik_vjp``
 ``kernel_inputs``,                     its Taylor init, preconditioning
-``pd_kernel_inputs``                   and schedule (isotropic; per
-                                       dimension: its one-hot rows and
-                                       noise vector)
+``pd_kernel_inputs``,                  and schedule (isotropic; per
+``ek1_kernel_inputs``                  dimension: its one-hot rows and
+                                       noise vector; EK1: its dense
+                                       observation matrix and noise
+                                       factor)
 ``ensemble_data_loglik``               ``ensemble_data_loglik_pallas``
                                        (its isotropic EK0 path here, its
                                        per-dimension EK0 / DiagonalEK1
-                                       path in `ek0_datalik_pd`)
+                                       path in `ek0_datalik_pd`, its dense
+                                       EK1 path in `ek1_datalik`)
 =====================================  ======================================
 
 The filter is the EK0 filter with the dynamic diffusion
@@ -83,8 +86,10 @@ import torch
 from odefilters_torch.ops import _launch
 from odefilters_torch.ops import ek0_datalik_pd as edp
 from odefilters_torch.ops import ek0_pair as ep
+from odefilters_torch.ops import ek1_datalik as e1d
 from odefilters_torch.ops._blocks import _lists, _sreduce
 from odefilters_torch.ops.ek0_filter import ll_increment
+from odefilters_torch.ops.ek1_fused import auto_jac
 from odefilters_torch.ops.ek1d import auto_jac_diag
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -618,15 +623,6 @@ class EK0DataLik(torch.autograd.Function):
         return dm0, dps, dys, None, None, None, None, None, None
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"ensemble_data_loglik: {what} is not ported yet ({item}); the port "
-        "runs the EK0 and DiagonalEK1 paths: (scaled) one-hot observation "
-        "rows, scalar or per-dimension noise, observations shared by all "
-        "members or per member"
-    )
-
-
 def _schedule(tspan, n_steps: int, ts_data, dtype):
     """``(seg_lens, sched)``, one of them None: the steps between
     observations on the uniform grid, or the off-grid schedule of the grid
@@ -735,10 +731,53 @@ def pd_kernel_inputs(prob_f: Callable, u0s, ps, tspan, n_steps: int, ts_data,
     consts = dict(At=At, Qt=Qt, pinv0=float(1.0 / p[0]),
                   pinv1=float(1.0 / p[1]), obs_dims=obs_dims,
                   obs_scales=obs_scales, r2s=tuple(float(r) for r in r2s))
+    return m0_p, ps_t, _kernel_ys(ys, u0s), table, consts
+
+
+def _kernel_ys(ys, u0s):
+    """The observations in the solve's dtype on ``u0s``' device, per member
+    as ``(n_obs, d_obs, B)`` so that the kernels' reads coalesce over the
+    members."""
     ys = torch.as_tensor(ys, device=u0s.device).to(u0s.dtype)
-    if ys.ndim == 3:
-        ys = ys.permute(1, 2, 0).contiguous()
-    return m0_p, ps_t, ys, table, consts
+    return ys.permute(1, 2, 0).contiguous() if ys.ndim == 3 else ys
+
+
+def ek1_kernel_inputs(prob_f: Callable, u0s, ps, tspan, n_steps: int, ts_data,
+                      ys, obs_noise_std, q: int = 3, *, obs_matrix=None,
+                      schedule=None):
+    """What `ensemble_data_loglik` hands the dense EK1 kernels for an
+    ensemble ``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``, observations
+    ``ys`` ``(n_obs, d_obs)`` or ``(B, n_obs, d_obs)`` of ``obs_matrix @
+    u(t)`` (any ``(d_obs, d)`` matrix; None: the identity) with noise std
+    ``obs_noise_std`` (a scalar or ``(d_obs,)``): ``(m0_p, ps_t, ys,
+    table, consts)``, `initial_means`, the observations in the solve's
+    dtype (per member as ``(n_obs, d_obs, B)``), `data_table` (on the
+    grid; ``schedule`` as there) and the constants ``At, QLt, pinv0,
+    pinv1, C_obs, R_chol``: the observation matrix and the diagonal noise
+    factor ``diag(obs_noise_std)`` as numpy arrays in the solve's dtype,
+    as the JAX kernels cast them. Differentiable in ``u0s``, ``ps`` and
+    ``ys``."""
+    d = u0s.shape[1]
+    C_full = np.eye(d) if obs_matrix is None else np.asarray(obs_matrix,
+                                                             np.float64)
+    r_std = np.asarray(obs_noise_std, np.float64)
+    r2_vec = np.full(C_full.shape[0], float(r_std) ** 2) if r_std.ndim == 0 \
+        else r_std ** 2
+    np_dtype = np.float32 if u0s.dtype == torch.float32 else np.float64
+    dt = (float(tspan[1]) - float(tspan[0])) / int(n_steps)
+    m0_p, ps_t = initial_means(prob_f, u0s, ps, tspan, n_steps, q)
+    table = data_table(tspan, n_steps, ts_data, q, u0s.dtype, u0s.device,
+                       schedule)
+    At, _, QLt, p = ep.pair_constants(q, dt)
+    consts = dict(At=At, QLt=QLt, pinv0=float(1.0 / p[0]),
+                  pinv1=float(1.0 / p[1]), C_obs=C_full.astype(np_dtype),
+                  R_chol=np.diag(np.sqrt(r2_vec)).astype(np_dtype))
+    return m0_p, ps_t, _kernel_ys(ys, u0s), table, consts
+
+
+def _wants_grad(*xs) -> bool:
+    """Whether autograd will ask for a gradient of any of ``xs``."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def ensemble_data_loglik(
@@ -765,26 +804,29 @@ def ensemble_data_loglik(
 ):
     """Per-member marginal data log-likelihood of an ensemble of B
     candidates ``(u0, p)`` (``u0s`` ``(B, d)``, ``ps`` ``(B, n_params)``,
-    any B) from the fused EK0 (or, with ``diagonal_ek1``, DiagonalEK1)
-    filter over ``n_steps`` uniform steps of ``tspan``, with dynamic
-    diffusion.
+    any B) from the fused EK0 (with ``diagonal_ek1``, DiagonalEK1; with
+    ``ek1``, dense EK1) filter over ``n_steps`` uniform steps of
+    ``tspan``, with dynamic diffusion.
 
     ``ts_data``: strictly increasing observation times in ``(t0, t1]``;
     ``ys``: the observations, ``(n_obs, d_obs)`` shared by all members or
     ``(B, n_obs, d_obs)`` per member, of ``obs_matrix @ u(t)`` (``(d_obs,
-    d)`` (scaled) one-hot rows; None: the full state) with noise std
-    ``obs_noise_std`` (a scalar or a ``(d_obs,)`` vector). ``jac_diag``:
-    the Jacobian diagonal ``(u, p, t) -> (d, B)`` for ``diagonal_ek1``
-    (None: d JVPs of ``prob_f``; the card's kernels evaluate the CUDA
-    field's own). ``field``: the CUDA vector field of ``prob_f``
-    (``ODEProblem.field``), which the kernels need on the card.
+    d)``: (scaled) one-hot rows, or with ``ek1`` any matrix; None: the
+    full state) with noise std ``obs_noise_std`` (a scalar or a
+    ``(d_obs,)`` vector). ``jac_diag``: the Jacobian diagonal ``(u, p, t)
+    -> (d, B)`` for ``diagonal_ek1``, ``jac`` the Jacobian ``(u, p, t) ->
+    (d, d, B)`` for ``ek1`` (None: d JVPs of ``prob_f``; the card's
+    kernels evaluate the CUDA field's own). ``field``: the CUDA vector
+    field of ``prob_f`` (``ODEProblem.field``), which the kernels need on
+    the card.
 
     Full-state observations with scalar noise shared by all members run
     the isotropic EK0 kernels, with the observation times on the uniform
     grid or off it (merged into it on the host, as
     `odefilters_torch.datalik._merged_grid` does); every other observation
-    model runs the per-dimension kernels (`ek0_datalik_pd`), on the grid
-    only, as in the JAX package.
+    model runs the per-dimension kernels (`ek0_datalik_pd`), and ``ek1``
+    the dense EK1 kernels with joint noisy updates in square-root form
+    (`ek1_datalik`), on the grid only, as in the JAX package.
 
     Returns ``(data_ll, ode_ll)``, each ``(B,)``, differentiable in
     ``u0s``, ``ps`` and ``ys``. ``calib_grad=False`` treats the per-step
@@ -794,11 +836,11 @@ def ensemble_data_loglik(
     accuracy floor.
 
     Raises as the JAX package does: ``ValueError`` for dense observation
-    rows ("one-hot") and for ``ek1`` with ``diagonal_ek1``,
-    ``NotImplementedError`` for off-grid times outside the isotropic
-    path. Not ported yet (``NotImplementedError``): ``ek1`` (ROADMAP.md
-    queue 2, item 20), ``second_order`` and ``prior`` (queue 1, item 5);
-    ``mesh``. ``jac`` serves the EK1 path only.
+    rows without ``ek1`` ("one-hot") and for ``ek1`` with
+    ``diagonal_ek1``, ``NotImplementedError`` for off-grid times outside
+    the isotropic path and for ``second_order`` outside it. Not ported yet
+    (``NotImplementedError``): ``second_order`` and ``prior`` (ROADMAP.md
+    queue 1, item 5); ``mesh``.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -844,7 +886,13 @@ def ensemble_data_loglik(
         )
     _launch.check_ported(prior=prior, second_order=second_order, mesh=None)
     if ek1:
-        _not_ported("ek1=True", "ROADMAP.md queue 2, item 20")
+        m0_p, ps_t, ys, table, consts = ek1_kernel_inputs(
+            prob_f, u0s, ps, tspan, n_steps, ts_data, ys, r_std, q,
+            obs_matrix=C_np, schedule=schedule)
+        jac = jac if jac is not None else auto_jac(prob_f)
+        return e1d.EK1DataLik.apply(m0_p, ps_t, ys, prob_f, jac, field, table,
+                                    consts, not calib_grad,
+                                    _wants_grad(m0_p, ps_t, ys))
     if iso:
         m0_p, ps_t, ys, table, consts = kernel_inputs(
             prob_f, u0s, ps, tspan, n_steps, ts_data, ys, float(r_std), q,
@@ -853,8 +901,7 @@ def ensemble_data_loglik(
         m0_p, ps_t, ys, table, consts = pd_kernel_inputs(
             prob_f, u0s, ps, tspan, n_steps, ts_data, ys, r_std, q,
             obs_matrix=C_np, schedule=schedule)
-    want_grad = torch.is_grad_enabled() and (
-        m0_p.requires_grad or ps_t.requires_grad or ys.requires_grad)
+    want_grad = _wants_grad(m0_p, ps_t, ys)
     if iso:
         return EK0DataLik.apply(m0_p, ps_t, ys, prob_f, field, table, consts,
                                 not calib_grad, want_grad)

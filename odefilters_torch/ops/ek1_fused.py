@@ -10,7 +10,8 @@ this module                         ``odefilters/ops/pallas_kernels.py``
 ``list_chol``                       ``_list_chol``
 ``list_mgs_tril``,                  ``_list_mgs_tril(rsqrt=False)``,
 ``list_cho_solve`` (``ek0_sample``) ``_list_cho_solve``
-``ek1_step``                        ``_ek1_step_lists`` (no ``want_ll``)
+``ek1_step``                        ``_ek1_step_lists`` (``want_ll``:
+                                    ``want_stats``)
 ``stream_layout``                   the packed row of
                                     ``_ek1_filter_states_kernel``
 ``ek1_filter_states_plain`` /       ``_ek1_filter_states_kernel`` (CUDA:
@@ -137,7 +138,8 @@ def predict_lp(Af, QLf, L, sq_s2, D: int):
 def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
              pinv0, pinv1, d: int, D: int,
              want_Lp: bool = False, u_lin=None, static_diff=None,
-             calib=None, want_stats: bool = False):
+             calib=None, want_stats: bool = False,
+             stop_calib: bool = False):
     """One square-root EK1 step on the D-vector mean ``m`` and the D x D
     factor ``L`` (lists of ``(B,)`` tensors); ``Af``, ``QLf``: nested Python
     floats of ``kron(At, I_d)`` and ``kron(QLt, I_d)``; ``pinv0``,
@@ -148,11 +150,14 @@ def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
     (``static_diff`` fixed or fixedMAP) filters with the unscaled prior,
     returns s2 = 1 and updates ``calib = (sig, k)`` from ``z^T S^-1 z / d``.
     ``u_lin``: a ``(d, B)`` linearization point for the Jacobian (the IEKS
-    hook); ``f`` is still evaluated at the predicted mean. Returns
-    ``(m_new, L_new, s2)``, then ``Lp`` with ``want_Lp``, then the new
-    ``calib`` under a static model, then with ``want_stats`` (dynamic
-    only) the diagonal of ``H Q H^T`` and the log-likelihood increment
-    ``log N(z; 0, S)`` that an adaptive attempt needs."""
+    hook); ``f`` is still evaluated at the predicted mean. ``stop_calib``
+    (dynamic only): ``s2`` is detached before ``sqrt(s2)`` scales the
+    noise, so a gradient treats the calibration as part of the model (the
+    values are the same). Returns ``(m_new, L_new, s2)``, then ``Lp`` with
+    ``want_Lp``, then the new ``calib`` under a static model, then with
+    ``want_stats`` (dynamic only) the diagonal of ``H Q H^T`` and the
+    log-likelihood increment ``log N(z; 0, S)`` that an adaptive attempt
+    and the data likelihood need."""
     zero = torch.zeros_like(m[0])
     mp = _amul_vec(Af, m, D)
     u_pred = torch.stack([pinv0 * mp[j] for j in range(d)])
@@ -187,6 +192,8 @@ def ek1_step(m, L, p, t_new, *, f: Callable, jac: Callable, Af, QLf,
         Lq = list_chol(Sq, d)
         w = list_cho_solve(Lq, z, d)
         s2 = _sum([z[a] * w[a] for a in range(d)]) / d
+        if stop_calib:
+            s2 = s2.detach()
         sq_s2 = torch.sqrt(torch.clamp(s2, min=0.0))
 
     Lp = predict_lp(Af, QLf, L, sq_s2, D)

@@ -538,7 +538,7 @@ OFF = np.array([0.55, 1.5])
     (dict(ys=torch.zeros(4, 2, D, dtype=torch.float64), ts_data=OFF),
      "off-grid"),
     (dict(diagonal_ek1=True, ts_data=OFF), "off-grid"),
-    (dict(ek1=True), "item 20"),
+    (dict(ek1=True, ts_data=OFF), "off-grid"),
     (dict(second_order=True, u0s=torch.ones(4, 2 * D, dtype=torch.float64)),
      "item 5"),
     (dict(prior="ioup"), "item 5"),

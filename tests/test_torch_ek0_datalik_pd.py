@@ -457,17 +457,15 @@ def _door_args(**over):
     (dict(diagonal_ek1=True, obs_matrix=None,
           ys=torch.zeros(4, 2, D, dtype=torch.float64),
           ts_data=np.array([0.55, 1.5])), NotImplementedError, "off-grid"),
-    (dict(ek1=True), NotImplementedError, "item 20"),
+    (dict(ek1=True, ts_data=np.array([0.55, 1.5])), NotImplementedError,
+     "off-grid"),
 ], ids=["dense_row", "ek1_and_diagonal", "off_grid_partial",
         "off_grid_diagonal_per_member", "ek1"])
 def test_refusals_and_their_messages(over, exc, match):
-    """As the JAX front door refuses them, with its messages (the port's
-    own for ``ek1``, not ported yet); JAX raises the same class except for
-    ``ek1``, which it runs."""
+    """As the JAX front door refuses them, with its messages; JAX raises the
+    same class."""
     with pytest.raises(exc, match=match):
         odt.ensemble_data_loglik(**_door_args(**over))
-    if "ek1" in over and not over.get("diagonal_ek1"):
-        return
     # the JAX kernels take whole blocks of 1024 members
     jargs = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
              for k, v in _door_args(**over).items()}

@@ -137,14 +137,19 @@ def _filtered_state(B=64, steps=3):
 
 
 @pytest.mark.parametrize(
-    "static, lin, want_Lp",
-    [(None, False, False), (None, False, True), (None, True, True),
-     ("fixed", False, True), ("fixedMAP", False, False)],
-    ids=["dynamic", "dynamic_Lp", "u_lin", "fixed", "fixedMAP"])
-def test_ek1_step_matches_jax(static, lin, want_Lp):
+    "static, lin, want_Lp, want_ll",
+    [(None, False, False, False), (None, False, True, False),
+     (None, True, True, False), ("fixed", False, True, False),
+     ("fixedMAP", False, False, False), (None, False, False, True)],
+    ids=["dynamic", "dynamic_Lp", "u_lin", "fixed", "fixedMAP",
+         "dynamic_ll_defaults_unchanged"])
+def test_ek1_step_matches_jax(static, lin, want_Lp, want_ll):
     """`ek1_step` against `pk._ek1_step_lists` on the same filter-conditioned
     (B,) lanes: every output at rtol 1e-10 of its entry's largest |value|
-    over the members (measured at most 1.4e-13)."""
+    over the members (measured at most 1.4e-13). With ``want_ll`` (the
+    port's ``want_stats``, and ``stop_calib=False`` passed) the
+    log-likelihood increment is held too, and the other outputs equal the
+    default call's bit for bit."""
     m, L, ps, rng = _filtered_state()
     B = m.shape[1]
     At, QLt, _, pinv0, pinv1 = _consts()
@@ -160,19 +165,27 @@ def test_ek1_step_matches_jax(static, lin, want_Lp):
         jnp.asarray(ps), jnp.asarray(t), f=jprob.f, jac=jprob.jac,
         Af=np.kron(At, np.eye(D)), QLf=np.kron(QLt, np.eye(D)),
         u_lin=None if u_lin is None else jnp.asarray(u_lin),
-        calib=tuple(jnp.asarray(c) for c in calib) if static else None, **kw)
-    got = e1.ek1_step(
-        [torch.from_numpy(x) for x in m],
-        [[torch.from_numpy(x) for x in r] for r in L], torch.from_numpy(ps),
-        torch.tensor(t, dtype=torch.float64), f=fitzhugh_nagumo_f,
-        jac=fitzhugh_nagumo_jac, Af=e1.kron_lists(At, D),
-        QLf=e1.kron_lists(QLt, D),
+        calib=tuple(jnp.asarray(c) for c in calib) if static else None,
+        want_ll=want_ll, **kw)
+    step_args = ([torch.from_numpy(x) for x in m],
+                 [[torch.from_numpy(x) for x in r] for r in L],
+                 torch.from_numpy(ps), torch.tensor(t, dtype=torch.float64))
+    step_kw = dict(
+        f=fitzhugh_nagumo_f, jac=fitzhugh_nagumo_jac,
+        Af=e1.kron_lists(At, D), QLf=e1.kron_lists(QLt, D),
         u_lin=None if u_lin is None else torch.from_numpy(u_lin),
         calib=tuple(torch.from_numpy(c) for c in calib) if static else None,
         **kw)
-    # JAX: (m, L, s2, ll[, Lp][, calib]); the port drops the unported ll
-    ref = ref[:3] + ref[4:]
-    assert len(got) == len(ref) == 3 + want_Lp + (static is not None)
+    if want_ll:
+        step_kw.update(want_stats=True, stop_calib=False)
+    got = e1.ek1_step(*step_args, **step_kw)
+    # JAX: (m, L, s2, ll[, Lp][, calib]); the port: (m, L, s2[, Lp][,
+    # calib][, diag(H Q H^T), ll]), its diagonal with no JAX counterpart
+    if want_ll:
+        got, ref = got[:3] + got[4:], ref[:4]
+    else:
+        ref = ref[:3] + ref[4:]
+    assert len(got) == len(ref) == 3 + want_Lp + (static is not None) + want_ll
 
     def flat(x):
         if isinstance(x, (list, tuple)):
@@ -183,6 +196,11 @@ def test_ek1_step_matches_jax(static, lin, want_Lp):
         r = np.broadcast_to(r, g.shape)
         scale = max(float(np.abs(r).max()), 1e-300)
         assert np.abs(g - r).max() <= 1e-10 * scale
+    if want_ll:
+        del step_kw["want_stats"], step_kw["stop_calib"]
+        default = e1.ek1_step(*step_args, **step_kw)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(flat(default), flat(got[:3])))
 
 
 def test_list_chol_matches_jax():
