@@ -7,10 +7,10 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's
 paths through the front doors ``odefilters_torch.solve_ensemble``,
 ``odefilters_torch.sample_ensemble`` and ``odefilters_torch.ieks_ensemble``
-at the headline width (FitzHugh-Nagumo, EK0(3) and EK1(3), IBM prior, 8192
-members, 500 uniform steps over (0, 20)): with EK0 the filter + RTS
-smoother pair (dynamic and static diffusions), the filter with its
-per-member log-likelihood and that likelihood's gradient by
+at the headline width (FitzHugh-Nagumo, EK0(order=3) and EK1(order=3),
+IBM prior, 8192 members, 500 uniform steps over (0, 20)): with EK0 the
+filter + RTS smoother pair (dynamic and static diffusions), the filter with
+its per-member log-likelihood and that likelihood's gradient by
 ``torch.autograd``, and the joint-posterior sampler; with EK1 the filter
 with and without the smoother (dynamic, fixed, fixedMAP), the sampler and
 the ensemble IEKS; the front door's default, the adaptive EK0 solve
@@ -23,7 +23,9 @@ and the adaptive EK0 sampler; and ``odefilters_torch.ensemble_data_loglik``,
 the per-candidate data likelihood and its gradient, at the JAX package's
 data-likelihood rows (Lotka-Volterra, 8192 candidates, 120 steps:
 full-state observations; prey only; DiagonalEK1; per-member data; dense
-EK1 with full-state and per-member data). It
+EK1 with full-state and per-member data); and the Kron-grid PDE solves
+``odefilters_torch.solve_brusselator_ek0`` and ``solve_brusselator_ek1d``
+(one trajectory of the 2-D Brusselator, N = 70, d = 9800, 1000 steps). It
 checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
@@ -230,13 +232,35 @@ Phases:
      in ps;
  36. the dense EK1 kernels against their plain versions at that shape in
      float32 on both rows of phase 35 (each plain version once; the primal
-     and the gradient's forward bit for bit; the adjoint as in phase 31),
-     the full-state row's times, the door's candidates/s and gradient
-     candidates/s beside the host step table and the Taylor init, the
-     kernels' bounds and registers.
+     and the gradient's forward bit for bit; the adjoint as in phase 31,
+     with the rows' calib_grad=False only), the full-state row's times,
+     the door's candidates/s and gradient candidates/s beside the host
+     step table and the Taylor init, the kernels' bounds and registers;
+ 37. the two Kron-grid kernels (cooperative: one thread per grid point, two
+     grid barriers a step) against their plain versions on the 2-D
+     Brusselator at N = 37 (1369 points: 11 CTAs, the last partial),
+     T = 200, dt = 1e-5, float64 and float32: us, var and ll bit for bit,
+     one launch each;
+ 38. the Kron-grid front doors ``solve_brusselator_ek0`` and
+     ``solve_brusselator_ek1d`` at the JAX package's rows (N = 70, d =
+     9800, 1000 steps over (0, 0.01), save_every = 50), float32 and
+     float64, each run with the counts set to 0 before it and read after
+     it: one launch, shapes, finite outputs; the float64 means against
+     scipy's DOP853 on an independent numpy Brusselator (rtol 1e-10,
+     ``KG_DOP853_LIMIT``); float32 against float64 means at the worst point
+     (``KG_F32_US_LIMIT``); float32 against float64 stds within an
+     absolute limit at every saved point (``KG_F32_STD_LIMIT``: the float32
+     covariance sits on its rounding floor, reported with the f32 / f64
+     std ratio), the DiagonalEK1 points over it counted and held
+     (``KG_EK1D_OVER``);
+ 39. each Kron-grid kernel against its plain version at that width in
+     float32 (the plain version once; bit for bit), the kernels' and the
+     doors' times and steps/s (median of 20 after 3 warm-ups), the Taylor
+     init alone, the bounds, the 2000 grid barriers alone as a latency
+     floor, registers and spills.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the thirty kernels with their launches on
+the line before it lists the thirty-two kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
@@ -250,7 +274,10 @@ paths, are their plain versions' on one member over this run's step
 table, times the members; the dense EK1 kernels' operations are their
 plain versions' on one member over a one-step table without and with an
 observation, weighted by the run's steps of each kind, times the
-members). ``max_abs_err`` is kernel against plain at
+members; the Kron-grid kernels' operations are their plain versions' per
+step on the whole N = 70 grid, times the 1000 steps, and their grid
+barriers' latency floor is printed beside the bound). ``max_abs_err`` is
+kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
@@ -263,7 +290,8 @@ under the dynamic diffusion) and the four kernels of phase 27; at 8192 x
 adjoint in float64 of phase 29) and the per-dimension ones (phase 33 in
 float32, prey only; the adjoint with the row's calib_grad=False) and the
 dense EK1 ones (phase 36 in float32, the full state; the adjoint with
-calib_grad=False on the plain stream). The samplers' times, plain times
+calib_grad=False on the plain stream); and at N = 70 x 1000 steps in
+float32 for the two Kron-grid kernels (phase 39). The samplers' times, plain times
 and
 bounds are those at S = 8. The EK1 launches are those of
 ``solve_ensemble(EK1)``
@@ -275,7 +303,8 @@ float32 ``sample_ensemble(EK0, adaptive=True)`` door at S = 8 of phase 26,
 the data-likelihood kernels' those of the float32 on-grid primal and
 gradient runs of phase 29, the per-dimension ones those of the float32
 prey-only primal and gradient runs of phase 32, the dense EK1 ones those
-of the float32 full-state primal and gradient runs of phase 35; the
+of the float32 full-state primal and gradient runs of phase 35, the
+Kron-grid ones those of the float32 doors of phase 38; the
 per-dimension and dense EK1 adjoints' times are those of their rows'
 gradients, calib_grad=False.
 
@@ -377,6 +406,8 @@ SOURCE = {
     "ek1_datalik": "odefilters_torch/ops/csrc/ek1_datalik.cu",
     "ek1_datalik_grad_fwd": "odefilters_torch/ops/csrc/ek1_datalik.cu",
     "ek1_datalik_grad_bwd": "odefilters_torch/ops/csrc/ek1_datalik.cu",
+    "ek0_kron_grid": "odefilters_torch/ops/csrc/kron_grid.cu",
+    "ek1d_kron_grid": "odefilters_torch/ops/csrc/kron_grid.cu",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -409,6 +440,8 @@ REPLACES = {
     "ek1_datalik": "odefilters/ops/pallas_kernels.py:2521",
     "ek1_datalik_grad_fwd": "odefilters/ops/pallas_kernels.py:3087",
     "ek1_datalik_grad_bwd": "odefilters/ops/pallas_kernels.py:3147",
+    "ek0_kron_grid": "odefilters/ops/pallas_kernels.py:6736",
+    "ek1d_kron_grid": "odefilters/ops/pallas_kernels.py:7058",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -424,9 +457,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
 failures: list[str] = []
+STARTED = time.perf_counter()
 
 
 def say(msg: str) -> None:
+    """Print ``msg``; a phase's header line also gets the seconds since the
+    script started, so a run shows where its time limit goes."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - STARTED:.1f} s]"
     print(msg, flush=True)
 
 
@@ -674,6 +712,7 @@ def counters():
     from odefilters_torch.ops import ek1_fused as e1
     from odefilters_torch.ops import ek1d
     from odefilters_torch.ops import ek1d_adaptive as eda
+    from odefilters_torch.ops import kron_grid as kg
 
     return {"ek0_pair_fwd": ep.ek0_pair_fwd, "ek0_pair_bwd": ep.ek0_pair_bwd,
             "ek0_filter": ef.ek0_filter,
@@ -703,7 +742,9 @@ def counters():
             "ek0_datalik_pd_grad_bwd": edp.ek0_datalik_pd_grad_bwd,
             "ek1_datalik": e1dl.ek1_datalik,
             "ek1_datalik_grad_fwd": e1dl.ek1_datalik_grad_fwd,
-            "ek1_datalik_grad_bwd": e1dl.ek1_datalik_grad_bwd}
+            "ek1_datalik_grad_bwd": e1dl.ek1_datalik_grad_bwd,
+            "ek0_kron_grid": kg.ek0_kron_grid_solve,
+            "ek1d_kron_grid": kg.ek1d_kron_grid_solve}
 
 
 def reset_counts():
@@ -2456,8 +2497,9 @@ def ek1d_fixed_timing(card):
 # The data likelihood (phases 28-30): the JAX package's data-likelihood row
 # (benchmarks/run_all.py, tpu_datalik_sweep_pallas and its gradient):
 # Lotka-Volterra over (0, 3) at u0 = (1, 1), parameters scaled per candidate
-# by U(0.8, 1.2), EK0(3), 120 uniform steps, 9 observations (on the grid at
-# DL_OBS_STEPS, or off it at DL_TS_OFF) of DOP853 truth with noise std 0.05.
+# by U(0.8, 1.2), EK0(order=3), 120 uniform steps, 9 observations (on the
+# grid at DL_OBS_STEPS, or off it at DL_TS_OFF) of DOP853 truth with noise
+# std 0.05.
 DL_TSPAN, DL_T_MAIN, DL_T_CHECK = (0.0, 3.0), 120, 40
 DL_OBS_STEPS = np.array([12, 40, 52, 64, 80, 96, 104, 112, 116])
 DL_TS_OFF = np.linspace(0.31, 2.77, 9)
@@ -2606,15 +2648,16 @@ def close_where_finite(name, got, ref, rtol, atol):
     return close(name, got[fin], ref[fin], rtol, atol)
 
 
-def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False):
+def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False,
+                     stops=(False, True)):
     """Phases 28, 30, 31 and 33 for one ensemble: the primal kernel and
     the gradient's forward against their plain versions (dll, ll held
     where the plain version is finite, the two non-finite on the same
     members; bit-for-bit equality, NaN members alike, reported, or with
     ``strict`` checked; the stream held bit for bit on the members that
     stay finite), then on those members the adjoint on the plain forward's
-    stream with calib_grad both ways (float32 per-dimension cases:
-    `pd_f32_adjoint`). ``case.NAMES``: its three kernels. Returns each
+    stream with calib_grad both ways, or with ``stop_calib`` in ``stops``
+    only (float32 per-dimension cases: `pd_f32_adjoint`). ``case.NAMES``: its three kernels. Returns each
     kernel's largest |kernel - plain| (the adjoint's also for each
     calib_grad, under ``"<name> calib_grad=<bool>"``) and the plain
     versions' milliseconds."""
@@ -2648,7 +2691,7 @@ def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False):
         case.restrict(keep)
         st_p = st_p[..., keep].contiguous()
     err[bwd] = 0.0
-    for stop in (False, True):
+    for stop in stops:
         ref, ms = once(lambda: case.grad_bwd_plain(st_p, stop))
         if stop == case.TIMED_STOP:
             p_ms[bwd] = ms
@@ -3464,9 +3507,9 @@ def pd_phases(odt, card, built):
 
 # The dense EK1 data likelihood (phases 34-36): the JAX package's row
 # tpu_datalik_ek1_pallas (benchmarks/run_all.py:739-752, 836-846, "the
-# stiff-inference configuration"): Lotka-Volterra over (0, 3), EK1(3), 8192
-# candidates with parameters scaled by U(0.8, 1.2), 120 steps, the 9
-# on-grid observations of the full state with noise std 0.05; and the
+# stiff-inference configuration"): Lotka-Volterra over (0, 3),
+# EK1(order=3), 8192 candidates with parameters scaled by U(0.8, 1.2), 120
+# steps, the 9 on-grid observations of the full state with noise std 0.05; and the
 # same with per-member observations.
 EK1_NAMES = ("ek1_datalik", "ek1_datalik_grad_fwd", "ek1_datalik_grad_bwd")
 # The check phase: 3 observations at steps 8, 20 and 32 of T = 40, three
@@ -3731,12 +3774,14 @@ def ek1dl_bounds(case, st, item):
 def ek1dl_timing(odt, card):
     """Phase 36: float32 at the rows' width: each row's kernels against
     their plain versions (`datalik_vs_plain`, strict: the primal and the
-    gradient's forward bit for bit; the adjoint by `pd_f32_adjoint`), the
-    full row's kernel times (median of 20 after 3 warm-ups, CUDA events;
-    the adjoint with the row's calib_grad=False, the other reported), the
-    door's candidates/s and gradient candidates/s beside the host step
-    table and the Taylor init timed alone, and the kernels' bounds. Returns
-    (ms, plain ms, max |kernel - plain|, bounds) of the full row."""
+    gradient's forward bit for bit; the adjoint by `pd_f32_adjoint` with
+    the rows' calib_grad=False, the gradient the path takes: phase 34 holds
+    calib_grad=True at B_CHECK), the full row's kernel times on the same
+    case (median of 20 after 3 warm-ups, CUDA events; the adjoint with
+    calib_grad=False, the other reported), the door's candidates/s and
+    gradient candidates/s beside the host step table and the Taylor init
+    timed alone, and the kernels' bounds. Returns (ms, plain ms, max
+    |kernel - plain|, bounds) of the full row."""
     from odefilters_torch.ops import ek0_datalik as ed
 
     ts = dl_times(DL_T_MAIN, "on")
@@ -3745,7 +3790,7 @@ def ek1dl_timing(odt, card):
                           None, DL_NOISE, per_member)
         e, pm = datalik_vs_plain(f"f32 EK1 {row} at {B_MAIN} x {DL_T_MAIN}",
                                  case, 1e-4, 1e-6, hold_grads=False,
-                                 strict=True)
+                                 strict=True, stops=(case.TIMED_STOP,))
         if row == "full":
             err, p_ms, timed = e, pm, case
     case = timed
@@ -3813,6 +3858,270 @@ def ek1dl_phases(odt, card, built):
     err["ek1_datalik_grad_bwd"] = err["ek1_datalik_grad_bwd calib_grad=False"]
     # the path's instantiations: float32, Lotka-Volterra
     print_registers(built["log"], EK1_NAMES, only="LotkaVolterraIf")
+    return launches, ms, p_ms, err, bounds
+
+
+# -- the Kron-grid PDE solves (phases 37-39) --------------------------------
+
+KG_NAMES = ("ek0_kron_grid", "ek1d_kron_grid")
+# phase 37: several CTAs and a partial last one (1369 points, 11 CTAs)
+KG_N_CHECK, KG_T_CHECK, KG_SE_CHECK, KG_DT_CHECK = 37, 200, 10, 1e-5
+# phases 38-39: the JAX package's rows (benchmarks/run_all.py), d = 9800
+KG_N, KG_T, KG_SE, KG_TSPAN, KG_ALPHA = 70, 1000, 50, (0.0, 0.01), 0.1
+# float64 means against DOP853 (rtol 1e-10, atol 1e-12): the CPU plain path
+# misses it by 3.8e-11 (EK0) and 3.79e-11 (DiagonalEK1), the reference's own
+# accuracy
+KG_DOP853_LIMIT = 1e-9
+# float32 against float64 means at the worst point (CPU plain: 3.04e-5,
+# 3.06e-5)
+KG_F32_US_LIMIT = 1e-4
+# float32 stds: no float32 std of either solve has a correct digit. The
+# float32 covariance sits on its rounding floor: EK0's scalar variance
+# clamps to 0 on every saved row, DiagonalEK1's stds are ~2e-9 at every
+# point, 5.4e3 .. 9.1e5 times float64's (the calibration sees rounding
+# noise at dt = 1e-5). What is held: |std32 - std64| <= KG_F32_STD_LIMIT at
+# every saved point, about a 24th of a float32 ulp of the largest mean
+# (3.37). CPU plain: max |dstd| 6.02e-13 (EK0), 2.011e-9 (DiagonalEK1). The
+# DiagonalEK1 points over it at any saved row, or with a float32 variance
+# not finite, are counted and held at KG_EK1D_OVER (CPU plain: 0 of 9800).
+KG_F32_STD_LIMIT, KG_EK1D_OVER = 1e-8, 0
+
+
+class KronGrid:
+    """One Kron-grid solve of the Brusselator: the door's Taylor init, the
+    wrapper's arguments, and both versions of its kernel."""
+
+    def __init__(self, ek1d, N, T, save_every, dtype, dt):
+        from odefilters_torch.models import library as lib
+        from odefilters_torch.ops import kron_grid as kg
+
+        self.kg, self.ek1d, self.N, self.T = kg, ek1d, N, T
+        tspan = (0.0, T * dt)
+        self.m0 = kg.brusselator_init(N, tspan, Q, KG_ALPHA, dtype,
+                                      device=DEVICE)
+        self.f, self.jd = (lib.brusselator_2d_f_grids(N),
+                           lib.brusselator_2d_jd_grids(N))
+        self.args = (self.m0, KG_ALPHA, 0.0, dt, T, Q, save_every)
+        _, At, Qt, self.m0_p, pinv0, pinv1 = kg.kron_inputs(
+            self.m0, dt, T, Q, save_every)
+        self.plain_kw = dict(At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1, t0=0.0,
+                             dt=dt, n_steps=T, save_every=save_every)
+
+    def kernel(self):
+        kw = dict(field="brusselator_2d")
+        if self.ek1d:
+            return self.kg.ek1d_kron_grid_solve(self.f, self.jd, *self.args,
+                                                **kw)
+        return self.kg.ek0_kron_grid_solve(self.f, *self.args, **kw)
+
+    def plain(self, T=None):
+        kw = dict(self.plain_kw)
+        if T is not None:
+            kw.update(n_steps=T, save_every=1)
+        if self.ek1d:
+            return self.kg.ek1d_kron_grid_solve_plain(
+                self.f, self.jd, self.m0_p, KG_ALPHA, **kw)
+        return self.kg.ek0_kron_grid_solve_plain(self.f, self.m0_p,
+                                                 KG_ALPHA, **kw)
+
+
+def kron_vs_plain(label, case):
+    """The kernel against its plain version on the same inputs: us, var and
+    ll bit for bit (checked), one launch. Returns (max |kernel - plain|,
+    the plain version's milliseconds)."""
+    name = KG_NAMES[case.ek1d]
+    ref, p_ms = once(case.plain)
+    reset_counts()
+    got = case.kernel()
+    torch.cuda.synchronize()
+    n = read_counts(name)[name]
+    check(n == 1, f"{label} {name}: {n} launch(es), expected 1")
+    err = 0.0
+    for what, g, r in zip(("us", "var", "ll"), got, ref):
+        finite = bool(torch.isfinite(g).all())
+        check(finite, f"{label} {name}_kernel, {what}: finite")
+        bitwise(f"{label} {name}_kernel, {what}", g, r, strict=True)
+        err = max(err, float((g.double() - r.double()).abs().max()))
+    return err, p_ms
+
+
+def brusselator_rhs(N, alpha):
+    """The flat 2-D Brusselator in numpy, independent of the port: periodic
+    Laplacian scaled by (N-1)^2, A = 3.4, B = 1."""
+    A, B, scale = 3.4, 1.0, float((N - 1) ** 2)
+
+    def lap(x):
+        return (np.roll(x, 1, 0) + np.roll(x, -1, 0) + np.roll(x, 1, 1)
+                + np.roll(x, -1, 1) - 4.0 * x) * scale
+
+    def f(t, y):
+        a, b = y[:N * N].reshape(N, N), y[N * N:].reshape(N, N)
+        da = B + a * a * b - (A + 1.0) * a + alpha * lap(a)
+        db = A * a - a * a * b + alpha * lap(b)
+        return np.concatenate([da.ravel(), db.ravel()])
+
+    return f
+
+
+def kron_path(odt):
+    """Phase 38: the two front doors at the JAX rows, float32 and float64,
+    each run with the counts set to 0 before it and read after it. Returns
+    the float32 doors' launches."""
+    from scipy.integrate import solve_ivp
+
+    from odefilters_torch.models.library import brusselator_2d_u0
+
+    N, T, SE = KG_N, KG_T, KG_SE
+    S1 = T // SE + 1
+    ts = np.linspace(*KG_TSPAN, S1)
+    ref = solve_ivp(brusselator_rhs(N, KG_ALPHA), KG_TSPAN,
+                    brusselator_2d_u0(N), method="DOP853", t_eval=ts,
+                    rtol=1e-10, atol=1e-12)
+    check(ref.status == 0, f"DOP853 reference: status {ref.status}, "
+          f"{ref.nfev} evaluations")
+    ref_us = ref.y.T.reshape(S1, 2, N, N)
+    launches = {}
+    for ek1d, door in ((False, odt.solve_brusselator_ek0),
+                       (True, odt.solve_brusselator_ek1d)):
+        name = KG_NAMES[ek1d]
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            label = f"{str(dtype)[6:]} {door.__name__}"
+            reset_counts()
+            us, var, ll = door(N, KG_TSPAN, T, save_every=SE, dtype=dtype)
+            torch.cuda.synchronize()
+            n = read_counts(name)[name]
+            if dtype == torch.float32:
+                launches[name] = n
+            var_shape = (S1, 2, N, N) if ek1d else (S1,)
+            check(n == 1 and tuple(us.shape) == (S1, 2, N, N)
+                  and tuple(var.shape) == var_shape and ll.ndim == 0,
+                  f"{label}: {n} launch(es) of {name}, us "
+                  f"{tuple(us.shape)}, var {tuple(var.shape)}")
+            finite = all(bool(torch.isfinite(x).all()) for x in (us, var, ll))
+            check(finite and bool((var >= 0).all()),
+                  f"{label}: finite us, var, ll; var >= 0")
+            say(f"   {label}: ll {float(ll):.9g} (reported)")
+            out[dtype] = [x.double().cpu().numpy() for x in (us, var, ll)]
+        us64, var64, _ = out[torch.float64]
+        us32, var32, _ = out[torch.float32]
+        e = float(np.abs(us64 - ref_us).max())
+        check(e <= KG_DOP853_LIMIT, f"f64 {door.__name__} means vs DOP853: "
+              f"max |dus| {e:.3e} <= {KG_DOP853_LIMIT:g}")
+        dus = np.abs(us32 - us64)
+        at = np.unravel_index(int(dus.argmax()), dus.shape)
+        check(float(dus.max()) <= KG_F32_US_LIMIT,
+              f"{door.__name__} f32 vs f64 means: max |dus| "
+              f"{float(dus.max()):.3e} <= {KG_F32_US_LIMIT:g} (worst point "
+              f"row, species, i, j = {tuple(int(x) for x in at)})")
+        sd32, sd64 = np.sqrt(var32[1:]), np.sqrt(var64[1:])
+        dsd = np.abs(sd32 - sd64).reshape(S1 - 1, -1)
+        ratio = np.median((sd32 / sd64).reshape(S1 - 1, -1), axis=1)
+        say(f"   {door.__name__} stds: f64 {sd64.min():.3e} .. "
+            f"{sd64.max():.3e}, f32 {sd32.min():.3e} .. {sd32.max():.3e}; "
+            f"f32 variance clamped to 0 at {int((var32[1:] <= 0).sum())} of "
+            f"{var32[1:].size} saved values; the median f32 / f64 std ratio "
+            f"per row {float(ratio.min()):.4g} .. {float(ratio.max()):.4g} "
+            "(reported: the float32 covariance sits on its rounding floor, "
+            "no float32 std has a correct digit)")
+        if ek1d:
+            over = (dsd > KG_F32_STD_LIMIT).any(axis=0) | (
+                ~np.isfinite(var32[1:])).reshape(S1 - 1, -1).any(axis=0)
+            n_over = int(over.sum())
+            check(n_over <= KG_EK1D_OVER,
+                  f"DiagonalEK1 f32 vs f64 stds: max |dstd| "
+                  f"{float(dsd.max()):.3e}; {n_over} of {2 * N * N} points "
+                  f"over {KG_F32_STD_LIMIT:g} at some saved row, or not "
+                  f"finite <= {KG_EK1D_OVER}")
+        else:
+            check(float(dsd.max()) <= KG_F32_STD_LIMIT,
+                  f"EK0 f32 vs f64 stds: max |dstd| {float(dsd.max()):.3e} "
+                  f"<= {KG_F32_STD_LIMIT:g}")
+    return launches
+
+
+def kron_bounds(case, item):
+    """(bound_ms, bound_by, operations per step, bytes) of ``case``'s kernel:
+    its input (the initial means) read once and its outputs written once,
+    and its plain version's operations per step over the whole grid."""
+    us, var, _ = case.plain(T=1)
+    nbytes = (case.m0.numel() + (case.T // case.plain_kw["save_every"] + 1)
+              * (us[0].numel() + var[0].numel()) + 1) * item
+    ops = count_ops(lambda T1: lambda: case.plain(T=T1))
+    return bound(nbytes, ops, 1, case.T) + (ops, nbytes)
+
+
+def kron_timing(odt, card):
+    """Phase 39: float32 at the rows' width: each kernel against its plain
+    version (run once, bit for bit), the kernel's and the door's times
+    (median of 20 after 3 warm-ups, CUDA events), the Taylor init alone,
+    steps/s, the bound, and the 2 T grid barriers alone as a latency floor.
+    Returns (ms, plain ms, max |kernel - plain|, bounds)."""
+    import ctypes
+
+    from odefilters_torch.ops import _build
+    from odefilters_torch.ops import kron_grid as kg
+
+    ms, p_ms, err, bounds = {}, {}, {}, {}
+    dt = (KG_TSPAN[1] - KG_TSPAN[0]) / KG_T
+    nb = -(-KG_N * KG_N // kg.KRON_BLOCK)
+    lib = _build.load()
+
+    def barriers():
+        rc = lib.kron_grid_sync_probe(
+            nb, 2 * KG_T, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"kron_grid_sync_probe: CUDA error {rc}")
+
+    floor_ms = time_ms(barriers, warmup=3, iters=20)
+    i_ms = time_ms(lambda: kg.brusselator_init(KG_N, KG_TSPAN, Q, KG_ALPHA,
+                                               torch.float32, device=DEVICE),
+                   warmup=3, iters=20)
+    say(f"   {2 * KG_T} grid barriers of {nb} CTAs alone: {floor_ms:.4f} ms "
+        f"(card: {card}); the Taylor init alone: {i_ms:.3f} ms")
+    for ek1d, door in ((False, odt.solve_brusselator_ek0),
+                       (True, odt.solve_brusselator_ek1d)):
+        name = KG_NAMES[ek1d]
+        case = KronGrid(ek1d, KG_N, KG_T, KG_SE, torch.float32, dt)
+        err[name], p_ms[name] = kron_vs_plain(
+            f"f32 at N={KG_N} x {KG_T}", case)
+        ms[name] = time_ms(case.kernel, warmup=3, iters=20)
+        d_ms = time_ms(lambda: door(KG_N, KG_TSPAN, KG_T, save_every=KG_SE,
+                                    dtype=torch.float32),
+                       warmup=3, iters=20)
+        b_ms, b_by, ops, nbytes = kron_bounds(case, 4)
+        bounds[name] = (b_ms, b_by, ops)
+        say(f"   {name} kernel {ms[name]:.4f} ms = "
+            f"{KG_T / ms[name] * 1e3:.0f} steps/s, plain (once) "
+            f"{p_ms[name]:.1f} ms (card: {card})")
+        say(f"   {door.__name__} (Taylor init + kernel): {d_ms:.3f} ms = "
+            f"{KG_T / d_ms * 1e3:.0f} steps/s")
+        say(f"   {name}: {ops} operations per step; {nbytes / 1e6:.3f} MB; "
+            f"bound {b_ms:.4f} ms by {b_by}; the grid barriers' floor "
+            f"{floor_ms:.4f} ms")
+        del case
+    return ms, p_ms, err, bounds
+
+
+def kron_phases(odt, card, built):
+    """Phases 37-39. Returns (launches on the main path's runs, ms, plain
+    ms, max |kernel - plain|, bounds) of the two Kron-grid kernels."""
+    say(f"== 37. the Kron-grid kernels vs plain, N={KG_N_CHECK} "
+        f"({KG_N_CHECK ** 2} points), T={KG_T_CHECK}, dt={KG_DT_CHECK:g}, "
+        "float64 and float32, bit for bit")
+    for dtype in (torch.float64, torch.float32):
+        for ek1d in (False, True):
+            kron_vs_plain(str(dtype)[6:],
+                          KronGrid(ek1d, KG_N_CHECK, KG_T_CHECK, KG_SE_CHECK,
+                                   dtype, KG_DT_CHECK))
+    say(f"== 38. the Kron-grid paths: solve_brusselator_ek0 / _ek1d, "
+        f"N={KG_N} (d = {2 * KG_N ** 2}), tspan={KG_TSPAN}, T={KG_T}, "
+        f"save_every={KG_SE}, float32 and float64")
+    launches = kron_path(odt)
+    say(f"== 39. the Kron-grid kernels vs plain and timing, float32, "
+        f"N={KG_N}, T={KG_T}")
+    ms, p_ms, err, bounds = kron_timing(odt, card)
+    print_registers(built["log"], KG_NAMES, only="_kernelIf")
     return launches, ms, p_ms, err, bounds
 
 
@@ -4166,6 +4475,9 @@ def main() -> int:
     e1_launches, e1_ms, e1_plain_ms, e1_err, e1_bounds = ek1dl_phases(
         odt, card, built)
     launches.update(e1_launches)
+    kg_launches, kg_ms, kg_plain_ms, kg_err, kg_bounds = kron_phases(
+        odt, card, built)
+    launches.update(kg_launches)
 
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
@@ -4186,22 +4498,23 @@ def main() -> int:
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
           **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms, **ea_ms,
-          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms, **e1_ms}
+          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms, **e1_ms, **kg_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
                 **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
                 "ek1d_filter": d_plain_ms, **da_plain_ms, **ea_plain_ms,
                 "ek0_adaptive_sampler": sm_plain_ms, **dl_plain_ms,
-                **pd_plain_ms, **e1_plain_ms}
+                **pd_plain_ms, **e1_plain_ms, **kg_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
             **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err,
             **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err, **pd_err,
-            **e1_err}
+            **e1_err, **kg_err}
     bounds.update(a_bounds)
     bounds.update(da_bounds)
     bounds.update(ea_bounds)
     bounds.update(dl_bounds)
     bounds.update(pd_bounds_)
     bounds.update(e1_bounds)
+    bounds.update(kg_bounds)
     bounds["ek1d_filter"] = d_bound
     bounds["ek0_adaptive_sampler"] = sm_bound
     kernels = [

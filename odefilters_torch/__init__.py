@@ -19,8 +19,11 @@ ensemble IEKS; and the per-candidate data likelihood with its gradient
 (``ensemble_data_loglik``): noisy full-state observations on or off the
 grid (isotropic EK0), and on the grid partial one-hot observations,
 per-dimension noise, per-member data, DiagonalEK1 and, with ``ek1=True``,
-dense EK1 with any observation matrix. Vector fields with CUDA kernels:
-FitzHugh-Nagumo and Lotka-Volterra::
+dense EK1 with any observation matrix; and one trajectory of a
+semi-discretized PDE on a grid (the 2-D Brusselator, d = 2 N^2) with EK0
+or DiagonalEK1, on cooperative kernels. Vector fields with CUDA kernels:
+FitzHugh-Nagumo and Lotka-Volterra (ensembles), the Brusselator stencil
+(grids)::
 
     import torch
     import odefilters_torch as odt
@@ -60,6 +63,12 @@ FitzHugh-Nagumo and Lotka-Volterra::
     odt.ensemble_data_loglik(lv.f, u0s, ps, lv.tspan, 120, ts, ys, 0.05,
                              obs_matrix=[[1.0, 0.0], [1.0, 1.0]], ek1=True,
                              jac=lv.jac, field=lv.field)  # dense EK1
+    us, var, ll = odt.solve_brusselator_ek0(70, (0.0, 0.01), 1000,
+                                            save_every=50)  # d = 9800
+    us.shape, var.shape  # (21, 2, 70, 70), (21,): isotropic variance
+    us, var, ll = odt.solve_brusselator_ek1d(70, (0.0, 0.01), 1000,
+                                             save_every=50)
+    var.shape          # (21, 2, 70, 70): per point
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 
@@ -85,6 +94,10 @@ from odefilters_torch.ensemble import (  # noqa: E402
 )
 from odefilters_torch.ops.ek0_datalik import ensemble_data_loglik  # noqa: E402
 from odefilters_torch.ops.ek1_adaptive import solve_adaptive_single  # noqa: E402
+from odefilters_torch.ops.kron_grid import (  # noqa: E402
+    solve_brusselator_ek0,
+    solve_brusselator_ek1d,
+)
 from odefilters_torch.problem import ODEProblem, ode_problem, remake  # noqa: E402
 
 __all__ = [
@@ -102,5 +115,7 @@ __all__ = [
     "remake",
     "sample_ensemble",
     "solve_adaptive_single",
+    "solve_brusselator_ek0",
+    "solve_brusselator_ek1d",
     "solve_ensemble",
 ]

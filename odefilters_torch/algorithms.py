@@ -19,18 +19,28 @@ MV_DIFFUSIONS = ("dynamicMV", "fixedMV")
 class AbstractEK:
     """Shared configuration of the Gaussian ODE filters.
 
-    ``prior``: None or ``"ibm"`` (the q-times integrated Wiener process);
-    IOUP / Matern priors are not ported yet.
+    The fields are in the JAX package's order, ``(prior, order,
+    diffusionmodel, smooth)``, so positional constructions mean the same in
+    both: ``EK0("ibm", 3)`` is order 3, and ``EK0(3)`` raises.
+
+    ``prior``: None or ``"ibm"`` (the q-times integrated Wiener process,
+    normalized to None); IOUP / Matern priors are not ported yet, and a
+    solve given another prior raises ``NotImplementedError``.
     """
 
-    order: int = 3
-    smooth: bool = True
-    diffusionmodel: str = "dynamic"
     prior: object = None
+    order: int = 3
+    diffusionmodel: str = "dynamic"
+    smooth: bool = True
 
     def __post_init__(self):
         if self.prior == "ibm":
             object.__setattr__(self, "prior", None)
+        elif isinstance(self.prior, (bool, int, float)):
+            # as the JAX package's normalize_prior: EK0(3) is an error
+            raise TypeError(
+                f"prior must be a string or a prior object, got {self.prior!r}"
+            )
         if self.diffusionmodel not in DIFFUSION_MODELS:
             raise ValueError(
                 f"diffusionmodel must be one of {DIFFUSION_MODELS}, "

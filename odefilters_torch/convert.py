@@ -25,15 +25,41 @@ def problem_from_numpy(model_name: str, u0, p, tspan, *, device="cuda",
                        dtype=torch.float64) -> ODEProblem:
     """The port's ``model_name`` problem with ``u0``, ``p`` and ``tspan``
     taken from numpy values, on ``device`` (the CUDA card unless given) in
-    ``dtype``."""
+    ``dtype``. ``"brusselator_2d"`` takes the flat ``(2 N^2,)`` initial
+    state, N inferred from it, and the diffusivity ``alpha`` as ``p``."""
+    if model_name == "brusselator_2d":
+        u0 = np.asarray(u0, dtype=np.float64)
+        N = int(round((u0.size / 2) ** 0.5))
+        if u0.shape != (2 * N * N,):
+            raise ValueError(
+                f"brusselator_2d takes a flat u0 of 2 N^2 values, got {u0.shape}"
+            )
+        return models.brusselator_2d(
+            N=N, tspan=tuple(float(t) for t in tspan), alpha=float(p), u0=u0,
+            device=device, dtype=dtype)
     if model_name not in _MODELS:
         raise NotImplementedError(
-            f"model {model_name!r} is not ported yet; ported: {sorted(_MODELS)}"
+            f"model {model_name!r} is not ported yet; ported: "
+            f"{sorted(_MODELS) + ['brusselator_2d']}"
         )
     return _MODELS[model_name](
         u0=np.asarray(u0, dtype=np.float64), p=np.asarray(p, dtype=np.float64),
         tspan=tuple(float(t) for t in tspan), device=device, dtype=dtype,
     )
+
+
+def grid_init_from_numpy(m0, *, device="cuda", dtype=torch.float64):
+    """A Kron-grid solve's Taylor init, the ``(q+1, ns, N, M)`` numpy array
+    of derivative grids (the JAX package's ``m0`` of
+    ``ek0_kron_grid_solve``), as a contiguous tensor on ``device`` (the CUDA
+    card unless given)."""
+    m0 = np.asarray(m0)
+    if m0.ndim != 4 or min(m0.shape) < 1 or m0.shape[0] < 2:
+        raise ValueError(
+            f"a grid init must be (q+1, ns, N, M) with q >= 1, got {m0.shape}"
+        )
+    return torch.as_tensor(np.ascontiguousarray(m0), dtype=dtype,
+                           device=resolve_device(device))
 
 
 def ensemble_inputs_from_numpy(u0s, ps, *, device="cuda",

@@ -8,6 +8,7 @@ with a CUDA implementation names it in ``ODEProblem.field``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from odefilters_torch.problem import ODEProblem, ode_problem
@@ -81,3 +82,98 @@ def lotka_volterra(
     return ode_problem(lotka_volterra_f, u0, tspan, p=p,
                        jac=lotka_volterra_jac, field="lv", device=device,
                        dtype=dtype)
+
+
+BRUSSELATOR_A, BRUSSELATOR_B = 3.4, 1.0
+
+
+def brusselator_2d_f_grids(N: int, alpha=None):
+    """Grid-form Brusselator vector field ``[a, b] -> [da, db]`` on ``(N, N)``
+    tensors: the stencil shared by the flat `brusselator_2d` and the
+    Kron-grid solves (``ops/kron_grid.py``), as the JAX package's.
+
+    The Laplacian is periodic (``torch.roll`` wraps, as ``jnp.roll``), yet
+    scaled by ``(N-1)^2``; the sum runs in the JAX order, ``(((x[i-1] +
+    x[i+1]) + x[j-1]) + x[j+1]) - 4x``, and ``a * a * b`` is ``(a a) b``.
+    The CUDA stencil (``BrusselatorGrid`` in ``ops/csrc/kron_grid.cuh``)
+    uses the same order. ``alpha``: a Python float folded into the stencil
+    (the Kron-grid solves); None reads the diffusivity from ``p``.
+    """
+    A_, B_ = BRUSSELATOR_A, BRUSSELATOR_B
+    scale = float((N - 1) ** 2)
+
+    def f_grids(fields, p, t):
+        a, b = fields
+        al = float(alpha) if alpha is not None else p
+
+        def lap(x):
+            return (
+                torch.roll(x, 1, 0) + torch.roll(x, -1, 0)
+                + torch.roll(x, 1, 1) + torch.roll(x, -1, 1)
+                - 4.0 * x
+            ) * scale
+
+        da = B_ + a * a * b - (A_ + 1.0) * a + al * lap(a)
+        db = A_ * a - a * a * b + al * lap(b)
+        return [da, db]
+
+    return f_grids
+
+
+def brusselator_2d_jd_grids(N: int, alpha=None):
+    """Per-point Jacobian diagonal of the Brusselator stencil (DiagonalEK1):
+    ``2ab - (A+1) - 4 alpha scale`` and ``-a^2 - 4 alpha scale``, reading
+    only the point's own values."""
+    A_ = BRUSSELATOR_A
+    scale = float((N - 1) ** 2)
+
+    def jd_grids(fields, p, t):
+        a, b = fields
+        al = float(alpha) if alpha is not None else p
+        lap_diag = -4.0 * al * scale
+        return [2.0 * a * b - (A_ + 1.0) + lap_diag, -a * a + lap_diag]
+
+    return jd_grids
+
+
+def brusselator_2d_u0(N: int) -> np.ndarray:
+    """The initial state of `brusselator_2d`, ``(2 N^2,)`` float64 numpy:
+    ``a0 = 22 (y (1-y))^1.5``, ``b0 = 27 (x (1-x))^1.5`` on ``linspace(0,
+    1, N)`` (numpy's grid equals the JAX package's to the bit; its ``**``
+    may differ in the last bit)."""
+    x = np.linspace(0.0, 1.0, N)
+    X, Y = np.meshgrid(x, x, indexing="ij")
+    a0 = 22.0 * (Y * (1 - Y)) ** 1.5
+    b0 = 27.0 * (X * (1 - X)) ** 1.5
+    return np.concatenate([a0.ravel(), b0.ravel()])
+
+
+def brusselator_2d(
+    N: int = 16, tspan=(0.0, 1.0), alpha: float = 0.1, *, u0=None,
+    device="cuda", dtype=None,
+) -> ODEProblem:
+    """2-D Brusselator reaction-diffusion on an N x N periodic grid, d = 2 N^2
+    states, as ``odefilters.models.brusselator_2d``, on the CUDA card unless
+    ``device`` names another. ``p`` is the diffusivity ``alpha``; ``u0``
+    (flat, ``(2 N^2,)``) replaces `brusselator_2d_u0`. Its CUDA form is the
+    grid stencil of the Kron-grid kernels (``field="brusselator_2d"``)."""
+    f_grids = brusselator_2d_f_grids(N)
+    jd_grids = brusselator_2d_jd_grids(N)
+
+    def f(u, p, t):
+        a = u[: N * N].reshape(N, N)
+        b = u[N * N:].reshape(N, N)
+        da, db = f_grids([a, b], p, t)
+        return torch.cat([da.reshape(-1), db.reshape(-1)])
+
+    def jac_diag(u, p, t):
+        a = u[: N * N].reshape(N, N)
+        b = u[N * N:].reshape(N, N)
+        ja, jb = jd_grids([a, b], p, t)
+        return torch.cat([ja.reshape(-1), jb.reshape(-1)])
+
+    u0 = brusselator_2d_u0(N) if u0 is None else np.asarray(u0, np.float64)
+    if u0.shape != (2 * N * N,):
+        raise ValueError(f"u0 must be (2 N^2,) = ({2 * N * N},), got {u0.shape}")
+    return ode_problem(f, u0, tspan, p=alpha, jac_diag=jac_diag,
+                       field="brusselator_2d", device=device, dtype=dtype)

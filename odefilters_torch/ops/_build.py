@@ -23,10 +23,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
 SOURCES = ("ek1_datalik.cu", "ek1_adaptive.cu", "ek1_fused.cu",
            "ek0_datalik_pd.cu", "ek1d.cu", "ek0_adaptive.cu", "ek0_datalik.cu",
-           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu")
+           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu", "kron_grid.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
            "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
-           "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh")
+           "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh",
+           "kron_grid.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,7 +55,9 @@ NVCC_FLAGS = (
 # another accepted step sequence (the DiagonalEK1 file also holds the
 # fixed-grid filter, whose lls and sigma^2 carry the innovation). And the
 # data likelihood's, isotropic, per dimension and dense EK1: its ODE
-# log-likelihood is the filter's.
+# log-likelihood is the filter's. And the Kron-grid solves': their grid-wide
+# sums feed s2, and through it every later step, so they are held to their
+# plain versions bit for bit.
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
@@ -64,7 +67,8 @@ SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek1_adaptive.cu": ("-fmad=false",),
                 "ek0_datalik.cu": ("-fmad=false",),
                 "ek0_datalik_pd.cu": ("-fmad=false",),
-                "ek1_datalik.cu": ("-fmad=false",)}
+                "ek1_datalik.cu": ("-fmad=false",),
+                "kron_grid.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -115,6 +119,10 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                        T, yb, consts)
 # ek1_datalik_grad_bwd: (stream_in, ps, ys, times, codes, ddll, dall, dm0_p,
 #                        dps, dys, B, T, yb, stop_calib, consts)
+# ek0_kron_grid, ek1d_kron_grid: (m0_p, us, var, ll, work, N, M, T,
+#                                 save_every, consts) (the Brusselator
+#                                 stencil, cooperative)
+# kron_grid_sync_probe: (blocks, n_barriers)
 FIELD_ENTRIES = {
     "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
     "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
@@ -148,8 +156,10 @@ PLAIN_ENTRIES = {
     "ek1d_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
     "ek0_adaptive_sampler": (_P,) * 5 + (_I,) * 4 + (_D, _P),
     "ek1_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
+    "ek0_kron_grid": (_P,) * 5 + (_I,) * 4 + (_D, _P),
+    "ek1d_kron_grid": (_P,) * 5 + (_I,) * 4 + (_D, _P),
 }
-ENTRIES = {}
+ENTRIES = {"kron_grid_sync_probe": (_I, _I, _P)}
 for _s in ("f32", "f64"):
     for _name, _args in FIELD_ENTRIES.items():
         for _field in ("fhn", "lv"):

@@ -24,6 +24,9 @@ CUDA_JAC_FIELDS = frozenset({"fhn", "lv"})
 # The fields whose functor also has a Jacobian diagonal ``jac_diag`` (the
 # DiagonalEK1 kernels evaluate it in the kernel).
 CUDA_JAC_DIAG_FIELDS = frozenset({"fhn", "lv"})
+# CUDA grid stencils of the Kron-grid kernels: name -> species ns (square
+# (N, N) grids; the diffusivity is the solve's p).
+CUDA_GRID_FIELDS = {"brusselator_2d": 2}
 # The kernels are instantiated for this order only (nq = 4).
 CUDA_ORDERS = (3,)
 
@@ -109,8 +112,14 @@ def launch(wrapper, device: torch.device, entry: str, *args) -> None:
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}"
+                           + _CUDA_ERRORS.get(rc, ""))
     wrapper.launches += 1
+
+
+# what a code that an entry's own checks return means
+_CUDA_ERRORS = {720: " (cudaErrorCooperativeLaunchTooLarge: the cooperative "
+                     "grid's CTAs are not all co-resident on this card)"}
 
 
 def check_ported(*, prior, second_order: bool, mesh) -> None:

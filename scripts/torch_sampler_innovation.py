@@ -5,9 +5,9 @@ measurement residual formed two ways, on the plain PyTorch versions.
     python3 scripts/torch_sampler_innovation.py [--members 8192]
                                                 [--steps 500] [--device cpu]
 
-FitzHugh-Nagumo, EK0(3), members x steps over (0, 20): the headline
-ensemble (u0 perturbed by 0.1 N(0, 1) from numpy seed 0), two normal draws
-per member (numpy seed 13) and one of zeros. For each form of the residual
+FitzHugh-Nagumo, EK0(order=3), members x steps over (0, 20): the
+headline ensemble (u0 perturbed by 0.1 N(0, 1) from numpy seed 0), two
+normal draws per member (numpy seed 13) and one of zeros. For each form of the residual
 ``pb mp[1] - du`` in float32 it prints the count of filter steps that
 stream s2 = 0, the largest |f32 - f64| over the sample paths, and the
 members whose paths miss the f64 ones by more than 1e-4:
@@ -78,7 +78,7 @@ def main() -> int:
 
     t = time.time()
     ref, _ = paths(torch.float64, fused)
-    print(f"FitzHugh-Nagumo, EK0(3), {B} members x {T} steps, "
+    print(f"FitzHugh-Nagumo, EK0(order=3), {B} members x {T} steps, "
           f"{S} normal draws + zeros, device {a.device}; f64 in "
           f"{time.time() - t:.1f} s")
     for name, residual in (("rounded product", rounded_product),

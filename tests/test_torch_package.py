@@ -165,3 +165,28 @@ def test_algorithm_validation_matches_jax():
     with pytest.raises(ValueError, match="MV"):
         odt.EK1(diffusionmodel="fixedMV")
     assert odt.EK0(prior="ibm").prior is None
+
+
+@pytest.mark.parametrize("name", ["EK0", "EK1", "DiagonalEK1", "IEKS"])
+@pytest.mark.parametrize("args", [("ibm", 3), ("ibm", 3, "fixed", False),
+                                  ("ibm", 2, "dynamic")],
+                         ids=["prior-order", "all-four", "prior-order-diff"])
+def test_algorithms_positional_fields_match_jax(name, args):
+    """Positional fields are in the JAX package's order (prior, order,
+    diffusionmodel, smooth): the same call configures the same solver."""
+    if name == "IEKS" and len(args) == 4:
+        args = args[:3] + (True,)       # IEKS requires smooth=True in both
+    ref, got = getattr(odf, name)(*args), getattr(odt, name)(*args)
+    assert got.prior is None and type(ref.prior).__name__ == "IWP"
+    assert (got.order, got.diffusionmodel, got.smooth) == (
+        ref.order, ref.diffusionmodel, ref.smooth)
+    assert got.order == args[1]
+
+
+@pytest.mark.parametrize("name", ["EK0", "EK1", "DiagonalEK1", "IEKS"])
+def test_algorithms_reject_order_as_first_positional(name):
+    """``EK0(3)`` passes 3 as the prior: an error in both packages."""
+    with pytest.raises(TypeError):
+        getattr(odf, name)(3)
+    with pytest.raises(TypeError):
+        getattr(odt, name)(3)
