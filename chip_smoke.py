@@ -25,7 +25,10 @@ data-likelihood rows (Lotka-Volterra, 8192 candidates, 120 steps:
 full-state observations; prey only; DiagonalEK1; per-member data; dense
 EK1 with full-state and per-member data); and the Kron-grid PDE solves
 ``odefilters_torch.solve_brusselator_ek0`` and ``solve_brusselator_ek1d``
-(one trajectory of the 2-D Brusselator, N = 70, d = 9800, 1000 steps). It
+(one trajectory of the 2-D Brusselator, N = 70, d = 9800, 1000 steps);
+and the time-parallel solve ``odefilters_torch.solve_fixed_parallel``
+(FitzHugh-Nagumo over (0, 20) on 16384 uniform steps: global EK1 and
+windowed EK0, on the fused scan kernels). It
 checks float32 against float64 on the worst
 lanes, float64 against an independent high-accuracy integrator, the
 float64 gradient against a finite difference, the sampler's calibration,
@@ -91,9 +94,10 @@ Phases:
      the sampler kernel against the smoother kernel's means on the same
      stream (exactly); the calibration of one member tiled across the
      lanes (float64);
- 18. the EK1 kernels against their plain versions at 8192 x 500 in
-     float32 (S = 8 normals from ``torch.randn``), then the timings of each
-     kernel, each EK1 front door and each plain version once;
+ 18. the EK1 kernels against their plain versions at 8192 x 100 (the
+     first 100 of the 500 steps) in float32 (S = 8 normals from
+     ``torch.randn``), then the timings of each kernel at 8192 x 500, each
+     EK1 front door, and each plain version once (at 100 steps);
  19. the three adaptive EK0 kernels against their plain versions at 1000
      members over (0, 20), 20 save intervals, abstol 1e-6, reltol 1e-4, in
      float64 and float32: the counts (nacc, nrej, failed, save points
@@ -204,8 +208,9 @@ Phases:
      perturbation of its stream, ``PD_F64_FACTOR``); the float64 gradient
      against central differences of sum(dll) in ps;
  33. the per-dimension kernels against their plain versions at 8192 x 120
-     in float32 on each row of phase 32 (each plain version once; the
-     primal and the gradient's forward bit for bit; the adjoint as in
+     in float32 on the prey-only and DiagonalEK1 rows of phase 32 (each
+     plain version once; the primal and the gradient's forward bit for bit;
+     the adjoint as in phase 31; per-member data is held at 1000 members in
      phase 31), the prey-only and DiagonalEK1 rows' times, the doors'
      candidates/s and gradient candidates/s beside the host step table
      and the Taylor init, the kernels' bounds and registers;
@@ -231,9 +236,10 @@ Phases:
      kernel's; the float64 gradient against central differences of sum(dll)
      in ps;
  36. the dense EK1 kernels against their plain versions at that shape in
-     float32 on both rows of phase 35 (each plain version once; the primal
-     and the gradient's forward bit for bit; the adjoint as in phase 31,
-     with the rows' calib_grad=False only), the full-state row's times,
+     float32 on the full-state row of phase 35 (each plain version once;
+     the primal and the gradient's forward bit for bit; the adjoint as in
+     phase 31, with the row's calib_grad=False only; per-member data is
+     held at 1000 members in phase 34), the full-state row's times,
      the door's candidates/s and gradient candidates/s beside the host
      step table and the Taylor init, the kernels' bounds and registers;
  37. the two Kron-grid kernels (cooperative: one thread per grid point, two
@@ -257,10 +263,40 @@ Phases:
      float32 (the plain version once; bit for bit), the kernels' and the
      doors' times and steps/s (median of 20 after 3 warm-ups), the Taylor
      init alone, the bounds, the 2000 grid barriers alone as a latency
-     floor, registers and spills.
+     floor, registers and spills;
+ 40. the three time-parallel scan kernels (``tp_scan.cuh``: the chunk
+     scan, a thread per chunk; the cooperative totals scan; the fixup, a
+     thread per element) against their plain versions, bit for bit
+     (checked), at N = 3000 and 16384 in float64 and float32, filtering and
+     smoothing elements (EK1 on FitzHugh-Nagumo linearized along DOP853's
+     solution), forward and reversed, and ``fused_associative_scan``
+     against the plain phases chained, one launch of each kernel;
+ 41. the global time-parallel door ``solve_fixed_parallel(prob,
+     EK1(order=3), ts=linspace(0, 20, 16385), iterations=2)`` at the JAX
+     package's time-parallel record, float64 and float32, each run with the
+     counts set to 0 before it and read after it: the defaults resolved to
+     the fused scan and the warm start, 4 launches of each scan kernel and
+     1 of ``ek0_adaptive``; shapes, finite values; the float64 means against
+     DOP853 and against the sequential fixed-grid EK1 smoother (fixed
+     diffusion, one member; ``TP_DOP853_LIMIT``, ``TP_SEQ_LIMIT``); float32
+     against float64 at the worst grid point (``TP_F32_LIMIT``), the
+     float32 stds within ``TP_F32_STD_LIMIT`` absolute of float64's and
+     both sigma^2 printed (the float32 ones are at its rounding floor at
+     this N); the float32 sigma^2 over float64's at N = 512 (held within
+     ``TP_S2_RTOL``) and 2048 (reported), the floor's witness; the
+     kernels on the next sweep's elements bit for bit;
+ 42. the windowed door (``EK0(order=3)``, ``windows=16``: 1024-step
+     windows, 2 sweeps each) with the same holds, 64 launches of each scan
+     kernel;
+ 43. float32 at N = 16384: each kernel per kind against its plain version
+     (once), its time (median of 20 after 3 warm-ups), its bound; the
+     fused scan against the blocked scan at auto_block(N) (time and largest
+     differences, reported); the global door's parts (Taylor init, warm
+     start, one sweep's element build and scans, calibration) and both
+     doors' times; registers and spills.
 
 The second-last line of the output names the card and its power limit;
-the line before it lists the thirty-two kernels with their launches on
+the line before it lists the thirty-five kernels with their launches on
 their path, errors, times, plain times and bounds (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
@@ -276,14 +312,19 @@ plain versions' on one member over a one-step table without and with an
 observation, weighted by the run's steps of each kind, times the
 members; the Kron-grid kernels' operations are their plain versions' per
 step on the whole N = 70 grid, times the 1000 steps, and their grid
-barriers' latency floor is printed beside the bound). ``max_abs_err`` is
+barriers' latency floor is printed beside the bound; the time-parallel
+scan kernels' operations are their CUDA combine's on one element
+(``tp_combine_ops``: the identity blocks' zeros skipped), times the
+combines each function needs in the filter scan at N = 16384 (the totals
+scan 1023, not its rounds' 9217), and their bytes the packed elements each
+reads and writes once). ``max_abs_err`` is
 kernel against plain at
 8192 x 500: in float32 for the pair (phase 6), the primal filter and the
 gradient's forward (phase 10) and the sampler's kernels (phase 13, S = 8;
 the filter-states kernel's stream through the sampler kernel), in float64
-for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18,
-S = 8; the filter kernel's means, and its stream through the smoother
-kernel); and at 8192 members in float32 for the adaptive kernels (phase
+for the adjoint (phase 9), in float32 for the EK1 kernels (phase 18 at
+8192 x 100, S = 8; the filter kernel's means, and its stream through the
+smoother kernel); and at 8192 members in float32 for the adaptive kernels (phase
 21), the DiagonalEK1 kernels (phase 24, the fixed grid at 500 steps
 under the dynamic diffusion) and the four kernels of phase 27; at 8192 x
 120 on the grid for the data-likelihood kernels (phase 30 in float32, the
@@ -291,7 +332,9 @@ adjoint in float64 of phase 29) and the per-dimension ones (phase 33 in
 float32, prey only; the adjoint with the row's calib_grad=False) and the
 dense EK1 ones (phase 36 in float32, the full state; the adjoint with
 calib_grad=False on the plain stream); and at N = 70 x 1000 steps in
-float32 for the two Kron-grid kernels (phase 39). The samplers' times, plain times
+float32 for the two Kron-grid kernels (phase 39), and at N = 16384 in
+float32 on the filter elements for the three scan kernels (phase 43; their
+times and plain times are the filter kind's). The samplers' times, plain times
 and
 bounds are those at S = 8. The EK1 launches are those of
 ``solve_ensemble(EK1)``
@@ -304,7 +347,8 @@ the data-likelihood kernels' those of the float32 on-grid primal and
 gradient runs of phase 29, the per-dimension ones those of the float32
 prey-only primal and gradient runs of phase 32, the dense EK1 ones those
 of the float32 full-state primal and gradient runs of phase 35, the
-Kron-grid ones those of the float32 doors of phase 38; the
+Kron-grid ones those of the float32 doors of phase 38, the scan kernels'
+those of the float32 global EK1 door of phase 41; the
 per-dimension and dense EK1 adjoints' times are those of their rows'
 gradients, calib_grad=False.
 
@@ -408,6 +452,9 @@ SOURCE = {
     "ek1_datalik_grad_bwd": "odefilters_torch/ops/csrc/ek1_datalik.cu",
     "ek0_kron_grid": "odefilters_torch/ops/csrc/kron_grid.cu",
     "ek1d_kron_grid": "odefilters_torch/ops/csrc/kron_grid.cu",
+    "tp_chunk_scan": "odefilters_torch/ops/csrc/tp_scan.cuh",
+    "tp_totals_scan": "odefilters_torch/ops/csrc/tp_scan.cuh",
+    "tp_fixup": "odefilters_torch/ops/csrc/tp_scan.cuh",
 }
 REPLACES = {
     "ek0_pair_fwd": "odefilters/ops/pallas_kernels.py:3843",
@@ -442,6 +489,9 @@ REPLACES = {
     "ek1_datalik_grad_bwd": "odefilters/ops/pallas_kernels.py:3147",
     "ek0_kron_grid": "odefilters/ops/pallas_kernels.py:6736",
     "ek1d_kron_grid": "odefilters/ops/pallas_kernels.py:7058",
+    "tp_chunk_scan": "odefilters/parallel/pallas_scan.py:276",
+    "tp_totals_scan": "odefilters/parallel/pallas_scan.py:295",
+    "tp_fixup": "odefilters/parallel/pallas_scan.py:313",
 }
 STATIC = ("fixed", "fixedMAP", "fixedMV")
 EK1_STATIC = ("fixed", "fixedMAP")
@@ -713,6 +763,7 @@ def counters():
     from odefilters_torch.ops import ek1d
     from odefilters_torch.ops import ek1d_adaptive as eda
     from odefilters_torch.ops import kron_grid as kg
+    from odefilters_torch.ops import tp_scan as tps
 
     return {"ek0_pair_fwd": ep.ek0_pair_fwd, "ek0_pair_bwd": ep.ek0_pair_bwd,
             "ek0_filter": ef.ek0_filter,
@@ -744,7 +795,10 @@ def counters():
             "ek1_datalik_grad_fwd": e1dl.ek1_datalik_grad_fwd,
             "ek1_datalik_grad_bwd": e1dl.ek1_datalik_grad_bwd,
             "ek0_kron_grid": kg.ek0_kron_grid_solve,
-            "ek1d_kron_grid": kg.ek1d_kron_grid_solve}
+            "ek1d_kron_grid": kg.ek1d_kron_grid_solve,
+            "tp_chunk_scan": tps.tp_chunk_scan,
+            "tp_totals_scan": tps.tp_totals_scan,
+            "tp_fixup": tps.tp_fixup}
 
 
 def reset_counts():
@@ -1575,12 +1629,21 @@ def ek1_path(odt, card):
     return launches
 
 
+# phase 18 holds the EK1 kernels against their plain versions over the
+# first EK1_PLAIN_T of the T_MAIN steps (the same step, all 8192 members):
+# the plain versions are Python loops over the steps, ~110 s at 500 steps
+EK1_PLAIN_T = 100
+
+
 def ek1_timing(odt, card):
-    """Phase 18: the EK1 kernels against their plain versions at 8192 x 500
-    in float32 (normals from ``torch.randn``, S = S_MAIN), then the timings
-    of each kernel, each front door and each plain version once. Returns
-    the kernels' (ms, plain ms, max |kernel - plain|)."""
-    c = EK1Case(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN, S_MAIN,
+    """Phase 18: the EK1 kernels against their plain versions at 8192 x
+    EK1_PLAIN_T in float32 (normals from ``torch.randn``, S = S_MAIN), then
+    the timings of each kernel at 8192 x 500, each front door and each
+    plain version once. Returns the kernels' (ms, plain ms, max |kernel -
+    plain|)."""
+    t0, t1 = TSPAN_MAIN
+    c = EK1Case(B_MAIN, EK1_PLAIN_T, torch.float32,
+                (t0, t0 + (t1 - t0) * EK1_PLAIN_T / T_MAIN), S_MAIN,
                 numpy_normals=False)
     st_p, states_plain_ms = once(c.states_plain)
     (us_pp, sd_pp), smoother_plain_ms = once(lambda: c.smoother_plain(st_p))
@@ -1590,7 +1653,7 @@ def ek1_timing(odt, card):
     us_kk, sd_kk = c.smoother_kernel(st_k)
     x_kp = c.sampler_kernel(st_p)
     torch.cuda.synchronize()
-    head = f"f32 at {B_MAIN} x {T_MAIN}"
+    head = f"f32 at {B_MAIN} x {EK1_PLAIN_T}"
     rtol, atol = 1e-4, 1e-6
     err = {
         "ek1_filter_states": max(
@@ -1609,9 +1672,13 @@ def ek1_timing(odt, card):
             f"{head} ekd_sampler_kernel on the plain stream, samples (S="
             f"{S_MAIN})", x_kp, x_pp, rtol, atol),
     }
-    del x_pp, x_kp, us_kk, sd_kk, us_pp, sd_pp
+    del x_pp, x_kp, us_kk, sd_kk, us_pp, sd_pp, us_kp, sd_kp, c, st_p, st_k
 
     say(f"   timing, float32, B={B_MAIN}, T={T_MAIN}: CUDA events; card: {card}")
+    c = EK1Case(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN, S_MAIN,
+                numpy_normals=False)
+    st_p = c.states_kernel()
+    us_kp = c.smoother_kernel(st_p)[0]
     z1 = c.z[:, :1].contiguous()
     ms = {"ek1_filter_states": time_ms(c.states_kernel, warmup=3, iters=20),
           "ekd_smoother": time_ms(lambda: c.smoother_kernel(st_p), warmup=3,
@@ -1630,10 +1697,10 @@ def ek1_timing(odt, card):
         say(f"   {name} kernel {k_ms:.4f} ms")
     for name, fn in extra.items():
         say(f"   {name} kernel {time_ms(fn, warmup=3, iters=20):.4f} ms")
-    say(f"   plain (once): ek1_filter_states {states_plain_ms:.1f} ms, "
-        f"ekd_smoother {smoother_plain_ms:.1f} ms, ekd_sampler S={S_MAIN} "
-        f"{sampler_plain_ms:.1f} ms")
-    del c, st_p, st_k
+    say(f"   plain (once, {EK1_PLAIN_T} steps): ek1_filter_states "
+        f"{states_plain_ms:.1f} ms, ekd_smoother {smoother_plain_ms:.1f} ms, "
+        f"ekd_sampler S={S_MAIN} {sampler_plain_ms:.1f} ms")
+    del c, st_p, us_kp
     prob, u0s, ps = inputs(B_MAIN, torch.float32, TSPAN_MAIN)
     g = torch.Generator(device=DEVICE).manual_seed(3)
     doors = {
@@ -3404,8 +3471,8 @@ def pd_bounds(case, T, item):
 
 
 def pd_timing(odt, card):
-    """Phase 33: float32 at the rows' width: each row's kernels against
-    their plain versions (`datalik_vs_plain`, strict: the primal and the
+    """Phase 33: float32 at the rows' width: the prey-only and DiagonalEK1
+    rows' kernels against their plain versions (`datalik_vs_plain`, strict: the primal and the
     gradient's forward bit for bit; the adjoint by `pd_f32_adjoint`), the
     kernels' times (median of 20 after 3 warm-ups, CUDA events; the
     adjoint with the partial row's calib_grad=False, the other reported)
@@ -3417,7 +3484,7 @@ def pd_timing(odt, card):
 
     ts = dl_times(DL_T_MAIN, "on")
     ms_rows = {}
-    for row in ("partial", "ek1d", "per_member"):
+    for row in ("partial", "ek1d"):
         C, diagonal, per_member, _ = PD_ROWS[row]
         case = DataLikPD(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD, C,
                          DL_NOISE, diagonal, per_member)
@@ -3425,9 +3492,6 @@ def pd_timing(odt, card):
                                  1e-4, 1e-6, hold_grads=False, strict=True)
         if row == "partial":
             err, p_ms = e, pm
-        if row == "per_member":
-            del case
-            continue
         st = case.grad_fwd()[2]
         ms = {"ek0_datalik_pd": time_ms(case.primal, warmup=3, iters=20),
               "ek0_datalik_pd_grad_fwd": time_ms(case.grad_fwd, warmup=3,
@@ -3772,10 +3836,10 @@ def ek1dl_bounds(case, st, item):
 
 
 def ek1dl_timing(odt, card):
-    """Phase 36: float32 at the rows' width: each row's kernels against
-    their plain versions (`datalik_vs_plain`, strict: the primal and the
-    gradient's forward bit for bit; the adjoint by `pd_f32_adjoint` with
-    the rows' calib_grad=False, the gradient the path takes: phase 34 holds
+    """Phase 36: float32 at the rows' width: the full-state row's kernels
+    against their plain versions (`datalik_vs_plain`, strict: the primal
+    and the gradient's forward bit for bit; the adjoint by `pd_f32_adjoint`
+    with the row's calib_grad=False, the gradient the path takes: phase 34 holds
     calib_grad=True at B_CHECK), the full row's kernel times on the same
     case (median of 20 after 3 warm-ups, CUDA events; the adjoint with
     calib_grad=False, the other reported), the door's candidates/s and
@@ -3785,15 +3849,11 @@ def ek1dl_timing(odt, card):
     from odefilters_torch.ops import ek0_datalik as ed
 
     ts = dl_times(DL_T_MAIN, "on")
-    for row, per_member in EK1_ROWS.items():
-        case = DataLikEK1(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD,
-                          None, DL_NOISE, per_member)
-        e, pm = datalik_vs_plain(f"f32 EK1 {row} at {B_MAIN} x {DL_T_MAIN}",
+    case = DataLikEK1(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD, None,
+                      DL_NOISE, EK1_ROWS["full"])
+    err, p_ms = datalik_vs_plain(f"f32 EK1 full at {B_MAIN} x {DL_T_MAIN}",
                                  case, 1e-4, 1e-6, hold_grads=False,
                                  strict=True, stops=(case.TIMED_STOP,))
-        if row == "full":
-            err, p_ms, timed = e, pm, case
-    case = timed
     st = case.grad_fwd()[2]
     ms = {"ek1_datalik": time_ms(case.primal, warmup=3, iters=20),
           "ek1_datalik_grad_fwd": time_ms(case.grad_fwd, warmup=3, iters=20),
@@ -3834,7 +3894,7 @@ def ek1dl_timing(odt, card):
         b_ms, b_by, ops, nbytes = bounds[n]
         say(f"   {n}: {ops} operations per member over {DL_T_MAIN} steps; "
             f"{nbytes / 1e6:.1f} MB; bound {b_ms:.4f} ms by {b_by}")
-    del case, timed, st
+    del case, st
     torch.cuda.empty_cache()
     return ms, p_ms, err, {n: b[:3] for n, b in bounds.items()}
 
@@ -4125,6 +4185,423 @@ def kron_phases(odt, card, built):
     return launches, ms, p_ms, err, bounds
 
 
+# -- the time-parallel solves (phases 40-43) --------------------------------
+
+TP_NAMES = ("tp_chunk_scan", "tp_totals_scan", "tp_fixup")
+# the JAX package's time-parallel record (benchmarks/tp_accuracy_experiment.py,
+# time_parallel_sweep.py): FitzHugh-Nagumo over (0, 20), N = 16384 uniform
+# steps, q = 3 (D = 8), 2 sweeps; EK1 global, EK0 in 16 windows of 1024
+TP_N, TP_TSPAN, TP_ITERS, TP_WINDOWS = 16384, (0.0, 20.0), 2, 16
+# phase 40: elements at these lengths (3000: identity padding, 3 rows)
+TP_CHECK_NS = (3000, 16384)
+# float64 means against DOP853 (rtol = atol = 1e-12) and against the port's
+# sequential fixed-grid smoother (fixed diffusion, one member) on the same
+# grid, by path (global EK1, windowed EK0). CPU plain path, these defaults
+# (warm start, the fused scans' plain versions): the global EK1 solve
+# misses DOP853 by 3.21e-11 and the sequential EK1 smoother by 1.41e-13;
+# the windowed EK0 solve misses both by 5.17e-5, its 2 sweeps a window
+# short of the fixed point (the JAX sweep's speed configuration; its own
+# float32 record there is 1.61e-4, benchmarks/time_parallel_sweep.json), and
+# its sigma^2 is that of the unconverged linearization's innovations
+# (2.6e4 against the sequential smoother's 8.9e-4), reported, not held.
+TP_DOP853_LIMIT = {True: 1e-9, False: 1e-4}
+TP_SEQ_LIMIT = {True: 1e-9, False: 1e-4}
+# float32 against float64 means at the worst grid point (the JAX record for
+# its float32 parallel solve: 1.07e-4 against the float64 sequential one,
+# benchmarks/tp_accuracy.json)
+TP_F32_LIMIT = 1e-3
+# float32 against float64 stds, absolute, at every grid point. At N = 16384
+# no float32 std has a correct digit: the float32 innovations sit at their
+# rounding floor, ~1e3-1e7 x the float64 ones against S = H P H^T, so the
+# float32 sigma^2 (4.6e3 on the CPU plain path against 8.9e-4) and with it
+# the stds (1.0e-8 against 4.5e-12) are the floor's. What is held is that
+# every float32 std stays below the float32 spacing of the means (|u| <=
+# 2.1: 2.4e-7): CPU plain path, max |std32 - std64| 1.0e-8 (global EK1),
+# 2.5e-8 (windowed EK0).
+TP_F32_STD_LIMIT = 1e-7
+# the float32 floor's witness: the global EK1 door (fused scans) at fewer
+# steps, float32 sigma^2 over float64's; at N = 512 the innovations are
+# above the floor and the two agree (CPU plain path: 1.0076 at 512, 1.48 at
+# 1024, 38 at 2048, 1.9e3 at 4096, 5.2e6 at 16384)
+TP_S2_NS, TP_S2_RTOL = (512, 2048), 0.05
+
+
+def tp_fhn(dtype):
+    from odefilters_torch import models
+
+    return models.fitzhugh_nagumo(tspan=TP_TSPAN, device=DEVICE, dtype=dtype)
+
+
+def tp_problem(dtype):
+    ts = torch.linspace(*TP_TSPAN, TP_N + 1, dtype=dtype, device=DEVICE)
+    return tp_fhn(dtype), ts
+
+
+def tp_elements(prob, alg, ts, u_lin, lo=0, hi=None):
+    """The filtering elements of steps lo..hi-1 of ``prob`` on ``ts``,
+    linearized along ``u_lin`` (the grid's points after t0), from the
+    solve's zero-covariance initial state; and the smoothing elements of
+    the plain scan's filtered states, reversed (the order the scan runs
+    them)."""
+    from odefilters_torch.parallel import associative as pa
+    from odefilters_torch.parallel import associative_sqrt as asq
+
+    c = pa._setup(prob, alg, ts)
+    hi = c.N if hi is None else hi
+    H, y = c.build_elements(u_lin[lo:hi], ts[1 + lo:1 + hi])
+    U0 = torch.zeros((c.D, c.D), dtype=c.dtype, device=DEVICE)
+    fe = asq.filter_elements(c.m0, U0, c.A, c.QL, H, y)
+    _, ms, Us, _, _ = tp_plain_scan("filter", fe)
+    se = asq.smoother_elements(torch.cat([c.m0[None], ms]),
+                               torch.cat([U0[None], Us]), c.A, c.QL)
+    return fe, tuple(torch.flip(e, (0,)) for e in se)
+
+
+def tp_plain_scan(kind, elems):
+    """The three plain phases on ``elems``, unpacked."""
+    from odefilters_torch.ops import tp_scan as ts_
+
+    packed = ts_.pack(kind, elems)
+    pre = ts_.chunk_scan_plain(kind, packed)
+    out = ts_.fixup_plain(kind, pre, ts_.totals_scan_plain(kind, pre))
+    return ts_.unpack(kind, out, elems[0].shape[0])
+
+
+def tp_vs_plain(label, kind, elems, strict=True):
+    """Each of the three kernels against its plain version on the same
+    inputs (the chunk scan on the packed elements, the totals scan and the
+    fixup on the plain version's prefixes and totals), bit for bit, and the
+    fused scan through `fused_associative_scan` against the plain phases,
+    one launch of each kernel. Returns (max |kernel - plain|, plain
+    milliseconds of each phase)."""
+    from odefilters_torch.ops import tp_scan as ts_
+
+    packed = ts_.pack(kind, elems)
+    pre, p_pre = once(lambda: ts_.chunk_scan_plain(kind, packed))
+    tex, p_tex = once(lambda: ts_.totals_scan_plain(kind, pre))
+    out, p_fix = once(lambda: ts_.fixup_plain(kind, pre, tex))
+    got = (ts_.tp_chunk_scan(kind, packed), ts_.tp_totals_scan(kind, pre),
+           ts_.tp_fixup(kind, pre, tex))
+    err = 0.0
+    for name, g, r in zip(TP_NAMES, got, (pre, tex, out)):
+        check(bool(torch.isfinite(g).all()), f"{label} {name}_kernel: finite")
+        bitwise(f"{label} {name}_kernel", g, r, strict=strict)
+        err = max(err, float((g.double() - r.double()).abs().max()))
+    reset_counts()
+    full = ts_.fused_associative_scan(kind, elems)
+    torch.cuda.synchronize()
+    n = read_counts(*TP_NAMES)
+    check(all(v == 1 for v in n.values()),
+          f"{label} fused_associative_scan: launches {n}, one each")
+    for i, (a, r) in enumerate(zip(full, ts_.unpack(kind, out,
+                                                    elems[0].shape[0]))):
+        bitwise(f"{label} fused_associative_scan, leaf {i}", a, r,
+                strict=strict)
+    return err, {"tp_chunk_scan": p_pre, "tp_totals_scan": p_tex,
+                 "tp_fixup": p_fix}
+
+
+def tp_blocked_diff(fused, blocked, kind):
+    """The largest difference of the fused and the blocked scans' outputs
+    per leaf, factors compared as ``U U^T``, each over its leaf's largest
+    |value| (reported: the fused combines' Gram-Schmidt floors its pivots
+    at sqrt(1e-30), as the JAX kernels do, and the solver's factors are
+    rank-deficient, so the two scans' covariances differ by more than
+    rounding; JAX's list combine misses its XLA combine by 1.2e-5 on the
+    first two elements of these scans in float64)."""
+    out = []
+    for i, (g, r) in enumerate(zip(fused, blocked)):
+        if i in ((2, 4) if kind == "filter" else (2,)):
+            g, r = g @ g.transpose(-1, -2), r @ r.transpose(-1, -2)
+        scale = float(r.abs().max())
+        out.append(float((g - r).abs().max()) / (scale or 1.0))
+    return ", ".join(f"{x:.2e}" for x in out)
+
+
+def tp_reference(prob, ts):
+    """FitzHugh-Nagumo by DOP853 (rtol = atol = 1e-12) on ``ts``."""
+    return torch.tensor(reference_solution(
+        prob.u0.cpu().double().numpy(), prob.p.cpu().double().numpy(),
+        ts.cpu().double().numpy()))
+
+
+def tp_door(odt, prob, ts, ek1):
+    alg = odt.EK1(order=Q) if ek1 else odt.EK0(order=Q)
+    kw = {} if ek1 else {"windows": TP_WINDOWS}
+    return alg, lambda: odt.solve_fixed_parallel(prob, alg, ts=ts,
+                                                 iterations=TP_ITERS, **kw)
+
+
+def tp_sigma2_floor(odt):
+    """The float32 sigma^2 against float64's in the global EK1 door (fused
+    scans, warm start) at fewer steps: held within TP_S2_RTOL at the
+    first N, reported at the others."""
+    for i, N in enumerate(TP_S2_NS):
+        s2 = {}
+        for dtype in (torch.float64, torch.float32):
+            prob = tp_fhn(dtype)
+            ts = torch.linspace(*TP_TSPAN, N + 1, dtype=dtype, device=DEVICE)
+            s2[dtype] = float(odt.solve_fixed_parallel(
+                prob, odt.EK1(order=Q), ts=ts, iterations=TP_ITERS,
+                block="fused")[4])
+        r = s2[torch.float32] / s2[torch.float64]
+        msg = (f"f32 vs f64 global EK1 at N={N}: sigma2 "
+               f"{s2[torch.float32]:.6e} vs {s2[torch.float64]:.6e}, ratio "
+               f"{r:.4f}")
+        if i == 0:
+            check(abs(r - 1) <= TP_S2_RTOL, f"{msg}, within {TP_S2_RTOL:g} "
+                  "(above the float32 floor)")
+        else:
+            say(f"   {msg} (reported)")
+
+
+def tp_path(odt, ek1):
+    """Phases 41 and 42: the global EK1 (``ek1``) or the windowed EK0 solve
+    at N = 16384, float64 and float32, each run with the counts set to 0
+    before it and read after it. Returns the float32 run's launches and its
+    outputs."""
+    from odefilters_torch.parallel import associative as pa
+
+    what = "global EK1" if ek1 else f"windowed EK0 ({TP_WINDOWS} windows)"
+    scans = 4 if ek1 else 4 * TP_WINDOWS
+    outs, launches = {}, None
+    for dtype in (torch.float64, torch.float32):
+        label = f"{str(dtype)[6:]} {what}"
+        prob, ts = tp_problem(dtype)
+        alg, door = tp_door(odt, prob, ts, ek1)
+        block, ws = pa.resolve_options(prob, alg, TP_N, windows=None if ek1
+                                       else TP_WINDOWS)
+        check(block == "fused" and ws == 8,
+              f"{label}: the defaults resolve to block={block!r}, "
+              f"warm_start={ws} (expected 'fused', 8)")
+        reset_counts()
+        out, d_ms = once(door)
+        n = read_counts(*TP_NAMES, "ek0_adaptive")
+        say(f"   {label}: launches {n} ({d_ms:.1f} ms, the first call)")
+        check(all(n[k] == scans for k in TP_NAMES) and n["ek0_adaptive"] == 1,
+              f"{label}: {scans} launches of each scan kernel "
+              f"({scans // 2} filter and {scans // 2} smoother scans) and 1 "
+              "of ek0_adaptive (the warm start)")
+        u, u_std, means, covs, sigma2 = out
+        check(tuple(u.shape) == (TP_N + 1, 2) and tuple(covs.shape)
+              == (TP_N + 1, 8, 8) and u_std.shape == u.shape,
+              f"{label}: shapes u {tuple(u.shape)}, covs {tuple(covs.shape)}")
+        check(bool(torch.isfinite(u).all() and torch.isfinite(u_std).all()
+                   and torch.isfinite(sigma2)),
+              f"{label}: finite u, u_std and sigma2 ({float(sigma2):.6e})")
+        outs[dtype] = out
+        if dtype == torch.float32:
+            launches = {k: n[k] for k in TP_NAMES}
+    prob64, ts64 = tp_problem(torch.float64)
+    u64 = outs[torch.float64][0]
+    ref = tp_reference(prob64, ts64)
+    e_ref = float((u64.cpu() - ref).abs().max())
+    check(e_ref <= TP_DOP853_LIMIT[ek1], f"f64 {what} vs DOP853: max |du| "
+          f"{e_ref:.3e} <= {TP_DOP853_LIMIT[ek1]:g}")
+    alg_seq = (odt.EK1(order=Q, diffusionmodel="fixed") if ek1
+               else odt.EK0(order=Q, diffusionmodel="fixed"))
+    seq = odt.solve_ensemble(prob64, alg_seq, prob64.u0[None].clone(),
+                             prob64.p[None].clone(), n_save=TP_N,
+                             adaptive=False)
+    e_seq = float((u64 - seq.us[..., 0]).abs().max())
+    check(e_seq <= TP_SEQ_LIMIT[ek1], f"f64 {what} vs the sequential "
+          f"fixed-grid smoother ({alg_seq.__class__.__name__}, fixed "
+          f"diffusion): max |du| {e_seq:.3e} <= {TP_SEQ_LIMIT[ek1]:g}; sigma2 "
+          f"{float(outs[torch.float64][4]):.6e} vs {float(seq.diffusions[0]):.6e}")
+    du = (outs[torch.float32][0].double() - u64).abs()
+    k = int(du.amax(dim=1).argmax())
+    check(float(du.max()) <= TP_F32_LIMIT,
+          f"f32 vs f64 {what}: max |du| {float(du.max()):.3e} at grid point "
+          f"{k} <= {TP_F32_LIMIT:g}")
+    s64, s32 = outs[torch.float64][1], outs[torch.float32][1].double()
+    dsd = float((s32 - s64).abs().max())
+    check(dsd <= TP_F32_STD_LIMIT,
+          f"f32 vs f64 {what}: max |du_std| {dsd:.3e} <= {TP_F32_STD_LIMIT:g} "
+          f"(largest std f32 {float(s32.max()):.3e}, f64 "
+          f"{float(s64.max()):.3e}); sigma2 f32 "
+          f"{float(outs[torch.float32][4]):.6e}, f64 "
+          f"{float(outs[torch.float64][4]):.6e} (reported)")
+    if ek1:
+        tp_sigma2_floor(odt)
+    # the scans of the solve's next sweep: its elements linearized at its
+    # own output (one window's for the windowed solve), the kernels bit for
+    # bit against the plain scans
+    hi = TP_N if ek1 else TP_N // TP_WINDOWS
+    for dtype in (torch.float64, torch.float32):
+        prob, ts = tp_problem(dtype)
+        alg, _ = tp_door(odt, prob, ts, ek1)
+        fe, se = tp_elements(prob, alg, ts, outs[dtype][0][1:], 0, hi)
+        for kind, el in (("filter", fe), ("smooth", se)):
+            tp_vs_plain(f"{str(dtype)[6:]} {what}, the solve's {kind} "
+                        f"elements (N = {hi})", kind, el)
+    return launches, outs
+
+
+def tp_combine_ops(kind, D):
+    """Floating-point operations of one combine as the CUDA body runs it
+    (``tp_scan.cuh``: filter_combine, smooth_combine): each add, subtract,
+    multiply, divide, square root and pivot floor once, the terms through
+    the identity blocks' structural zeros skipped, as the kernel skips
+    them."""
+    mm = D * D * (2 * D - 1)      # D^2 entries: D products, D - 1 sums
+    mv = D * (2 * D - 1)
+    fwd_rows = D ** 3             # D rows of sum_i (2 i + 1)
+    cho = 2 * D * D               # forward and back substitution
+
+    def mgs(tri):                 # ek0::mgs_tril of a 2D x D stack
+        n = 0
+        for j in range(D):
+            live = 2 * D - (D - 1 - j if tri else 0)
+            # the sum of squares, floor, sqrt, reciprocal, the scaled
+            # column, then a dot product and an update per later column
+            n += 2 * live + 3 + live + (D - 1 - j) * 4 * live
+        return n
+
+    if kind == "filter":
+        # 7 products, 9 matrix-vector products, 2 row substitutions, the
+        # Cholesky solve of D columns and of one vector, I - M and 5 vector
+        # sums, chol(I + W W^T), chol(I + W^T W), 2 re-triangularizations
+        return (7 * mm + 9 * mv + 2 * fwd_rows + (D + 1) * cho + D * D
+                + 5 * D + 2 * mgs(True) + 2 * mgs(False))
+    return 2 * mm + mv + D + mgs(False)
+
+
+def tp_timing(odt, card):
+    """Phase 43: float32 at N = 16384. Each kernel per kind (median of 20
+    after 3 warm-ups, CUDA events) beside its plain version (once) and its
+    bound; the fused scan against the blocked scan at auto_block(N); the
+    doors and their parts. Returns (ms, plain ms, max |kernel - plain|,
+    bounds) of the filter kind, the main path's larger."""
+    from odefilters_torch.ops import tp_scan as ts_
+    from odefilters_torch.parallel import associative as pa
+    from odefilters_torch.parallel import associative_sqrt as asq
+    from odefilters_torch.parallel.blocked import (
+        auto_block, blocked_associative_scan)
+    from odefilters_torch.taylor import taylor_coefficients
+
+    prob, ts = tp_problem(torch.float32)
+    alg, door = tp_door(odt, prob, ts, True)
+    u_lin = door()[0][1:]
+    fe, se = tp_elements(prob, alg, ts, u_lin)
+    item = 4
+    ms, p_ms, err, bounds = {}, {}, {}, {}
+    for kind, el in (("filter", fe), ("smooth", se)):
+        e, pm = tp_vs_plain(f"f32 {kind} at N={TP_N}", kind, el)
+        packed = ts_.pack(kind, el)
+        L, V, _ = packed.shape
+        pre = ts_.tp_chunk_scan(kind, packed)
+        tex = ts_.tp_totals_scan(kind, pre)
+        k_ms = {
+            "tp_chunk_scan": time_ms(lambda: ts_.tp_chunk_scan(kind, packed),
+                                     warmup=3, iters=20),
+            "tp_totals_scan": time_ms(lambda: ts_.tp_totals_scan(kind, pre),
+                                      warmup=3, iters=20),
+            "tp_fixup": time_ms(lambda: ts_.tp_fixup(kind, pre, tex),
+                                warmup=3, iters=20),
+        }
+        ops = tp_combine_ops(kind, 8)
+        # the least combines each phase's function needs: an inclusive scan
+        # of n elements needs n - 1 (the kernel's Hillis-Steele rounds run
+        # sum_r (1024 - 2^r) = 9217 for the 1023 of the totals)
+        combines = {"tp_chunk_scan": (L - 1) * ts_.NC,
+                    "tp_totals_scan": ts_.NC - 1,
+                    "tp_fixup": L * (ts_.NC - 1)}
+        moved = {"tp_chunk_scan": 2 * L * V * ts_.NC,
+                 "tp_totals_scan": 2 * V * ts_.NC,
+                 "tp_fixup": (2 * L + 1) * V * ts_.NC}
+        for name in TP_NAMES:
+            b = bound(moved[name] * item, ops * combines[name], 1, 1)
+            say(f"   {kind} {name}_kernel {k_ms[name]:.4f} ms, plain (once) "
+                f"{pm[name]:.1f} ms; {combines[name]} combines of {ops} "
+                f"operations, {moved[name] * item / 1e6:.2f} MB: bound "
+                f"{b[0]:.4f} ms by {b[1]} (card: {card})")
+            if kind == "filter":
+                ms[name], p_ms[name], err[name] = k_ms[name], pm[name], e
+                bounds[name] = b + (ops,)
+        fused_ms = time_ms(lambda: ts_.fused_associative_scan(kind, el),
+                           warmup=3, iters=20)
+        combine = (asq._sqrt_filter_combine if kind == "filter"
+                   else asq._sqrt_smooth_combine)
+        blk = auto_block(TP_N)
+        blocked_ms = time_ms(lambda: blocked_associative_scan(combine, el, blk),
+                             warmup=1, iters=3)
+        diff = tp_blocked_diff(ts_.fused_associative_scan(kind, el),
+                               blocked_associative_scan(combine, el, blk),
+                               kind)
+        say(f"   {kind}: fused_associative_scan {fused_ms:.3f} ms; the "
+            f"blocked scan at block={blk} (median of 3 after 1 warm-up) "
+            f"{blocked_ms:.1f} ms; their largest difference per leaf, over "
+            f"its scale: {diff} (reported)")
+    # the global door's parts: per sweep the element build (the
+    # linearization, the filter elements, then the smoother elements of the
+    # filtered states) and the two scans; the Taylor init, the warm start
+    # and the calibration once
+    c = pa._setup(prob, alg, ts)
+    U0 = torch.zeros((8, 8), device=DEVICE)
+    H, y = c.build_elements(u_lin, ts[1:])
+    _, ms_f, Us_f, _, _ = ts_.fused_associative_scan("filter", fe)
+    parts = {
+        "Taylor init": lambda: taylor_coefficients(prob.f, prob.u0, prob.p,
+                                                   0.0, Q),
+        "warm start (adaptive kernel, interpolation)":
+            lambda: pa.warm_start_trajectory(prob, ts, 8, Q),
+        "element build, one sweep": lambda: (
+            asq.filter_elements(c.m0, U0, c.A, c.QL,
+                                *c.build_elements(u_lin, ts[1:])),
+            asq.smoother_elements(torch.cat([c.m0[None], ms_f]),
+                                  torch.cat([U0[None], Us_f]), c.A, c.QL)),
+        "the two fused scans, one sweep": lambda: (
+            ts_.fused_associative_scan("filter", fe),
+            ts_.fused_associative_scan("smooth", se)),
+        "calibration": lambda: pa.global_mle(
+            c, H, y, ms_f, Us_f @ Us_f.transpose(-1, -2)),
+    }
+    for part, fn in parts.items():
+        say(f"   global EK1 door, {part}: "
+            f"{time_ms(fn, warmup=3, iters=20):.3f} ms")
+    for ek1 in (True, False):
+        _, door = tp_door(odt, prob, ts, ek1)
+        d_ms = time_ms(door, warmup=3, iters=20)
+        say(f"   solve_fixed_parallel, {'global EK1' if ek1 else 'windowed EK0'}"
+            f": {d_ms:.3f} ms = {TP_N / d_ms * 1e3:.0f} steps/s (card: {card})")
+    return ms, p_ms, err, bounds
+
+
+def tp_phases(odt, card, built):
+    """Phases 40-43. Returns (launches on the main path's run, ms, plain ms,
+    max |kernel - plain|, bounds) of the three scan kernels."""
+    say(f"== 40. the time-parallel scan kernels vs plain, bit for bit: "
+        f"N in {TP_CHECK_NS}, float64 and float32, filter and smoother "
+        "elements (EK1 linearized along DOP853's solution), forward and "
+        "reversed")
+    prob64, ts64 = tp_problem(torch.float64)
+    truth = tp_reference(prob64, ts64)[1:]
+    for N in TP_CHECK_NS:
+        for dtype in (torch.float64, torch.float32):
+            prob, ts = tp_problem(dtype)
+            u_lin = truth.to(dtype=dtype, device=DEVICE)
+            fe, se = tp_elements(prob, odt.EK1(order=Q), ts, u_lin, 0, N)
+            for kind, el in (("filter", fe), ("smooth", se)):
+                for rev in (False, True):
+                    x = tuple(torch.flip(e, (0,)) for e in el) if rev else el
+                    tp_vs_plain(f"{str(dtype)[6:]} N={N} {kind}"
+                                f"{' reversed' if rev else ''}", kind, x)
+    say(f"== 41. the global time-parallel path: solve_fixed_parallel("
+        f"EK1(order={Q})), FitzHugh-Nagumo over {TP_TSPAN}, N={TP_N}, "
+        f"iterations={TP_ITERS}, float64 and float32")
+    launches, _ = tp_path(odt, ek1=True)
+    say(f"== 42. the windowed time-parallel path: solve_fixed_parallel("
+        f"EK0(order={Q}), windows={TP_WINDOWS}), N={TP_N}, "
+        f"iterations={TP_ITERS}, float64 and float32")
+    tp_path(odt, ek1=False)
+    say(f"== 43. the time-parallel kernels vs plain and timing, float32, "
+        f"N={TP_N}")
+    ms, p_ms, err, bounds = tp_timing(odt, card)
+    # each entry's lines end with its combine's (compiled into every entry)
+    print_registers(built["log"], TP_NAMES)
+    return launches, ms, p_ms, err, bounds
+
+
 def main() -> int:
     say("== 1. environment")
     if not torch.cuda.is_available():
@@ -4400,8 +4877,8 @@ def main() -> int:
         f"ieks_ensemble, B={B_MAIN}, T={T_MAIN}, tspan={TSPAN_MAIN}")
     launches.update(ek1_path(odt, card))
 
-    say(f"== 18. the EK1 kernels vs plain and timing, float32, B={B_MAIN}, "
-        f"T={T_MAIN}, S={S_MAIN}")
+    say(f"== 18. the EK1 kernels vs plain (T={EK1_PLAIN_T}) and timing "
+        f"(T={T_MAIN}), float32, B={B_MAIN}, S={S_MAIN}")
     e_ms, e_plain_ms, e_err = ek1_timing(odt, card)
 
     say(f"== 19. adaptive kernels vs plain, B={B_CHECK}, tspan={TSPAN_ADA}, "
@@ -4478,6 +4955,9 @@ def main() -> int:
     kg_launches, kg_ms, kg_plain_ms, kg_err, kg_bounds = kron_phases(
         odt, card, built)
     launches.update(kg_launches)
+    tp_launches, tp_ms, tp_plain_ms, tp_err, tp_bounds = tp_phases(
+        odt, card, built)
+    launches.update(tp_launches)
 
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))
@@ -4498,16 +4978,17 @@ def main() -> int:
         return 1
     ms = {"ek0_pair_fwd": fwd_ms, "ek0_pair_bwd": bwd_ms, **f_ms, **s_ms,
           **e_ms, **a_ms, "ek1d_filter": d_ms, **da_ms, **ea_ms,
-          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms, **e1_ms, **kg_ms}
+          "ek0_adaptive_sampler": sm_ms, **dl_ms, **pd_ms, **e1_ms, **kg_ms,
+          **tp_ms}
     plain_ms = {"ek0_pair_fwd": plain_fwd_ms, "ek0_pair_bwd": plain_bwd_ms,
                 **f_plain_ms, **s_plain_ms, **e_plain_ms, **a_plain_ms,
                 "ek1d_filter": d_plain_ms, **da_plain_ms, **ea_plain_ms,
                 "ek0_adaptive_sampler": sm_plain_ms, **dl_plain_ms,
-                **pd_plain_ms, **e1_plain_ms, **kg_plain_ms}
+                **pd_plain_ms, **e1_plain_ms, **kg_plain_ms, **tp_plain_ms}
     errs = {"ek0_pair_fwd": err_fwd, "ek0_pair_bwd": err_bwd, **err_filter,
             **s_err, **e_err, **a_err, "ek1d_filter": d_err, **da_err,
             **ea_err, "ek0_adaptive_sampler": sm_err, **dl_err, **pd_err,
-            **e1_err, **kg_err}
+            **e1_err, **kg_err, **tp_err}
     bounds.update(a_bounds)
     bounds.update(da_bounds)
     bounds.update(ea_bounds)
@@ -4515,6 +4996,7 @@ def main() -> int:
     bounds.update(pd_bounds_)
     bounds.update(e1_bounds)
     bounds.update(kg_bounds)
+    bounds.update(tp_bounds)
     bounds["ek1d_filter"] = d_bound
     bounds["ek0_adaptive_sampler"] = sm_bound
     kernels = [

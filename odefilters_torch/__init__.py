@@ -21,9 +21,13 @@ grid (isotropic EK0), and on the grid partial one-hot observations,
 per-dimension noise, per-member data, DiagonalEK1 and, with ``ek1=True``,
 dense EK1 with any observation matrix; and one trajectory of a
 semi-discretized PDE on a grid (the 2-D Brusselator, d = 2 N^2) with EK0
-or DiagonalEK1, on cooperative kernels. Vector fields with CUDA kernels:
-FitzHugh-Nagumo and Lotka-Volterra (ensembles), the Brusselator stencil
-(grids)::
+or DiagonalEK1, on cooperative kernels; and one trajectory on a long
+uniform grid in parallel in time (``solve_fixed_parallel``: iterated
+square-root associative scans, global or in windows, on the fused scan
+kernels). Vector fields with CUDA kernels: FitzHugh-Nagumo and
+Lotka-Volterra (ensembles, and the time-parallel warm start), the
+Brusselator stencil (grids); the time-parallel scans take any vector field
+of a state of dimension d (q+1) = 8::
 
     import torch
     import odefilters_torch as odt
@@ -69,6 +73,13 @@ FitzHugh-Nagumo and Lotka-Volterra (ensembles), the Brusselator stencil
     us, var, ll = odt.solve_brusselator_ek1d(70, (0.0, 0.01), 1000,
                                              save_every=50)
     var.shape          # (21, 2, 70, 70): per point
+    u, u_std, means, covs, sigma2 = odt.solve_fixed_parallel(
+        prob, odt.EK1(order=3), ts=torch.linspace(0.0, 20.0, 16385,
+                                                  device="cuda"),
+        iterations=2)  # N = 16384: fused scans, warm start by default
+    u.shape, covs.shape  # (16385, 2), (16385, 8, 8)
+    odt.solve_fixed_parallel(prob, odt.EK0(order=3), dt=20.0 / 16384,
+                             iterations=2, windows=16)  # 1024-step windows
 
 Constructors build on the CUDA card unless given ``device="cpu"``.
 
@@ -98,6 +109,9 @@ from odefilters_torch.ops.kron_grid import (  # noqa: E402
     solve_brusselator_ek0,
     solve_brusselator_ek1d,
 )
+from odefilters_torch.parallel.associative import (  # noqa: E402
+    solve_fixed_parallel,
+)
 from odefilters_torch.problem import ODEProblem, ode_problem, remake  # noqa: E402
 
 __all__ = [
@@ -118,4 +132,5 @@ __all__ = [
     "solve_brusselator_ek0",
     "solve_brusselator_ek1d",
     "solve_ensemble",
+    "solve_fixed_parallel",
 ]

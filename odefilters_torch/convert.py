@@ -190,3 +190,34 @@ def ek1_datalik_stream_from_numpy(st, *, nq: int, d: int, device="cuda",
                                    for r in range(D)])
     return torch.tensor(np.stack(rows, axis=1), dtype=dtype,
                         device=resolve_device(device))
+
+
+def scan_elements_from_numpy(elems, *, device="cuda", dtype=torch.float64):
+    """A time-parallel scan's elements, the JAX package's tuple of numpy
+    leaves batched on axis 0 (``(N, D, D)`` / ``(N, D)``: the filter's ``(A,
+    b, U, eta, Z)`` or the smoother's ``(E, g, P)``), as a tuple of
+    contiguous tensors on ``device`` (the CUDA card unless given)."""
+    leaves = tuple(np.asarray(e) for e in elems)
+    if len(leaves) not in (3, 5):
+        raise ValueError(
+            f"expected the 5 filter or 3 smoother leaves, got {len(leaves)}")
+    N, D = leaves[0].shape[0], leaves[0].shape[-1]
+    for e in leaves:
+        if e.shape not in ((N, D, D), (N, D)):
+            raise ValueError(
+                f"leaves must be (N, D, D) or (N, D) with N = {N}, D = {D}; "
+                f"got {e.shape}")
+    device = resolve_device(device)
+    return tuple(torch.as_tensor(np.ascontiguousarray(e), dtype=dtype,
+                                 device=device) for e in leaves)
+
+
+def trajectory_from_numpy(u_init, *, device="cuda", dtype=torch.float64):
+    """A time-parallel solve's linearization trajectory (the JAX package's
+    warm start ``u_init``, ``(N, d)`` at the grid's N points after t0) as a
+    contiguous tensor on ``device`` (the CUDA card unless given)."""
+    u_init = np.asarray(u_init)
+    if u_init.ndim != 2:
+        raise ValueError(f"a trajectory must be (N, d), got {u_init.shape}")
+    return torch.as_tensor(np.ascontiguousarray(u_init), dtype=dtype,
+                           device=resolve_device(device))

@@ -23,11 +23,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
 SOURCES = ("ek1_datalik.cu", "ek1_adaptive.cu", "ek1_fused.cu",
            "ek0_datalik_pd.cu", "ek1d.cu", "ek0_adaptive.cu", "ek0_datalik.cu",
-           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu", "kron_grid.cu")
+           "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu", "kron_grid.cu",
+           "tp_scan.cu", "tp_scan_f64.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
            "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
            "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh",
-           "kron_grid.cuh")
+           "cooperative.cuh", "kron_grid.cuh", "tp_scan.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,7 +58,9 @@ NVCC_FLAGS = (
 # data likelihood's, isotropic, per dimension and dense EK1: its ODE
 # log-likelihood is the filter's. And the Kron-grid solves': their grid-wide
 # sums feed s2, and through it every later step, so they are held to their
-# plain versions bit for bit.
+# plain versions bit for bit. And the time-parallel scans': a solve's
+# sweeps relinearize at the scans' smoothed means, and the kernels are held
+# to their plain versions bit for bit.
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
@@ -68,7 +71,9 @@ SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_datalik.cu": ("-fmad=false",),
                 "ek0_datalik_pd.cu": ("-fmad=false",),
                 "ek1_datalik.cu": ("-fmad=false",),
-                "kron_grid.cu": ("-fmad=false",)}
+                "kron_grid.cu": ("-fmad=false",),
+                "tp_scan.cu": ("-fmad=false",),
+                "tp_scan_f64.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -123,6 +128,9 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                                 save_every, consts) (the Brusselator
 #                                 stencil, cooperative)
 # kron_grid_sync_probe: (blocks, n_barriers)
+# tp_chunk_scan: (kind, elems, out, L); tp_totals_scan: (kind, totals,
+#                work, out) (cooperative); tp_fixup: (kind, prefixes, t_excl,
+#                out, L)
 FIELD_ENTRIES = {
     "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
     "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
@@ -158,6 +166,9 @@ PLAIN_ENTRIES = {
     "ek1_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
     "ek0_kron_grid": (_P,) * 5 + (_I,) * 4 + (_D, _P),
     "ek1d_kron_grid": (_P,) * 5 + (_I,) * 4 + (_D, _P),
+    "tp_chunk_scan": (_I, _P, _P, _I, _P),
+    "tp_totals_scan": (_I, _P, _P, _P, _P),
+    "tp_fixup": (_I, _P, _P, _P, _I, _P),
 }
 ENTRIES = {"kron_grid_sync_probe": (_I, _I, _P)}
 for _s in ("f32", "f64"):

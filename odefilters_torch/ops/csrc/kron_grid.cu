@@ -44,6 +44,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cooperative.cuh"
 #include "kron_grid.cuh"
 
 namespace cg = cooperative_groups;
@@ -339,29 +340,14 @@ int launch_grid(const void* m0, void* us, void* var, void* ll, void* work,
   if (N < 1 || M < 1 || T < 0 || save_every < 1 || T % save_every)
     return (int)cudaErrorInvalidValue;
   const int nb = (N * M + BLOCK - 1) / BLOCK;
-  // never a grid whose CTAs are not all resident: its barriers would hang.
-  // The most co-resident CTAs: occupancy per SM times the SM count.
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_ptr<S, EK1D>(), BLOCK, shared_bytes<S, EK1D>(nb));
-  if (e != cudaSuccess) return (int)e;
-  if (!coop || nb > per_sm * sms)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
   Consts<S, 4> c = kron::read_consts<S, 4>(k);
   G g = G::read(k + kron::n_consts<4>());
   const S* m0p = (const S*)m0;
   S *usp = (S*)us, *varp = (S*)var, *llp = (S*)ll, *wp = (S*)work;
   void* args[] = {&m0p, &usp, &varp, &llp, &wp, &N, &M, &T, &save_every,
                   &c, &g};
-  return (int)cudaLaunchCooperativeKernel(kernel_ptr<S, EK1D>(), nb, BLOCK,
-                                          args, shared_bytes<S, EK1D>(nb),
-                                          (cudaStream_t)stream);
+  return coop::launch_cooperative(kernel_ptr<S, EK1D>(), nb, BLOCK, args,
+                                  shared_bytes<S, EK1D>(nb), stream);
 }
 
 }  // namespace
@@ -402,12 +388,12 @@ int ek1d_kron_grid_f64(const void* m0, void* us, void* var, void* ll,
                                    save_every, consts, stream);
 }
 
-// n grid barriers of `blocks` CTAs of BLOCK threads, cooperatively.
+// n grid barriers of `blocks` CTAs of BLOCK threads, cooperatively (refused
+// when the CTAs cannot all be resident).
 int kron_grid_sync_probe(int blocks, int n, void* stream) {
   void* args[] = {&n};
-  return (int)cudaLaunchCooperativeKernel((void*)kron_grid_sync_probe_kernel,
-                                          blocks, BLOCK, args, 0,
-                                          (cudaStream_t)stream);
+  return coop::launch_cooperative((const void*)kron_grid_sync_probe_kernel,
+                                  blocks, BLOCK, args, 0, stream);
 }
 
 }  // extern "C"

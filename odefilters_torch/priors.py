@@ -4,9 +4,10 @@
 The preconditioned q-times integrated Brownian motion (IBM / IWP) blocks
 are solver constants: built host-side in float64 numpy from exact
 rational arithmetic, with no framework in the loop, so the port's kernels
-and the JAX package's kernels bake in bit-identical numbers. IOUP and
-Matern priors are not ported yet (ROADMAP.md queue 1, item 5, "Widen the
-pair").
+and the JAX package's kernels bake in bit-identical numbers;
+`transition_precond_full` and `precond_full` give the full ``(D, D)`` forms
+that the time-parallel solves use. IOUP and Matern priors are not ported yet (ROADMAP.md queue 1, item 5,
+"Widen the pair"), nor matrix-rate ones (item 11).
 """
 
 from __future__ import annotations
@@ -61,3 +62,32 @@ def precond_small(h: float, q: int) -> tuple[np.ndarray, np.ndarray]:
     j = np.arange(q + 1, dtype=np.float64)
     p = float(h) ** (j - q - 0.5)
     return p, 1.0 / p
+
+
+def precond_full(h: float, d: int, q: int) -> tuple[np.ndarray, np.ndarray]:
+    """Length-D diagonal preconditioner and its inverse, each block entry
+    repeated d times (derivative-major), as float64 numpy arrays."""
+    p, p_inv = precond_small(h, q)
+    return np.repeat(p, d), np.repeat(p_inv, d)
+
+
+def transition_precond_full(prior, d: int,
+                            q: int) -> tuple[np.ndarray, np.ndarray]:
+    """Full ``(D, D)`` preconditioned transition ``A`` and its noise factor
+    ``QL`` (``Q = QL QL^T``) as float64 numpy arrays: the IBM blocks of
+    `_ibm_small_np` as Kronecker products with I_d, the same at every step
+    size. Other priors raise."""
+    if prior is not None:
+        if getattr(prior, "rate_is_matrix", False) or getattr(
+                prior, "rate_is_jacobian", False):
+            raise NotImplementedError(
+                "matrix-rate priors (ExpEK, RosenbrockExpEK) are not ported "
+                "yet (ROADMAP.md queue 1, item 11)"
+            )
+        raise NotImplementedError(
+            "IOUP / Matern priors are not ported yet "
+            "(ROADMAP.md queue 1, item 5, 'Widen the pair')"
+        )
+    A, _, L = _ibm_small_np(q)
+    eye = np.eye(d)
+    return np.kron(A, eye), np.kron(L, eye)
