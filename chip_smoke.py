@@ -82,8 +82,9 @@ Phases:
  15. the EK1 kernels vs plain in float64 at the shape of phase 3 with
      S = 3 numpy normals: the filter kernel (its means directly, its
      stream through the plain smoother; with a linearization trajectory;
-     fixed and fixedMAP with their sigma^2), the smoother kernel and the
-     sampler kernel on the plain stream;
+     fixed and fixedMAP with their sigma^2), the smoother kernel (a group
+     of 8 lanes a member) and the sampler kernel on the plain stream, the
+     smoother also bit for bit against its plain version;
  16. the same in float32;
  17. the EK1 paths at 8192 x 500, float32 and float64, with the kernels'
      launch counts: ``solve_ensemble`` with EK1 in each mode (smoother or
@@ -96,8 +97,9 @@ Phases:
      lanes (float64);
  18. the EK1 kernels against their plain versions at 8192 x 100 (the
      first 100 of the 500 steps) in float32 (S = 8 normals from
-     ``torch.randn``), then the timings of each kernel at 8192 x 500, each
-     EK1 front door, and each plain version once (at 100 steps);
+     ``torch.randn``; the smoother bit for bit), then the timings of each
+     kernel at 8192 x 500, each EK1 front door, and
+     each plain version once (at 100 steps); registers and spills;
  19. the three adaptive EK0 kernels against their plain versions at 1000
      members over (0, 20), 20 save intervals, abstol 1e-6, reltol 1e-4, in
      float64 and float32: the counts (nacc, nrej, failed, save points
@@ -210,8 +212,9 @@ Phases:
  33. the per-dimension kernels against their plain versions at 8192 x 120
      in float32 on the prey-only and DiagonalEK1 rows of phase 32 (each
      plain version once; the primal and the gradient's forward bit for bit;
-     the adjoint as in phase 31; per-member data is held at 1000 members in
-     phase 31), the prey-only and DiagonalEK1 rows' times, the doors'
+     the adjoint as in phase 31 with the cotangent of (dll, ll) only, that
+     of dll alone and per-member data held at 1000 members in phase 31),
+     the prey-only and DiagonalEK1 rows' times, the doors'
      candidates/s and gradient candidates/s beside the host step table
      and the Taylor init, the kernels' bounds and registers;
  34. the three dense EK1 data-likelihood kernels against their plain
@@ -238,8 +241,9 @@ Phases:
  36. the dense EK1 kernels against their plain versions at that shape in
      float32 on the full-state row of phase 35 (each plain version once;
      the primal and the gradient's forward bit for bit; the adjoint as in
-     phase 31, with the row's calib_grad=False only; per-member data is
-     held at 1000 members in phase 34), the full-state row's times,
+     phase 31, with the row's calib_grad=False and the cotangent of (dll,
+     ll) only; that of dll alone and per-member data are held at 1000
+     members in phase 34), the full-state row's times,
      the door's candidates/s and gradient candidates/s beside the host
      step table and the Taylor init, the kernels' bounds and registers;
  37. the two Kron-grid kernels (cooperative: one thread per grid point, two
@@ -264,13 +268,18 @@ Phases:
      doors' times and steps/s (median of 20 after 3 warm-ups), the Taylor
      init alone, the bounds, the 2000 grid barriers alone as a latency
      floor, registers and spills;
- 40. the three time-parallel scan kernels (``tp_scan.cuh``: the chunk
-     scan, a thread per chunk; the cooperative totals scan; the fixup, a
-     thread per element) against their plain versions, bit for bit
-     (checked), at N = 3000 and 16384 in float64 and float32, filtering and
-     smoothing elements (EK1 on FitzHugh-Nagumo linearized along DOP853's
-     solution), forward and reversed, and ``fused_associative_scan``
-     against the plain phases chained, one launch of each kernel;
+ 40. the three time-parallel scan kernels (at D = 8 ``tp_scan.cuh``'s
+     chunk scan, a thread per chunk, and fixup, a thread per element;
+     ``tp_group.cuh``'s cooperative totals scan, a group of lanes per
+     total) against their plain versions, bit for bit (checked), at N =
+     3000 and 16384 in float64 and float32, filtering and smoothing
+     elements (EK1 on FitzHugh-Nagumo linearized along DOP853's solution),
+     forward and reversed, and ``fused_associative_scan`` against the plain
+     phases chained, one launch of each kernel; the same at D = 6 and 12
+     (EK1(order=2) and EK1(order=5): all three group kernels, group sizes
+     8 and 16) at N = 1024 and 3000, and at N = 1024 at D = 4
+     (EK1(order=1)) and on synthetic elements at D = 2 and 3 (group sizes
+     2 and 4);
  41. the global time-parallel door ``solve_fixed_parallel(prob,
      EK1(order=3), ts=linspace(0, 20, 16385), iterations=2)`` at the JAX
      package's time-parallel record, float64 and float32, each run with the
@@ -290,14 +299,34 @@ Phases:
      kernel;
  43. float32 at N = 16384: each kernel per kind against its plain version
      (once), its time (median of 20 after 3 warm-ups), its bound; the
-     fused scan against the blocked scan at auto_block(N) (time and largest
-     differences, reported); the global door's parts (Taylor init, warm
-     start, one sweep's element build and scans, calibration) and both
-     doors' times; registers and spills.
+     totals scan also at the windowed door's N = 1024 (bit for bit against
+     its plain version there, and timed); the fused scan against the
+     blocked scan at auto_block(N) (time and largest differences,
+     reported); the global door's parts (Taylor init, warm start, one
+     sweep's element build and scans, calibration) and both doors' times
+     (the windowed one the median of 5 after 1 warm-up); the windowed
+     door's 64 totals scans summed (from the N = 1024 times, and their
+     kernel time in one door call by ``torch.profiler``, with the count of
+     launches it saw held at 64); the group kernels' times and bounds at
+     D = 4, 6 and 12; registers and spills;
+ 44. the card's default ``solve_fixed_parallel(prob, EK1(order=2))`` (D =
+     6) at N = 16384, float64 and float32, each run with the counts set to
+     0 before it and read after it: the defaults resolve to the fused scan
+     and the warm start (at order 3 on the card, the adaptive kernel's
+     order), 8 launches of each scan kernel (the default 4 sweeps) and 1 of
+     ``ek0_adaptive``; shapes, finite values; the float64 means against
+     DOP853 (``TP6_DOP853``), float32 against float64; then at N = 1024
+     the float64 door against the sequential fixed-grid EK1(order=2)
+     smoother's plain version on the host (``TP6_SEQ``), computed in a
+     process of its own that starts with phase 40 and is stopped after
+     phase 44.
 
 The second-last line of the output names the card and its power limit;
 the line before it lists the thirty-five kernels with their launches on
-their path, errors, times, plain times and bounds (``bound_ms``: the
+their path, errors, times, plain times, bounds, and the registers and
+spill-store bytes ``nvcc -Xptxas -v`` reports for each one's float32
+instantiation (``registers``, ``spill_stores``; the scan kernels at D = 8,
+with their non-inlined combine's spills) (``bound_ms``: the
 larger of the bytes each must move over 3.35 TB/s and the operations its
 plain version does, counted per step under a dispatch mode, over 67
 TFLOP/s of float32; H100 SXM data sheet; the adaptive kernels' operations
@@ -453,7 +482,7 @@ SOURCE = {
     "ek0_kron_grid": "odefilters_torch/ops/csrc/kron_grid.cu",
     "ek1d_kron_grid": "odefilters_torch/ops/csrc/kron_grid.cu",
     "tp_chunk_scan": "odefilters_torch/ops/csrc/tp_scan.cuh",
-    "tp_totals_scan": "odefilters_torch/ops/csrc/tp_scan.cuh",
+    "tp_totals_scan": "odefilters_torch/ops/csrc/tp_group.cuh",
     "tp_fixup": "odefilters_torch/ops/csrc/tp_scan.cuh",
 }
 REPLACES = {
@@ -1427,6 +1456,8 @@ def ek1_vs_plain(label, c, rtol, atol):
           rtol, atol)
     close(f"{label} ekd_smoother_kernel on the plain stream, stds", sd_k, sd_p,
           rtol, atol)
+    hold_smoother_bits(f"{label} ekd_smoother_kernel on the plain stream",
+                       (us_k, sd_k), (us_p, sd_p))
     x_k = c.sampler_kernel(st_p)
     torch.cuda.synchronize()
     close(f"{label} ekd_sampler_kernel on the plain stream, samples (S="
@@ -1447,6 +1478,13 @@ def ek1_vs_plain(label, c, rtol, atol):
         for what, got, ref in zip(("us", "stds"), c.filter_solution(st_sk),
                                   c.filter_solution(st_sp)):
             close(f"{name} ({static}), filter {what}", got, ref, rtol, atol)
+
+
+def hold_smoother_bits(name, got, plain):
+    """The group smoother kernel's (us, stds) bit for bit against its plain
+    version on the same stream."""
+    for what, g, p in zip(("us", "stds"), got, plain):
+        bitwise(f"{name}, {what} against the plain version", g, p, strict=True)
 
 
 # EK1 float32 against float64 at 8192 x 500: the means are held at ten
@@ -1635,12 +1673,12 @@ def ek1_path(odt, card):
 EK1_PLAIN_T = 100
 
 
-def ek1_timing(odt, card):
+def ek1_timing(odt, card, built):
     """Phase 18: the EK1 kernels against their plain versions at 8192 x
-    EK1_PLAIN_T in float32 (normals from ``torch.randn``, S = S_MAIN), then
-    the timings of each kernel at 8192 x 500, each front door and each
-    plain version once. Returns the kernels' (ms, plain ms, max |kernel -
-    plain|)."""
+    EK1_PLAIN_T in float32 (normals from ``torch.randn``, S = S_MAIN; the
+    smoother bit for bit), then the timings of each kernel at 8192 x 500,
+    each front door and each plain version once, and the kernels' registers
+    and spills. Returns the kernels' (ms, plain ms, max |kernel - plain|)."""
     t0, t1 = TSPAN_MAIN
     c = EK1Case(B_MAIN, EK1_PLAIN_T, torch.float32,
                 (t0, t0 + (t1 - t0) * EK1_PLAIN_T / T_MAIN), S_MAIN,
@@ -1654,6 +1692,8 @@ def ek1_timing(odt, card):
     x_kp = c.sampler_kernel(st_p)
     torch.cuda.synchronize()
     head = f"f32 at {B_MAIN} x {EK1_PLAIN_T}"
+    hold_smoother_bits(f"{head} ekd_smoother_kernel on the plain stream",
+                       (us_kp, sd_kp), (us_pp, sd_pp))
     rtol, atol = 1e-4, 1e-6
     err = {
         "ek1_filter_states": max(
@@ -1727,6 +1767,8 @@ def ek1_timing(odt, card):
     plain_ms = {"ek1_filter_states": states_plain_ms,
                 "ekd_smoother": smoother_plain_ms,
                 "ekd_sampler": sampler_plain_ms}
+    print_registers(built["log"], ("ek1_filter_states", "ekd_smoother",
+                                   "ekd_sampler"), only="If")
     return ms, plain_ms, err
 
 
@@ -2216,6 +2258,55 @@ def print_registers(log, names, only=""):
                 say(f"   {entry}: {line.split('function')[1].strip()}")
         elif entry and ("registers" in line or "spill" in line):
             say(f"     {line.split('ptxas info    :')[-1].strip()}")
+
+
+def ptxas_usage(log):
+    """``{mangled name: {"registers": n, "spill_stores": bytes}}`` from the
+    ``nvcc -Xptxas -v`` log: registers of each entry function, spill stores
+    of each function (entries and the non-inlined functions they call)."""
+    use, fn, entry = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = entry = line.split("'")[1]
+            use.setdefault(fn, {})
+        elif "Function properties for" in line:
+            fn = line.split("Function properties for")[1].strip().rstrip(":")
+            use.setdefault(fn, {})
+        elif fn and "spill stores" in line:
+            use[fn]["spill_stores"] = int(line.split("bytes spill stores")[0]
+                                          .split(",")[-1])
+        elif entry and "Used" in line and "registers" in line:
+            use[entry]["registers"] = int(line.split("Used")[1].split()[0])
+    return use
+
+
+# The float32 instantiation each entry of the kernels line reports, as a
+# substring of its mangled name (the first match); for the scan kernels
+# also their non-inlined combine, whose spills count as theirs. The scan
+# kernels at D = 8: the one-thread chunk scan and fixup, the group totals
+# scan (8 lanes a total, D known at compile time).
+KERNEL_SYMBOL = {
+    "tp_chunk_scan": ("tp_chunk_scan_kernelIfNS_10FilterKind",
+                      "_ZN2tp14filter_combineIfLi8E"),
+    "tp_totals_scan": ("tp_totals_scan_group_kernelIfLi8ELb1ELi8E",
+                       "_ZN3tpg14filter_combineIfLi8ELi8E"),
+    "tp_fixup": ("tp_fixup_kernelIfNS_10FilterKind",
+                 "_ZN2tp14filter_combineIfLi8E"),
+}
+
+
+def kernel_usage(use, name):
+    """The registers and spill-store bytes of the kernels line's kernel
+    ``name`` (its float32 instantiation; None where the log has none)."""
+    entry, callee = KERNEL_SYMBOL.get(name, (f"{name}_kernelIf", None))
+    hit = next((k for k in use if entry in k and "registers" in use[k]), None)
+    if hit is None:
+        return None, None
+    spills = use[hit].get("spill_stores", 0)
+    if callee:
+        spills = max([spills] + [v.get("spill_stores", 0)
+                                 for k, v in use.items() if callee in k])
+    return use[hit]["registers"], spills
 
 
 def adaptive_sampler_path(odt, card):
@@ -2716,7 +2807,7 @@ def close_where_finite(name, got, ref, rtol, atol):
 
 
 def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False,
-                     stops=(False, True)):
+                     stops=(False, True), dll_only_too=True):
     """Phases 28, 30, 31 and 33 for one ensemble: the primal kernel and
     the gradient's forward against their plain versions (dll, ll held
     where the plain version is finite, the two non-finite on the same
@@ -2724,7 +2815,9 @@ def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False,
     ``strict`` checked; the stream held bit for bit on the members that
     stay finite), then on those members the adjoint on the plain forward's
     stream with calib_grad both ways, or with ``stop_calib`` in ``stops``
-    only (float32 per-dimension cases: `pd_f32_adjoint`). ``case.NAMES``: its three kernels. Returns each
+    only (float32 per-dimension cases: `pd_f32_adjoint`, with the cotangent
+    of dll alone too unless not ``dll_only_too``). ``case.NAMES``: its three
+    kernels. Returns each
     kernel's largest |kernel - plain| (the adjoint's also for each
     calib_grad, under ``"<name> calib_grad=<bool>"``) and the plain
     versions' milliseconds."""
@@ -2769,7 +2862,8 @@ def datalik_vs_plain(label, case, rtol, atol, hold_grads, strict=False,
         if hold_grads or not hasattr(case, "grad_bwd_f64"):
             e = dl_hold_grads(name, got, ref, hold_grads)
         else:
-            e = pd_f32_adjoint(name, case, st_p, stop, got, ref)
+            e = pd_f32_adjoint(name, case, st_p, stop, got, ref,
+                               dll_only_too)
         err[f"{bwd} calib_grad={not stop}"] = e
         err[bwd] = max(err[bwd], e)
     return err, p_ms
@@ -3103,9 +3197,10 @@ def row_scaled(got, ref, members):
             float((err / scale.clamp(min=1e-300)).max()))
 
 
-def pd_f32_adjoint(name, case, st, stop_calib, got, ref):
+def pd_f32_adjoint(name, case, st, stop_calib, got, ref, dll_only_too=True):
     """The float32 adjoint ``got`` against its plain version ``ref`` on the
-    stream ``st``, then again with the cotangent of dll only: per output
+    stream ``st``, then (``dll_only_too``) again with the cotangent of dll
+    only: per output
     (dm0, dps, dys), the relative norm difference and the largest |diff|
     over its row's scale, and each version's relative norm distance from
     the float64 run's adjoint (`DataLikPD.grad_bwd_f64`), held finite and,
@@ -3113,7 +3208,7 @@ def pd_f32_adjoint(name, case, st, stop_calib, got, ref):
     times the plain version's plus PD_F32_ADJOINT. Returns the largest
     |kernel - plain| with the first cotangent."""
     err = None
-    for dll_only in (False, True):
+    for dll_only in (False, True) if dll_only_too else (False,):
         if dll_only:
             got = case.grad_bwd(st, stop_calib, dll_only=True)
             ref = case.grad_bwd_plain(st, stop_calib, dll_only=True)
@@ -3488,8 +3583,10 @@ def pd_timing(odt, card):
         C, diagonal, per_member, _ = PD_ROWS[row]
         case = DataLikPD(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD, C,
                          DL_NOISE, diagonal, per_member)
+        # the cotangent of dll alone is held at B_CHECK (phase 31)
         e, pm = datalik_vs_plain(f"f32 {row} at {B_MAIN} x {DL_T_MAIN}", case,
-                                 1e-4, 1e-6, hold_grads=False, strict=True)
+                                 1e-4, 1e-6, hold_grads=False, strict=True,
+                                 dll_only_too=False)
         if row == "partial":
             err, p_ms = e, pm
         st = case.grad_fwd()[2]
@@ -3851,9 +3948,11 @@ def ek1dl_timing(odt, card):
     ts = dl_times(DL_T_MAIN, "on")
     case = DataLikEK1(B_MAIN, DL_T_MAIN, torch.float32, ts, DL_SPREAD, None,
                       DL_NOISE, EK1_ROWS["full"])
+    # the cotangent of dll alone is held at B_CHECK (phase 34)
     err, p_ms = datalik_vs_plain(f"f32 EK1 full at {B_MAIN} x {DL_T_MAIN}",
                                  case, 1e-4, 1e-6, hold_grads=False,
-                                 strict=True, stops=(case.TIMED_STOP,))
+                                 strict=True, stops=(case.TIMED_STOP,),
+                                 dll_only_too=False)
     st = case.grad_fwd()[2]
     ms = {"ek1_datalik": time_ms(case.primal, warmup=3, iters=20),
           "ek1_datalik_grad_fwd": time_ms(case.grad_fwd, warmup=3, iters=20),
@@ -4188,6 +4287,10 @@ def kron_phases(odt, card, built):
 # -- the time-parallel solves (phases 40-43) --------------------------------
 
 TP_NAMES = ("tp_chunk_scan", "tp_totals_scan", "tp_fixup")
+# the group kernels of tp_group.cuh (all three at D != 8, the totals scan
+# at every D)
+TP_GROUP_NAMES = ("tp_chunk_scan_group", "tp_totals_scan_group",
+                  "tp_fixup_group")
 # the JAX package's time-parallel record (benchmarks/tp_accuracy_experiment.py,
 # time_parallel_sweep.py): FitzHugh-Nagumo over (0, 20), N = 16384 uniform
 # steps, q = 3 (D = 8), 2 sweeps; EK1 global, EK0 in 16 windows of 1024
@@ -4224,6 +4327,25 @@ TP_F32_STD_LIMIT = 1e-7
 # above the floor and the two agree (CPU plain path: 1.0076 at 512, 1.48 at
 # 1024, 38 at 2048, 1.9e3 at 4096, 5.2e6 at 16384)
 TP_S2_NS, TP_S2_RTOL = (512, 2048), 0.05
+# phase 40 at other state dimensions: FitzHugh-Nagumo (d = 2) with
+# EK1(order=q), D = 2 (q + 1): (D, q); elements of the first N steps
+TP_DIMS, TP_DIM_NS = ((6, 2), (12, 5)), (1024, 3000)
+# and the smaller group sizes at N = 1024 alone: G = 4 by FitzHugh-Nagumo
+# with EK1(order=1) (D = 4), G = 2 and 4 by synthetic conditioned elements
+# at D = 2 and 3 (no model of the library has d = 1 or 3)
+TP_SMALL_DIMS, TP_SYNTH_DIMS, TP_SMALL_N = ((4, 1),), (2, 3), 1024
+# phase 44: the card's default door at D = 6, EK1(order=2), its default
+# iterations: the float64 means held within TP6_DOP853 of DOP853 at N =
+# 16384, and at N = 1024 within TP6_SEQ of the sequential fixed-grid
+# EK1(order=2) smoother (its plain version on the host, in a process of its
+# own beside phases 40-43: ~20 s at 1024 steps, ~330 s at 16384). CPU plain
+# path (these defaults, block='fused'): 3.27e-11 from DOP853; 3.60e-10 from
+# the sequential smoother (4.86e-10 after 8 sweeps, with the warm start at
+# order 2 or 3 alike: the iterated smoother's fixed point against the
+# one-pass EK1 smoother at dt = 0.0195); float32 against float64 9.14e-5,
+# stds 5.20e-9
+TP6_Q, TP6_SEQ_N = 2, 1024
+TP6_DOP853, TP6_SEQ = 1e-9, 5e-9
 
 
 def tp_fhn(dtype):
@@ -4237,12 +4359,13 @@ def tp_problem(dtype):
     return tp_fhn(dtype), ts
 
 
-def tp_elements(prob, alg, ts, u_lin, lo=0, hi=None):
+def tp_elements(prob, alg, ts, u_lin, lo=0, hi=None, plain=True):
     """The filtering elements of steps lo..hi-1 of ``prob`` on ``ts``,
     linearized along ``u_lin`` (the grid's points after t0), from the
     solve's zero-covariance initial state; and the smoothing elements of
-    the plain scan's filtered states, reversed (the order the scan runs
-    them)."""
+    the filtered states of the plain scan (``plain``) or of the kernels,
+    reversed (the order the scan runs them)."""
+    from odefilters_torch.ops import tp_scan as ts_
     from odefilters_torch.parallel import associative as pa
     from odefilters_torch.parallel import associative_sqrt as asq
 
@@ -4251,10 +4374,29 @@ def tp_elements(prob, alg, ts, u_lin, lo=0, hi=None):
     H, y = c.build_elements(u_lin[lo:hi], ts[1 + lo:1 + hi])
     U0 = torch.zeros((c.D, c.D), dtype=c.dtype, device=DEVICE)
     fe = asq.filter_elements(c.m0, U0, c.A, c.QL, H, y)
-    _, ms, Us, _, _ = tp_plain_scan("filter", fe)
+    scan = tp_plain_scan if plain else ts_.fused_associative_scan
+    _, ms, Us, _, _ = scan("filter", fe)
     se = asq.smoother_elements(torch.cat([c.m0[None], ms]),
                                torch.cat([U0[None], Us]), c.A, c.QL)
     return fe, tuple(torch.flip(e, (0,)) for e in se)
+
+
+def tp_synth_elements(kind, n, D, dtype, seed):
+    """n conditioned elements of state dimension D (as the CPU tests'):
+    transitions 0.5 I plus noise of spectral radius ~0.3, factors and vectors
+    of that scale, from numpy with ``seed``."""
+    rng = np.random.default_rng(seed)
+    scale = 0.3 * (2.0 / D) ** 0.5
+
+    def mk(*shape):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype,
+                            device=DEVICE)
+
+    eye = torch.eye(D, dtype=dtype, device=DEVICE)
+    if kind == "filter":
+        return (mk(n, D, D) + 0.5 * eye, mk(n, D), mk(n, D, D), mk(n, D),
+                mk(n, D, D))
+    return (mk(n, D, D) + 0.5 * eye, mk(n, D), mk(n, D, D))
 
 
 def tp_plain_scan(kind, elems):
@@ -4437,6 +4579,99 @@ def tp_path(odt, ek1):
     return launches, outs
 
 
+def tp_seq_host(n_steps):
+    """The sequential fixed-grid EK1(order=TP6_Q) smoother (fixed
+    diffusion) of the time-parallel record's FitzHugh-Nagumo on n_steps
+    uniform steps, its plain version on the host: (means (n_steps + 1, 2),
+    sigma^2, seconds), as numpy. Run in a process of its own while the
+    card's phases run (the fused EK1 kernels are built for q = 3 only)."""
+    import odefilters_torch as odt
+    from odefilters_torch import models
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    host = models.fitzhugh_nagumo(tspan=TP_TSPAN, device="cpu")
+    sol = odt.solve_ensemble(
+        host, odt.EK1(order=TP6_Q, diffusionmodel="fixed"),
+        host.u0[None].clone(), host.p[None].clone(), n_save=n_steps,
+        adaptive=False)
+    return (sol.us[..., 0].numpy(), float(sol.diffusions[0]),
+            time.perf_counter() - t0)
+
+
+def tp_dim_door(odt, seq):
+    """Phase 44: the card's default ``solve_fixed_parallel(prob,
+    EK1(order=2))`` (D = 6) at N = 16384 in float64 and float32, each run
+    with the counts set to 0 before it and read after it: the defaults
+    resolve to the fused scan and the warm start, 2 launches of each scan
+    kernel a sweep and 1 of ``ek0_adaptive``; shapes, finite values; float64
+    against DOP853, float32 against float64; then the float64 door at N =
+    TP6_SEQ_N against the sequential fixed-grid EK1(order=2) smoother (its
+    plain version on the host, ``seq``: a future of `tp_seq_host`).
+    Returns the float32 run's launches."""
+    import inspect
+
+    from odefilters_torch.parallel import associative as pa
+
+    alg = odt.EK1(order=TP6_Q)
+    D = 2 * (TP6_Q + 1)
+    iters = inspect.signature(odt.solve_fixed_parallel).parameters[
+        "iterations"].default
+    scans = 2 * iters
+    outs, launches = {}, None
+
+    def door(dtype, N):
+        prob = tp_fhn(dtype)
+        ts = torch.linspace(*TP_TSPAN, N + 1, dtype=dtype, device=DEVICE)
+        label = f"{str(dtype)[6:]} EK1(order={TP6_Q}) at N={N}"
+        block, ws = pa.resolve_options(prob, alg, N)
+        check(block == "fused" and ws == 8,
+              f"{label}: the defaults resolve to block={block!r}, "
+              f"warm_start={ws} (expected 'fused', 8)")
+        reset_counts()
+        out, d_ms = once(lambda: odt.solve_fixed_parallel(prob, alg, ts=ts))
+        n = read_counts(*TP_NAMES, "ek0_adaptive")
+        check(all(n[k] == scans for k in TP_NAMES) and n["ek0_adaptive"] == 1,
+              f"{label}: launches {n} ({d_ms:.1f} ms, the first call): "
+              f"{scans} of each scan kernel ({iters} sweeps) and 1 of "
+              "ek0_adaptive (the warm start)")
+        u, u_std, means, covs, sigma2 = out
+        check(tuple(u.shape) == (N + 1, 2) and u_std.shape == u.shape
+              and tuple(covs.shape) == (N + 1, D, D)
+              and bool(torch.isfinite(u).all() and torch.isfinite(u_std).all()
+                       and torch.isfinite(sigma2)),
+              f"{label}: shapes u {tuple(u.shape)}, covs {tuple(covs.shape)}; "
+              f"finite u, u_std and sigma2 ({float(sigma2):.6e})")
+        return out, n
+
+    for dtype in (torch.float64, torch.float32):
+        outs[dtype], n = door(dtype, TP_N)
+        if dtype == torch.float32:
+            launches = {k: n[k] for k in TP_NAMES}
+    prob64, ts64 = tp_problem(torch.float64)
+    u64 = outs[torch.float64][0]
+    e_ref = float((u64.cpu() - tp_reference(prob64, ts64)).abs().max())
+    check(e_ref <= TP6_DOP853, f"f64 EK1(order={TP6_Q}) at N={TP_N} vs DOP853: "
+          f"max |du| {e_ref:.3e} <= {TP6_DOP853:g}")
+    du = float((outs[torch.float32][0].double() - u64).abs().max())
+    dsd = float((outs[torch.float32][1].double() - outs[torch.float64][1])
+                .abs().max())
+    check(du <= TP_F32_LIMIT and dsd <= TP_F32_STD_LIMIT,
+          f"f32 vs f64 EK1(order={TP6_Q}) at N={TP_N}: max |du| {du:.3e} <= "
+          f"{TP_F32_LIMIT:g}, max |du_std| {dsd:.3e} <= {TP_F32_STD_LIMIT:g}; "
+          f"sigma2 f32 {float(outs[torch.float32][4]):.6e}, f64 "
+          f"{float(outs[torch.float64][4]):.6e} (reported)")
+    del outs
+    (u, *_, s2), _ = door(torch.float64, TP6_SEQ_N)
+    u_seq, s2_seq, seq_s = seq.result()
+    e_seq = float((u.cpu() - torch.from_numpy(u_seq)).abs().max())
+    check(e_seq <= TP6_SEQ, f"f64 EK1(order={TP6_Q}) at N={TP6_SEQ_N} vs the "
+          f"sequential fixed-grid smoother (plain, on the host, {seq_s:.1f} s "
+          f"beside phases 40-43): max |du| {e_seq:.3e} <= {TP6_SEQ:g}; "
+          f"sigma2 {float(s2):.6e} vs {s2_seq:.6e}")
+    return launches
+
+
 def tp_combine_ops(kind, D):
     """Floating-point operations of one combine as the CUDA body runs it
     (``tp_scan.cuh``: filter_combine, smooth_combine): each add, subtract,
@@ -4466,12 +4701,42 @@ def tp_combine_ops(kind, D):
     return 2 * mm + mv + D + mgs(False)
 
 
+def tp_door_totals_profile(door):
+    """One call of ``door`` under ``torch.profiler``: the card's time in the
+    totals scan kernel, summed over its launches as the profiler records
+    them, and their number. The time is None where the profiler records no
+    device time at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        door()
+        torch.cuda.synchronize()
+    total_us, kernel_us, n = 0.0, 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        total_us += t
+        if "tp_totals_scan_group_kernel" in ev.key and t > 0:
+            kernel_us += t
+            n += ev.count
+    return (kernel_us / 1e3 if total_us > 0 else None), n
+
+
+TP_WINDOW_N = TP_N // TP_WINDOWS  # the windowed door's scans: one chunk row
+
+
 def tp_timing(odt, card):
     """Phase 43: float32 at N = 16384. Each kernel per kind (median of 20
     after 3 warm-ups, CUDA events) beside its plain version (once) and its
-    bound; the fused scan against the blocked scan at auto_block(N); the
-    doors and their parts. Returns (ms, plain ms, max |kernel - plain|,
-    bounds) of the filter kind, the main path's larger."""
+    bound; the totals scan also at the windowed door's N = 1024 (bit for bit
+    against its plain version there); the group kernels at the other
+    state dimensions of phase 40; the fused scan against the blocked scan at
+    auto_block(N) (one call); the doors and their parts, and the windowed
+    door's 64 totals scans' summed kernel time (torch.profiler). Returns
+    (ms, plain ms, max |kernel - plain|, bounds) of the filter kind, the
+    main path's larger."""
     from odefilters_torch.ops import tp_scan as ts_
     from odefilters_torch.parallel import associative as pa
     from odefilters_torch.parallel import associative_sqrt as asq
@@ -4524,12 +4789,12 @@ def tp_timing(odt, card):
                    else asq._sqrt_smooth_combine)
         blk = auto_block(TP_N)
         blocked_ms = time_ms(lambda: blocked_associative_scan(combine, el, blk),
-                             warmup=1, iters=3)
+                             warmup=0, iters=1)
         diff = tp_blocked_diff(ts_.fused_associative_scan(kind, el),
                                blocked_associative_scan(combine, el, blk),
                                kind)
         say(f"   {kind}: fused_associative_scan {fused_ms:.3f} ms; the "
-            f"blocked scan at block={blk} (median of 3 after 1 warm-up) "
+            f"blocked scan at block={blk} (one call) "
             f"{blocked_ms:.1f} ms; their largest difference per leaf, over "
             f"its scale: {diff} (reported)")
     # the global door's parts: per sweep the element build (the
@@ -4559,21 +4824,95 @@ def tp_timing(odt, card):
     for part, fn in parts.items():
         say(f"   global EK1 door, {part}: "
             f"{time_ms(fn, warmup=3, iters=20):.3f} ms")
-    for ek1 in (True, False):
+    # the windowed door, ~0.8 s a call: the median of 5 after 1 warm-up
+    for ek1, warmup, iters in ((True, 3, 20), (False, 1, 5)):
         _, door = tp_door(odt, prob, ts, ek1)
-        d_ms = time_ms(door, warmup=3, iters=20)
+        d_ms = time_ms(door, warmup=warmup, iters=iters)
         say(f"   solve_fixed_parallel, {'global EK1' if ek1 else 'windowed EK0'}"
-            f": {d_ms:.3f} ms = {TP_N / d_ms * 1e3:.0f} steps/s (card: {card})")
+            f": {d_ms:.3f} ms = {TP_N / d_ms * 1e3:.0f} steps/s (median of "
+            f"{iters} after {warmup} warm-ups; card: {card})")
+    # the windowed door's scans run one chunk row (N = 1024 a window): its
+    # 64 totals scans, timed alone at that shape and summed in one door call
+    alg0, door0 = tp_door(odt, prob, ts, False)
+    u0_lin = door0()[0][1:]
+    fw, sw = tp_elements(prob, alg0, ts, u0_lin, 0, TP_WINDOW_N, plain=False)
+    win = {}
+    for kind, el in (("filter", fw), ("smooth", sw)):
+        pre = ts_.tp_chunk_scan(kind, ts_.pack(kind, el))
+        label = f"f32 {kind} at N={TP_WINDOW_N} (a window)"
+        bitwise(f"{label}: tp_totals_scan_kernel against its plain version",
+                ts_.tp_totals_scan(kind, pre), ts_.totals_scan_plain(kind, pre),
+                strict=True)
+        win[kind] = time_ms(lambda: ts_.tp_totals_scan(kind, pre), warmup=3,
+                            iters=20)
+        say(f"   {label}: tp_totals_scan_kernel {win[kind]:.4f} ms "
+            f"(card: {card})")
+    est = TP_WINDOWS * TP_ITERS * sum(win.values())
+    n_want = 2 * TP_WINDOWS * TP_ITERS
+    prof_ms, prof_n = tp_door_totals_profile(door0)
+    if prof_ms is None:
+        say("   windowed door: torch.profiler recorded no device time; the "
+            "totals scans' kernel time in a door call is not measured")
+    else:
+        check(prof_n == n_want,
+              f"windowed door under torch.profiler: {prof_n} launches of "
+              f"tp_totals_scan_group_kernel ({n_want} expected)")
+    say(f"   windowed door: its {n_want} totals scans, "
+        f"{TP_WINDOWS * TP_ITERS} x (filter + smoother) at the times above: "
+        f"{est:.3f} ms; summed in one door call by torch.profiler: "
+        + ("not measured" if prof_ms is None else f"{prof_ms:.3f} ms")
+        + f" (card: {card})")
+    # the group kernels at the other state dimensions (D != 8: all three)
+    for D, q in TP_DIMS + TP_SMALL_DIMS:
+        fd, sd = tp_elements(prob, odt.EK1(order=q), ts, u_lin, plain=False)
+        ops_k = {"filter": tp_combine_ops("filter", D),
+                 "smooth": tp_combine_ops("smooth", D)}
+        for kind, el in (("filter", fd), ("smooth", sd)):
+            packed = ts_.pack(kind, el)
+            L, V, _ = packed.shape
+            pre = ts_.tp_chunk_scan(kind, packed)
+            tex = ts_.tp_totals_scan(kind, pre)
+            t = {"tp_chunk_scan": lambda: ts_.tp_chunk_scan(kind, packed),
+                 "tp_totals_scan": lambda: ts_.tp_totals_scan(kind, pre),
+                 "tp_fixup": lambda: ts_.tp_fixup(kind, pre, tex)}
+            combines = {"tp_chunk_scan": (L - 1) * ts_.NC,
+                        "tp_totals_scan": ts_.NC - 1,
+                        "tp_fixup": L * (ts_.NC - 1)}
+            moved = {"tp_chunk_scan": 2 * L * V * ts_.NC,
+                     "tp_totals_scan": 2 * V * ts_.NC,
+                     "tp_fixup": (2 * L + 1) * V * ts_.NC}
+            for name in TP_NAMES:
+                k_ms = time_ms(t[name], warmup=3, iters=20)
+                b = bound(moved[name] * item, ops_k[kind] * combines[name],
+                          1, 1)
+                say(f"   D={D} {kind} {name} (group kernel) {k_ms:.4f} ms; "
+                    f"{combines[name]} combines of {ops_k[kind]} operations, "
+                    f"{moved[name] * item / 1e6:.2f} MB: bound {b[0]:.4f} ms by "
+                    f"{b[1]} (card: {card})")
     return ms, p_ms, err, bounds
 
 
 def tp_phases(odt, card, built):
-    """Phases 40-43. Returns (launches on the main path's run, ms, plain ms,
-    max |kernel - plain|, bounds) of the three scan kernels."""
+    """Phases 40-44. Returns (launches on the main path's run, ms, plain ms,
+    max |kernel - plain|, bounds) of the three scan kernels. Phase 44's
+    host-side reference runs in a process of its own from the start of
+    phase 40, stopped before this returns."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        seq = pool.submit(tp_seq_host, TP6_SEQ_N)
+        return tp_phases_on_card(odt, card, built, seq)
+
+
+def tp_phases_on_card(odt, card, built, seq):
     say(f"== 40. the time-parallel scan kernels vs plain, bit for bit: "
         f"N in {TP_CHECK_NS}, float64 and float32, filter and smoother "
         "elements (EK1 linearized along DOP853's solution), forward and "
-        "reversed")
+        f"reversed; and at (D, q) in {TP_DIMS}, N in {TP_DIM_NS}; at (D, q) "
+        f"in {TP_SMALL_DIMS} and D in {TP_SYNTH_DIMS} (synthetic), "
+        f"N={TP_SMALL_N}")
     prob64, ts64 = tp_problem(torch.float64)
     truth = tp_reference(prob64, ts64)[1:]
     for N in TP_CHECK_NS:
@@ -4586,6 +4925,31 @@ def tp_phases(odt, card, built):
                     x = tuple(torch.flip(e, (0,)) for e in el) if rev else el
                     tp_vs_plain(f"{str(dtype)[6:]} N={N} {kind}"
                                 f"{' reversed' if rev else ''}", kind, x)
+    for D, q in TP_DIMS:
+        for N in TP_DIM_NS:
+            for dtype in (torch.float64, torch.float32):
+                prob, ts = tp_problem(dtype)
+                u_lin = truth.to(dtype=dtype, device=DEVICE)
+                fe, se = tp_elements(prob, odt.EK1(order=q), ts, u_lin, 0, N,
+                                     plain=False)
+                for kind, el in (("filter", fe), ("smooth", se)):
+                    tp_vs_plain(f"{str(dtype)[6:]} D={D} N={N} {kind}", kind,
+                                el)
+    for dtype in (torch.float64, torch.float32):
+        prob, ts = tp_problem(dtype)
+        u_lin = truth.to(dtype=dtype, device=DEVICE)
+        for D, q in TP_SMALL_DIMS:
+            fe, se = tp_elements(prob, odt.EK1(order=q), ts, u_lin, 0,
+                                 TP_SMALL_N, plain=False)
+            for kind, el in (("filter", fe), ("smooth", se)):
+                tp_vs_plain(f"{str(dtype)[6:]} D={D} N={TP_SMALL_N} {kind}",
+                            kind, el)
+        for D in TP_SYNTH_DIMS:
+            for kind in ("filter", "smooth"):
+                tp_vs_plain(f"{str(dtype)[6:]} D={D} N={TP_SMALL_N} {kind} "
+                            "(synthetic elements)", kind,
+                            tp_synth_elements(kind, TP_SMALL_N, D, dtype,
+                                              100 + D))
     say(f"== 41. the global time-parallel path: solve_fixed_parallel("
         f"EK1(order={Q})), FitzHugh-Nagumo over {TP_TSPAN}, N={TP_N}, "
         f"iterations={TP_ITERS}, float64 and float32")
@@ -4595,10 +4959,16 @@ def tp_phases(odt, card, built):
         f"iterations={TP_ITERS}, float64 and float32")
     tp_path(odt, ek1=False)
     say(f"== 43. the time-parallel kernels vs plain and timing, float32, "
-        f"N={TP_N}")
+        f"N={TP_N} (and the totals scan at N={TP_WINDOW_N}; D in "
+        f"{tuple(D for D, _ in TP_DIMS + TP_SMALL_DIMS)})")
     ms, p_ms, err, bounds = tp_timing(odt, card)
     # each entry's lines end with its combine's (compiled into every entry)
-    print_registers(built["log"], TP_NAMES)
+    print_registers(built["log"], TP_NAMES + TP_GROUP_NAMES, only="If")
+    say(f"== 44. the card's default time-parallel door at D = "
+        f"{2 * (TP6_Q + 1)}: solve_fixed_parallel(EK1(order={TP6_Q})), N={TP_N}"
+        f", float64 and float32; N={TP6_SEQ_N} against the sequential "
+        "smoother")
+    tp_dim_door(odt, seq)
     return launches, ms, p_ms, err, bounds
 
 
@@ -4626,7 +4996,10 @@ def main() -> int:
     say(f"   built {built['path'].name} in {built['seconds']:.1f} s of nvcc "
         f"({time.perf_counter() - t0:.1f} s in all)")
     for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if line.startswith("== "):
+            say(f"   nvcc {line[3:]}")
+        elif ("registers" in line or "spill" in line
+              or "Compiling entry" in line):
             say(f"   {line.strip()}")
 
     say(f"== 3. kernel vs plain, float64, B={B_CHECK}, T={T_CHECK}, "
@@ -4879,7 +5252,7 @@ def main() -> int:
 
     say(f"== 18. the EK1 kernels vs plain (T={EK1_PLAIN_T}) and timing "
         f"(T={T_MAIN}), float32, B={B_MAIN}, S={S_MAIN}")
-    e_ms, e_plain_ms, e_err = ek1_timing(odt, card)
+    e_ms, e_plain_ms, e_err = ek1_timing(odt, card, built)
 
     say(f"== 19. adaptive kernels vs plain, B={B_CHECK}, tspan={TSPAN_ADA}, "
         f"{S_ADA} save intervals, {ADA_TOL}")
@@ -4999,14 +5372,17 @@ def main() -> int:
     bounds.update(tp_bounds)
     bounds["ek1d_filter"] = d_bound
     bounds["ek0_adaptive_sampler"] = sm_bound
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
-        for name in SOURCE
-    ]
+    use = ptxas_usage(built["log"])
+    kernels = []
+    for name in SOURCE:
+        regs, spills = kernel_usage(use, name)
+        kernels.append(
+            {"name": name, "route": "cuda", "source": SOURCE[name],
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": ms[name],
+             "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None,
+             "registers": regs, "spill_stores": spills})
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

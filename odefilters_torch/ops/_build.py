@@ -10,6 +10,7 @@ one is reused. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -24,11 +25,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "odefilters_torch"
 SOURCES = ("ek1_datalik.cu", "ek1_adaptive.cu", "ek1_fused.cu",
            "ek0_datalik_pd.cu", "ek1d.cu", "ek0_adaptive.cu", "ek0_datalik.cu",
            "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu", "kron_grid.cu",
-           "tp_scan.cu", "tp_scan_f64.cu")
+           "tp_scan.cu", "tp_scan_f64.cu", "tp_group.cu", "tp_group_f64.cu",
+           "tp_group16.cu", "tp_group16_f64.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
            "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
            "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh",
-           "cooperative.cuh", "kron_grid.cuh", "tp_scan.cuh")
+           "cooperative.cuh", "kron_grid.cuh", "tp_scan.cuh", "group_mgs.cuh",
+           "tp_group.cuh", "ek1_group.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,7 +63,7 @@ NVCC_FLAGS = (
 # sums feed s2, and through it every later step, so they are held to their
 # plain versions bit for bit. And the time-parallel scans': a solve's
 # sweeps relinearize at the scans' smoothed means, and the kernels are held
-# to their plain versions bit for bit.
+# to their plain versions bit for bit (their group kernels too).
 SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek0_sample.cu": ("-fmad=false",),
                 "ek0_pair.cu": ("-fmad=false",),
@@ -73,7 +76,11 @@ SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "ek1_datalik.cu": ("-fmad=false",),
                 "kron_grid.cu": ("-fmad=false",),
                 "tp_scan.cu": ("-fmad=false",),
-                "tp_scan_f64.cu": ("-fmad=false",)}
+                "tp_scan_f64.cu": ("-fmad=false",),
+                "tp_group.cu": ("-fmad=false",),
+                "tp_group_f64.cu": ("-fmad=false",),
+                "tp_group16.cu": ("-fmad=false",),
+                "tp_group16_f64.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,9 +135,13 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                                 save_every, consts) (the Brusselator
 #                                 stencil, cooperative)
 # kron_grid_sync_probe: (blocks, n_barriers)
-# tp_chunk_scan: (kind, elems, out, L); tp_totals_scan: (kind, totals,
-#                work, out) (cooperative); tp_fixup: (kind, prefixes, t_excl,
-#                out, L)
+# tp_chunk_scan: (kind, D, elems, out, L); tp_totals_scan: (kind, D,
+#                totals, work, out) (cooperative); tp_fixup: (kind, D,
+#                prefixes, t_excl, out, L); tp_chunk_scan_d8,
+#                tp_fixup_d8: as those without D, the one-thread kernels
+#                at D = 8;
+#                tp_group16: (op, kind, D, a, b, work, out, L), the three
+#                group kernels at group size 16
 FIELD_ENTRIES = {
     "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
     "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
@@ -166,9 +177,12 @@ PLAIN_ENTRIES = {
     "ek1_adaptive_smoother": (_P,) * 5 + (_I, _I, _I, _D, _P),
     "ek0_kron_grid": (_P,) * 5 + (_I,) * 4 + (_D, _P),
     "ek1d_kron_grid": (_P,) * 5 + (_I,) * 4 + (_D, _P),
-    "tp_chunk_scan": (_I, _P, _P, _I, _P),
-    "tp_totals_scan": (_I, _P, _P, _P, _P),
-    "tp_fixup": (_I, _P, _P, _P, _I, _P),
+    "tp_chunk_scan": (_I, _I, _P, _P, _I, _P),
+    "tp_totals_scan": (_I, _I, _P, _P, _P, _P),
+    "tp_fixup": (_I, _I, _P, _P, _P, _I, _P),
+    "tp_chunk_scan_d8": (_I, _P, _P, _I, _P),
+    "tp_fixup_d8": (_I, _P, _P, _P, _I, _P),
+    "tp_group16": (_I, _I, _I, _P, _P, _P, _P, _I, _P),
 }
 ENTRIES = {"kron_grid_sync_probe": (_I, _I, _P)}
 for _s in ("f32", "f64"):
@@ -208,8 +222,9 @@ def build() -> dict:
     """Compile the kernels unless the library for these sources exists.
 
     Returns ``{"path", "seconds", "log"}``: wall seconds spent in ``nvcc``
-    (0.0 when the library was already there) and its output, which with
-    ``-Xptxas -v`` lists each kernel's registers and spills.
+    (0.0 when the library was already there) and its output, which names
+    each unit's wall seconds and, with ``-Xptxas -v``, lists each kernel's
+    registers and spills.
     """
     path = library_path()
     log_path = path.with_suffix(".log")
@@ -229,8 +244,16 @@ def build() -> dict:
         )
         for src, obj in zip(SOURCES, objs)
     ]
-    outs = [proc.communicate()[0] for proc in procs]
-    log = "".join(f"== {src}\n{out}" for src, out in zip(SOURCES, outs))
+    def finish(proc):
+        out = proc.communicate()[0]
+        return out, time.perf_counter() - t0
+
+    # each unit's output read on a thread of its own, so that its wall time
+    # ends when it does (the log names each unit's seconds)
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    log = "".join(f"== {src} ({sec:.1f} s)\n{out}"
+                  for src, (out, sec) in zip(SOURCES, done))
     tmp = path.with_name(f"{tag}.tmp.so")
     try:
         failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode]

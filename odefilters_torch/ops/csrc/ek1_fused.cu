@@ -7,15 +7,17 @@
 //                               diffusion; optional IEKS linearization
 //                               rows);
 //   ekd_smoother_kernel      <- _ekd_smoother_kernel (the backward
-//                               square-root RTS pass over its stream);
+//                               square-root RTS pass over its stream; a
+//                               group of lanes per member, ek1_group.cuh);
 //   ekd_sampler_kernel       <- _ekd_sampler_kernel (the backward
 //                               conditioning sampler, S samples a member).
 // Their plain PyTorch versions, in the same order of operations, and the
 // Python wrappers are in odefilters_torch/ops/ek1_fused.py; the per-member
 // bodies are in ek1_fused.cuh.
 //
-// Design: one thread per ensemble member, its state in registers (and
-// what does not fit, in local memory) for the whole time loop, every index
+// Design (the filter and the sampler): one thread per ensemble member, its
+// state in registers (and what does not fit, in local memory) for the
+// whole time loop, every index
 // loop unrolled so that the structural zeros of A = kron(At, I) and
 // QLf = kron(QLt, I) cost nothing; arrays (T+1, rows, B) with the member
 // index contiguous, so that a warp's loads and stores coalesce; 64 threads
@@ -25,7 +27,10 @@
 // backward pass). The sampler keeps a chunk of SC samples in registers
 // (SC = 1, 2 or 4 in float32, up to 2 in float64, the largest not above S)
 // and recomputes the shared per-step work once per chunk: the grid's y
-// dimension runs over the chunks.
+// dimension runs over the chunks. The smoother spreads a member over
+// NQ DIM = 8 lanes (ek1_group.cuh): a lane owns a row of the gain and of
+// the factors and a column of the Gram-Schmidt stack, its members' stream
+// rows staged in shared memory, 32 float32 (16 float64) members a CTA.
 //
 // What bounds them (8192 members, 500 steps, float32): by bytes, the
 // filter writes a 1.79 GB stream (0.53 ms at 3.35 TB/s), the smoother reads
@@ -43,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "ek1_fused.cuh"
+#include "ek1_group.cuh"
 #include "fields.cuh"
 
 using ek1::Consts;
@@ -96,15 +102,16 @@ __global__ void __launch_bounds__(THREADS)
                                        mode, smooth != 0);
 }
 
-// The backward RTS pass: st (T+1, V, B) into us, stds (T+1, DIM, B).
-template <typename S, int NQ, int DIM>
-__global__ void __launch_bounds__(THREADS)
+// The backward RTS pass: st (T+1, V, B) into us, stds (T+1, DIM, B), a
+// group of NQ DIM lanes per member, MB members a CTA (ek1_group.cuh). Two
+// CTAs an SM (at most 128 registers a lane in float32): 8192 members then
+// fit the card at once.
+template <typename S, int NQ, int DIM, int MB>
+__global__ void __launch_bounds__(MB * NQ * DIM, 2)
     ekd_smoother_kernel(const S* __restrict__ st, S* __restrict__ us,
                         S* __restrict__ stds, int B, int T,
                         Consts<S, NQ, DIM> c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  ek1::smoother_member<S, NQ, DIM>(c, st, us, stds, b, B, T);
+  ek1g::smoother_group<S, NQ, DIM, MB>(c, st, us, stds, B, T);
 }
 
 // The backward sampler: samples blockIdx.y * SC .. of member b.
@@ -145,8 +152,14 @@ template <typename S, int NQ, int DIM>
 int launch_smoother(const void* st, void* us, void* stds, int B, int T,
                     const double* k, void* stream) {
   if (B < 1 || T < 0) return (int)cudaErrorInvalidValue;
-  ekd_smoother_kernel<S, NQ, DIM>
-      <<<blocks_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+  constexpr int MB = ek1g::Tile<S>::MB;
+  constexpr size_t sh = ek1g::smoother_smem_bytes<S, NQ, DIM, MB>();
+  const void* kern = (const void*)ekd_smoother_kernel<S, NQ, DIM, MB>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh);
+  if (e != cudaSuccess) return (int)e;
+  ekd_smoother_kernel<S, NQ, DIM, MB>
+      <<<(B + MB - 1) / MB, MB * NQ * DIM, sh, (cudaStream_t)stream>>>(
           (const S*)st, (S*)us, (S*)stds, B, T,
           read_consts<S, NQ, DIM>(k, false));
   return (int)cudaGetLastError();

@@ -1,10 +1,11 @@
 // Per-member bodies of the fused EK1 kernels (ek1_fused.cu): the square-root
 // EK1 filter step with the field's Jacobian evaluated in the kernel, the
-// backward RTS step and the backward conditioning step over the filter's
-// D x D factor stream, and the loops over one member's time steps that the
-// kernels run. Their plain PyTorch versions, in the same order of
-// operations, are in odefilters_torch/ops/ek1_fused.py (ek1_step,
-// ek1_filter_states_plain, ekd_smoother_plain, ekd_sampler_plain).
+// backward conditioning step over the filter's D x D factor stream, and the
+// loops over one member's time steps that the filter and the sampler run
+// (the smoother spreads a member over a group of lanes: ek1_group.cuh).
+// Their plain PyTorch versions, in the same order of operations, are in
+// odefilters_torch/ops/ek1_fused.py (ek1_step, ek1_filter_states_plain,
+// ekd_sampler_plain).
 //
 // The state is flat and derivative-major, N = DIM * NQ entries: entry i is
 // derivative i / DIM of dimension i % DIM. The transition A = kron(At, I)
@@ -514,72 +515,6 @@ __device__ __forceinline__ void backward_shared(
       v[l][r] = b1;
       v[N + l][r] = sq * gq;
     }
-  }
-}
-
-template <typename S, int N, int DIM>
-__device__ __forceinline__ void emit_smoothed(S* __restrict__ us,
-                                              S* __restrict__ stds,
-                                              size_t o, size_t sB, S pinv0,
-                                              const S (&m)[N],
-                                              const S (&L)[N][N]) {
-#pragma unroll
-  for (int j = 0; j < DIM; ++j) {
-    S ss = S(0);
-#pragma unroll
-    for (int k = 0; k < N; ++k) ss += L[j][k] * L[j][k];
-    us[o + j * sB] = pinv0 * m[j];
-    stds[o + j * sB] = pinv0 * sqrt_(ss);
-  }
-}
-
-// The backward square-root RTS pass over one member's stream st
-// (T+1, V, B) into us and stds (T+1, DIM, B). The step from t_k uses the
-// diffusion and predicted factor of interval k -> k+1, read from row k+1;
-// the stds at T come from the filter's full factor.
-template <typename S, int NQ, int DIM>
-__device__ __forceinline__ void smoother_member(const Consts<S, NQ, DIM>& c,
-                                                const S* __restrict__ st,
-                                                S* __restrict__ us,
-                                                S* __restrict__ stds, int b,
-                                                int B, int T) {
-  constexpr int N = NQ * DIM;
-  constexpr size_t V = Layout<N>::V;
-  const size_t sB = (size_t)B;
-  S m_s[N], L_s[N][N];
-  load_state<S, N>(st, (size_t)T * V * sB + b, sB, m_s, L_s);
-  emit_smoothed<S, N, DIM>(us, stds, (size_t)T * DIM * sB + b, sB, c.pinv0,
-                           m_s, L_s);
-  for (int k = T - 1; k >= 0; --k) {
-    S m_f[N], L_f[N][N], Lp[N][N], G[N][N], mp[N], v[3 * N][N];
-    load_state<S, N>(st, (size_t)k * V * sB + b, sB, m_f, L_f);
-    const S s2 = load_predicted<S, N>(st, (size_t)(k + 1) * V * sB + b, sB,
-                                      Lp);
-    backward_shared<S, NQ, DIM, 3 * N>(c, m_f, L_f, Lp,
-                                       sqrt_(floor_at(s2, S(0))), G, mp, v);
-    S dm[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) dm[r] = m_s[r] - mp[r];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      S g = S(0);
-#pragma unroll
-      for (int l = 0; l < N; ++l) g += G[r][l] * dm[l];
-      m_s[r] = m_f[r] + g;
-    }
-    // rows 2N + l: column l of G L_s
-#pragma unroll
-    for (int r = 0; r < N; ++r)
-#pragma unroll
-      for (int l = 0; l < N; ++l) {
-        S acc = S(0);
-#pragma unroll
-        for (int k = 0; k < N; ++k) acc += G[r][k] * L_s[k][l];
-        v[2 * N + l][r] = acc;
-      }
-    mgs_tril<S, N, 3 * N, false>(v, L_s);
-    emit_smoothed<S, N, DIM>(us, stds, (size_t)k * DIM * sB + b, sB, c.pinv0,
-                             m_s, L_s);
   }
 }
 

@@ -2,19 +2,17 @@
 // square-root filtering and smoothing combines, in the order of operations
 // of their plain PyTorch versions (odefilters_torch/ops/tp_scan.py:
 // filter_combine, smooth_combine; every sum over an index in index order),
-// the three kernels that call them, and their launches.
+// the one-thread chunk scan and fixup at D = 8 that call them, and their
+// launches (tp_group.cuh runs the totals scan, and every other D).
 //
 // An element is V values at p[v * s], v = 0..V-1: a packed (rows, V, 1024)
 // tensor holds element (k, c) at p = base + k V 1024 + c, s = 1024, so a
 // thread per chunk reads coalesced. Loads and stores go through L2
-// (__ldcg / __stcg): the totals kernel reads, after a grid barrier,
-// buffers that other CTAs wrote, and reuses them every other round.
+// (__ldcg / __stcg).
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "cooperative.cuh"  // coop::launch_cooperative
 #include "ek0_sample.cuh"   // ek0::mgs_tril, ek0::cho_solve
 
 namespace tp {
@@ -166,7 +164,7 @@ __device__ __forceinline__ void stack2_factor(const S (&X)[D][D],
 
 // o = combine(a, b) for filtering elements (A, b, U, eta, Z): the
 // square-root combine of pallas_scan.py's _filter_combine_lists. Not inlined:
-// the three kernels share one body per dtype.
+// the two kernels share one body per dtype.
 template <typename S, int D>
 __device__ __noinline__ void filter_combine(const S* a, size_t sa,
                                             const S* b, size_t sb, S* o,
@@ -299,13 +297,12 @@ struct SmoothKind {
   }
 };
 
-// ---- the three kernels and their launches, instantiated by tp_scan.cu
+// ---- the two kernels and their launches, instantiated by tp_scan.cu
 // (float32) and tp_scan_f64.cu (float64): two translation units, which nvcc
 // builds in parallel ----
 
 constexpr int KD = 8;             // the instantiated state dimension
 constexpr int CHUNK_BLOCK = 32;   // threads per CTA, chunk scan
-constexpr int TOTALS_BLOCK = 32;  // threads per CTA, totals scan (32 CTAs)
 constexpr int FIXUP_BLOCK = 64;   // threads per CTA, fixup
 
 // prefixes[k][c] = combine(prefixes[k-1][c], elems[k][c]), prefixes[0] =
@@ -321,34 +318,6 @@ __global__ void __launch_bounds__(CHUNK_BLOCK)
   for (int k = 1; k < L; ++k)
     K::combine(out + (k - 1) * row + c, NC, elems + k * row + c, NC,
                out + k * row + c, NC);
-}
-
-// The inclusive scan of the chunk totals (V, 1024), shifted by one into out
-// (entry 0 holds the total scan's last entry, unused). work: two (V, 1024)
-// buffers.
-template <typename S, class K>
-__global__ void __launch_bounds__(TOTALS_BLOCK)
-    tp_totals_scan_kernel(const S* __restrict__ totals, S* work,
-                          S* __restrict__ out) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t size = (size_t)K::V * NC;
-  const S* src = totals;
-  int w = 0;
-  for (int shift = 1; shift < NC; shift <<= 1) {
-    const bool last = 2 * shift >= NC;
-    S* dst = last ? out : work + w * size;
-    const int o = last ? (i + 1) % NC : i;
-    if (i >= shift)
-      K::combine(src + (i - shift), NC, src + i, NC, dst + o, NC);
-    else
-      copy_elem<S, K::V>(src + i, NC, dst + o, NC);
-    if (!last) {
-      grid.sync();
-      src = work + w * size;
-      w ^= 1;
-    }
-  }
 }
 
 // out[k][c] = combine(t_excl[c], prefixes[k][c]) for c > 0, out[k][0] =
@@ -378,16 +347,6 @@ int chunk_scan(const void* elems, void* out, int L, void* stream) {
 }
 
 template <typename S, class K>
-int totals_scan(const void* totals, void* work, void* out, void* stream) {
-  const S* tp_ = (const S*)totals;
-  S *wp = (S*)work, *op = (S*)out;
-  void* args[] = {&tp_, &wp, &op};
-  return coop::launch_cooperative((const void*)tp_totals_scan_kernel<S, K>,
-                                  NC / TOTALS_BLOCK, TOTALS_BLOCK, args, 0,
-                                  stream);
-}
-
-template <typename S, class K>
 int fixup(const void* prefixes, const void* t_excl, void* out, int L,
           void* stream) {
   if (L < 1) return (int)cudaErrorInvalidValue;
@@ -402,16 +361,6 @@ int chunk_scan_kind(int kind, const void* elems, void* out, int L,
                     void* stream) {
   if (kind == 0) return chunk_scan<S, FilterKind<S, KD>>(elems, out, L, stream);
   if (kind == 1) return chunk_scan<S, SmoothKind<S, KD>>(elems, out, L, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename S>
-int totals_scan_kind(int kind, const void* totals, void* work, void* out,
-                     void* stream) {
-  if (kind == 0)
-    return totals_scan<S, FilterKind<S, KD>>(totals, work, out, stream);
-  if (kind == 1)
-    return totals_scan<S, SmoothKind<S, KD>>(totals, work, out, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,24 +4,16 @@
 
 #include "tp_scan.cuh"
 
-// Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). kind: 0
-// filter elements (A, b, U, eta, Z), 1 smoothing elements (E, g, P), at
-// D = 8. Each launches on the given stream, does not synchronise, and
-// returns the CUDA error code of the launch (the totals scan
-// cudaErrorCooperativeLaunchTooLarge when its grid cannot be co-resident).
+// Plain C entry points at D = 8, as tp_scan.cu's (called by
+// tp_group_f64.cu's entries).
 extern "C" {
 
-int tp_chunk_scan_f64(int kind, const void* elems, void* out, int L,
+int tp_chunk_scan_d8_f64(int kind, const void* elems, void* out, int L,
                       void* stream) {
   return tp::chunk_scan_kind<double>(kind, elems, out, L, stream);
 }
 
-int tp_totals_scan_f64(int kind, const void* totals, void* work, void* out,
-                       void* stream) {
-  return tp::totals_scan_kind<double>(kind, totals, work, out, stream);
-}
-
-int tp_fixup_f64(int kind, const void* prefixes, const void* t_excl,
+int tp_fixup_d8_f64(int kind, const void* prefixes, const void* t_excl,
                  void* out, int L, void* stream) {
   return tp::fixup_kind<double>(kind, prefixes, t_excl, out, L, stream);
 }

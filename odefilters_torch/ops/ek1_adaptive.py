@@ -449,6 +449,16 @@ def solve_ensemble_ek1_adaptive_smooth(
                                      field=field)
 
 
+def runnable_order(q: int, device: torch.device) -> int:
+    """The order `solve_adaptive_single` runs for order ``q`` on ``device``:
+    ``q`` on the CPU and wherever its kernels are built for it; else, on
+    the card, the largest order they are built for (``_launch.CUDA_ORDERS``;
+    ROADMAP.md queue 1, item 5)."""
+    if device.type == "cuda" and q not in _launch.CUDA_ORDERS:
+        return max(_launch.CUDA_ORDERS)
+    return q
+
+
 def solve_adaptive_single(
     prob_f: Callable,
     u0: torch.Tensor,

@@ -9,10 +9,14 @@ this module                    ``odefilters/parallel/pallas_scan.py``
 ``filter_combine``             ``_filter_combine_lists``
 ``smooth_combine``             ``_smooth_combine_lists``
 ``chunk_scan_plain`` /         ``_chunk_scan_kernel`` (CUDA:
-``tp_chunk_scan``              ``csrc/tp_scan.cuh::tp_chunk_scan_kernel``)
+``tp_chunk_scan``              ``csrc/tp_scan.cuh::tp_chunk_scan_kernel``
+                               at D = 8, ``csrc/tp_group.cuh::
+                               tp_chunk_scan_group_kernel`` at any other D)
 ``totals_scan_plain`` /        ``_totals_scan_kernel`` (CUDA:
-``tp_totals_scan``             ``tp_totals_scan_kernel``, cooperative)
-``fixup_plain`` / ``tp_fixup``  ``_fixup_kernel`` (CUDA: ``tp_fixup_kernel``)
+``tp_totals_scan``             ``tp_totals_scan_group_kernel``, cooperative)
+``fixup_plain`` / ``tp_fixup``  ``_fixup_kernel`` (CUDA: ``tp_fixup_kernel``
+                               at D = 8, ``tp_fixup_group_kernel`` at any
+                               other D)
 ``fused_associative_scan``     ``pallas_associative_scan``
 =============================  ============================================
 
@@ -49,8 +53,10 @@ bit for bit. (The kernels skip the terms through the identity blocks'
 structural zeros, which adds or subtracts exact zeros in the plain ones.)
 
 Dispatch: each wrapper runs its plain version on CPU tensors, launches its
-CUDA kernel on CUDA tensors (built for D = 8 only), raises on any other
-device, and counts its launches in ``.launches``. No VJP, as in JAX.
+CUDA kernel on CUDA tensors (state dimension D from the elements, 2 <= D <=
+``CUDA_D_MAX``; a group of lanes per combine, except the D = 8 chunk scan
+and fixup, a thread per combine), raises on any other device, and counts
+its launches in ``.launches``. No VJP, as in JAX.
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ NC = 1024                       # chunks
 KINDS = {"filter": ("mat", "vec", "mat", "vec", "mat"),
          "smooth": ("mat", "vec", "mat")}
 _KIND_CODE = {"filter": 0, "smooth": 1}
-CUDA_D = 8                      # the kernels' instantiated state dimension
+CUDA_D_MAX = 16                 # the kernels' largest state dimension
 
 
 def width(kind: str, D: int) -> int:
@@ -308,29 +314,41 @@ def fixup_plain(kind, prefixes, t_excl):
 
 
 def _check_cuda(name, kind, tensors):
+    """The state dimension D of the packed elements, after checking that
+    the CUDA kernels take them: one dtype and device, contiguous, ``(...,
+    V, 1024)`` with one V, and 2 <= D <= CUDA_D_MAX."""
     _check_kind(kind)
     x = next(iter(tensors.values()))
     _launch.check_cuda_inputs(name, tensors, x.dtype)
-    V = width(kind, CUDA_D)
+    V = x.shape[-2]
+    D = _dim(kind, V)
     for tname, t in tensors.items():
         if t.shape[-2:] != (V, NC):
             raise ValueError(
-                f"{name}: the CUDA kernels are built for D = {CUDA_D} ({kind} "
-                f"elements of {V} values in {NC} chunks); {tname} is "
-                f"{tuple(t.shape)}"
+                f"{name}: {tname} is {tuple(t.shape)}; every input holds "
+                f"{kind} elements of {V} values in {NC} chunks"
             )
+    if not 2 <= D <= CUDA_D_MAX:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels take state dimensions 2 <= D <= "
+            f"{CUDA_D_MAX}, got D = {D} (ROADMAP.md queue 1, item 5, 'Widen "
+            "every kernel family')"
+        )
+    return D
 
 
 def tp_chunk_scan(kind, packed):
     """Phase 1 on ``packed`` ``(L, V, 1024)``: the plain version on the
-    CPU, ``tp_chunk_scan_kernel`` (a thread per chunk) on CUDA."""
+    CPU, on CUDA ``tp_chunk_scan_kernel`` (a thread per chunk) at D = 8 and
+    ``tp_chunk_scan_group_kernel`` (a group of lanes per chunk) at any
+    other D."""
     if _launch.dispatch_device("tp_chunk_scan", packed) == "cpu":
         return chunk_scan_plain(kind, packed)
-    _check_cuda("tp_chunk_scan", kind, {"packed": packed})
+    D = _check_cuda("tp_chunk_scan", kind, {"packed": packed})
     out = torch.empty_like(packed)
     _launch.launch(tp_chunk_scan, packed.device,
                    f"tp_chunk_scan_{_launch.suffix(packed.dtype)}",
-                   _KIND_CODE[kind], packed.data_ptr(), out.data_ptr(),
+                   _KIND_CODE[kind], D, packed.data_ptr(), out.data_ptr(),
                    packed.shape[0])
     return out
 
@@ -340,18 +358,19 @@ tp_chunk_scan.launches = 0
 
 def tp_totals_scan(kind, prefixes):
     """Phase 2 on the chunk prefixes ``(L, V, 1024)``: the plain version on
-    the CPU, the cooperative ``tp_totals_scan_kernel`` (a thread per chunk,
-    a grid barrier between rounds) on CUDA. Returns ``(V, 1024)``."""
+    the CPU, the cooperative ``tp_totals_scan_group_kernel`` (a group of
+    lanes per chunk total, a grid barrier between rounds) on CUDA. Returns
+    ``(V, 1024)``."""
     if _launch.dispatch_device("tp_totals_scan", prefixes) == "cpu":
         return totals_scan_plain(kind, prefixes)
-    _check_cuda("tp_totals_scan", kind, {"prefixes": prefixes})
+    D = _check_cuda("tp_totals_scan", kind, {"prefixes": prefixes})
     V = prefixes.shape[1]
     work = prefixes.new_empty((2, V, NC))
     out = prefixes.new_empty((V, NC))
     _launch.launch(tp_totals_scan, prefixes.device,
                    f"tp_totals_scan_{_launch.suffix(prefixes.dtype)}",
-                   _KIND_CODE[kind], prefixes[-1].data_ptr(), work.data_ptr(),
-                   out.data_ptr())
+                   _KIND_CODE[kind], D, prefixes[-1].data_ptr(),
+                   work.data_ptr(), out.data_ptr())
     return out
 
 
@@ -359,15 +378,17 @@ tp_totals_scan.launches = 0
 
 
 def tp_fixup(kind, prefixes, t_excl):
-    """Phase 3: the plain version on the CPU, ``tp_fixup_kernel`` (a thread
-    per element) on CUDA. Returns ``(L, V, 1024)``."""
+    """Phase 3: the plain version on the CPU, on CUDA ``tp_fixup_kernel`` (a
+    thread per element) at D = 8 and ``tp_fixup_group_kernel`` (a group of
+    lanes per element) at any other D. Returns ``(L, V, 1024)``."""
     if _launch.dispatch_device("tp_fixup", prefixes) == "cpu":
         return fixup_plain(kind, prefixes, t_excl)
-    _check_cuda("tp_fixup", kind, {"prefixes": prefixes, "t_excl": t_excl})
+    D = _check_cuda("tp_fixup", kind, {"prefixes": prefixes,
+                                       "t_excl": t_excl})
     out = torch.empty_like(prefixes)
     _launch.launch(tp_fixup, prefixes.device,
                    f"tp_fixup_{_launch.suffix(prefixes.dtype)}",
-                   _KIND_CODE[kind], prefixes.data_ptr(), t_excl.data_ptr(),
+                   _KIND_CODE[kind], D, prefixes.data_ptr(), t_excl.data_ptr(),
                    out.data_ptr(), prefixes.shape[0])
     return out
 

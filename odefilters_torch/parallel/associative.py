@@ -307,11 +307,22 @@ def _interp(x, xp, fp):
     return torch.where(x > xp[-1], fp[-1], f)
 
 
+def warm_start_order(q: int, device: torch.device) -> int:
+    """The order of the warm start's adaptive EK0 solve: min(q, 3), as in the
+    JAX package, where the single solve runs it on ``device``; else the
+    order it runs there (``ek1_adaptive.runnable_order``: 3 on the card,
+    ROADMAP.md queue 1, item 5): the warm start is only the first
+    linearization, which the sweeps replace."""
+    from odefilters_torch.ops.ek1_adaptive import runnable_order
+
+    return runnable_order(min(q, 3), device)
+
+
 def warm_start_trajectory(prob: ODEProblem, ts: torch.Tensor, warm_start: int,
                           q: int) -> torch.Tensor:
     """The linearization trajectory ``(N, d)`` at ``ts[1:]``: an adaptive
-    EK0 solve in float32 (order min(q, 3), abstol 1e-6, reltol 1e-3) saved
-    on ``ceil(N / warm_start)`` uniform intervals, by
+    EK0 solve in float32 (order `warm_start_order`, abstol 1e-6, reltol
+    1e-3) saved on ``ceil(N / warm_start)`` uniform intervals, by
     `odefilters_torch.solve_adaptive_single` (its kernel on the card),
     interpolated linearly. Entries that are not finite or exceed 1e6 (1 +
     max |u0|) fall back to u0."""
@@ -324,7 +335,8 @@ def warm_start_trajectory(prob: ODEProblem, ts: torch.Tensor, warm_start: int,
          else prob.u0.new_zeros((0,)))
     us_c = solve_adaptive_single(
         prob.f, prob.u0.float(), torch.atleast_1d(p).float(), (t0f, t1f), n_c,
-        q=min(q, 3), abstol=1e-6, reltol=1e-3, field=prob.field)[0]
+        q=warm_start_order(q, prob.u0.device), abstol=1e-6, reltol=1e-3,
+        field=prob.field)[0]
     coarse_u = us_c.to(ts.dtype)                          # (n_c + 1, d)
     ts_c = torch.linspace(t0f, t1f, n_c + 1, dtype=ts.dtype, device=ts.device)
     u_init = torch.stack([_interp(ts[1:], ts_c, coarse_u[:, i])
@@ -336,15 +348,15 @@ def warm_start_trajectory(prob: ODEProblem, ts: torch.Tensor, warm_start: int,
 
 
 def _check_fused_dim(prob, alg, block, on_card):
-    from odefilters_torch.ops.tp_scan import CUDA_D
+    from odefilters_torch.ops.tp_scan import CUDA_D_MAX
 
     D = prob.d * (alg.order + 1)
-    if on_card and block == "fused" and D != CUDA_D:
+    if on_card and block == "fused" and D > CUDA_D_MAX:
         raise NotImplementedError(
-            f"the fused scan kernels are built for state dimension D = "
-            f"d (q+1) = {CUDA_D} only, and this solve has D = {D} (ROADMAP.md "
-            "queue 1, item 5, 'Widen every kernel family'); pass block= a "
-            "chunk length (the blocked scan) or 0 (the plain scan)"
+            f"the fused scan kernels take state dimensions D = d (q+1) <= "
+            f"{CUDA_D_MAX}, and this solve has D = {D} (ROADMAP.md queue 1, "
+            "item 5, 'Widen every kernel family'); pass block= a chunk "
+            "length (the blocked scan) or 0 (the plain scan)"
         )
 
 
@@ -356,8 +368,9 @@ def resolve_options(prob: ODEProblem, alg: AbstractEK, n_steps: int, *,
     CUDA card the fused scan above 1024 grid points (windowed: at 1024
     steps a window or more) and a warm start; on the CPU the blocked scan
     at ``auto_block`` and a warm start for EK0 and DiagonalEK1 only
-    (windowed: none). On the card the fused scan needs the state dimension
-    its kernels are built for (``tp_scan.CUDA_D``)."""
+    (windowed: none). On the card the fused scan takes state dimensions
+    D = d (q+1) up to ``tp_scan.CUDA_D_MAX``; above it a solve that resolves
+    to the fused scan raises."""
     check_block(block)
     on_card = prob.u0.device.type == "cuda"
     if windows:

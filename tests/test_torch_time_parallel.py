@@ -449,9 +449,10 @@ def test_defaults_resolve_as_the_jax_package():
 
 
 def test_card_fused_default_needs_the_kernels_state_dimension():
-    """On the card the fused scan runs kernels built for D = 8 only: a
-    default that resolves to it at another D raises at once, naming the
-    ROADMAP item; a block length, or a short grid, runs the blocked scan."""
+    """On the card the fused scan's kernels take D = d (q+1) up to 16: a
+    default resolves to them at D = 6 and 12 as at 8, and at D = 18 it
+    raises at once, naming the ROADMAP item; a block length, or a short
+    grid, runs the blocked scan."""
     import types
 
     def card(d):
@@ -464,11 +465,16 @@ def test_card_fused_default_needs_the_kernels_state_dimension():
                           (card(3), EK1, {}),
                           (card(3), EK1, {"block": "fused"}),
                           (card(3), odt.EK0(order=3), {"windows": 16})):
+        assert pa.resolve_options(prob, alg, 16384, **kw) == ("fused", 8)
+    for prob, alg, kw in ((card(3), odt.EK1(order=5), {}),
+                          (card(3), odt.EK1(order=5), {"block": "fused"}),
+                          (card(2), odt.EK0(order=8), {"windows": 16})):
         with pytest.raises(NotImplementedError, match="item 5"):
             pa.resolve_options(prob, alg, 16384, **kw)
-    assert pa.resolve_options(card(3), EK1, 16384, block=128) == (128, 8)
-    assert pa.resolve_options(card(3), EK1, 1000)[0] == blocked.auto_block(
-        1000)
+    assert pa.resolve_options(card(3), odt.EK1(order=5), 16384,
+                              block=128) == (128, 8)
+    assert pa.resolve_options(card(3), odt.EK1(order=5), 1000)[0] == (
+        blocked.auto_block(1000))
 
 
 def test_argument_errors():
