@@ -82,9 +82,10 @@ Phases:
  15. the EK1 kernels vs plain in float64 at the shape of phase 3 with
      S = 3 numpy normals: the filter kernel (its means directly, its
      stream through the plain smoother; with a linearization trajectory;
-     fixed and fixedMAP with their sigma^2), the smoother kernel (a group
-     of 8 lanes a member) and the sampler kernel on the plain stream, the
-     smoother also bit for bit against its plain version;
+     fixed and fixedMAP with their sigma^2), the smoother and sampler
+     kernels (each a group of 8 lanes a member) on the plain stream, both
+     also bit for bit against their plain versions, the sampler at S = 8,
+     3 and 1 (the first S of 8 numpy normals);
  16. the same in float32;
  17. the EK1 paths at 8192 x 500, float32 and float64, with the kernels'
      launch counts: ``solve_ensemble`` with EK1 in each mode (smoother or
@@ -97,7 +98,8 @@ Phases:
      lanes (float64);
  18. the EK1 kernels against their plain versions at 8192 x 100 (the
      first 100 of the 500 steps) in float32 (S = 8 normals from
-     ``torch.randn``; the smoother bit for bit), then the timings of each
+     ``torch.randn``, and their first sample alone; the smoother and the
+     sampler bit for bit), then the timings of each
      kernel at 8192 x 500, each EK1 front door, and
      each plain version once (at 100 steps); registers and spills;
  19. the three adaptive EK0 kernels against their plain versions at 1000
@@ -152,8 +154,9 @@ Phases:
      for bit, the float64 calibration of one member tiled across the
      lanes as in phase 13, the doors' times);
  27. the four kernels against their plain versions at 8192 members in
-     float32 (the sampler at S = 8 with normals from ``torch.randn``), their
-     times, their bounds, and their registers and spills;
+     float32 (the sampler at S = 8 with normals from ``torch.randn``; the
+     EK1 smoother, a group of 8 lanes a member, bit for bit), their times,
+     their bounds, and their registers and spills;
  28. the three data-likelihood kernels against their plain versions at
      1000 members, Lotka-Volterra over (0, 3), T = 40, 9 observations on
      the grid and off it, float64 and float32: dll and ll held where the
@@ -279,7 +282,8 @@ Phases:
      (EK1(order=2) and EK1(order=5): all three group kernels, group sizes
      8 and 16) at N = 1024 and 3000, and at N = 1024 at D = 4
      (EK1(order=1)) and on synthetic elements at D = 2 and 3 (group sizes
-     2 and 4);
+     2 and 4), and at N = 2048 on synthetic elements at D = 18 and 32
+     (group size 32: a warp per combine);
  41. the global time-parallel door ``solve_fixed_parallel(prob,
      EK1(order=3), ts=linspace(0, 20, 16385), iterations=2)`` at the JAX
      package's time-parallel record, float64 and float32, each run with the
@@ -308,18 +312,24 @@ Phases:
      door's 64 totals scans summed (from the N = 1024 times, and their
      kernel time in one door call by ``torch.profiler``, with the count of
      launches it saw held at 64); the group kernels' times and bounds at
-     D = 4, 6 and 12; registers and spills;
+     D = 4, 6 and 12, and on synthetic elements at D = 18 and 32;
+     registers and spills;
  44. the card's default ``solve_fixed_parallel(prob, EK1(order=2))`` (D =
      6) at N = 16384, float64 and float32, each run with the counts set to
      0 before it and read after it: the defaults resolve to the fused scan
-     and the warm start (at order 3 on the card, the adaptive kernel's
-     order), 8 launches of each scan kernel (the default 4 sweeps) and 1 of
-     ``ek0_adaptive``; shapes, finite values; the float64 means against
+     and the warm start, 8 launches of each scan kernel (the default 4
+     sweeps) and 1 of ``ek0_adaptive``, at order 2 (min(q, 3), as in the
+     JAX package); shapes, finite values; the float64 means against
      DOP853 (``TP6_DOP853``), float32 against float64; then at N = 1024
      the float64 door against the sequential fixed-grid EK1(order=2)
      smoother's plain version on the host (``TP6_SEQ``), computed in a
      process of its own that starts with phase 40 and is stopped after
-     phase 44.
+     phase 44;
+ 45. the warm start's other orders: ``ek0_adaptive_kernel`` at q = 1 and
+     2 against its plain version at 1000 members over (0, 20), 20 save
+     intervals, abstol 1e-6, reltol 1e-4, float64 and float32, one launch
+     at that order, the counts equal on every member, us, stds and lls
+     bit for bit.
 
 The second-last line of the output names the card and its power limit;
 the line before it lists the thirty-five kernels with their launches on
@@ -741,6 +751,15 @@ class EK1Case:
         elif S is not None:
             g = torch.Generator(device=DEVICE).manual_seed(2)
             self.z = torch.randn(shape, generator=g, dtype=dtype, device=DEVICE)
+
+    def normals(self, S, seed):
+        """S standard normals ``(T+1, S, D, B)`` from numpy with ``seed``."""
+        from odefilters_torch import convert
+
+        T1, _, D, B = self.z.shape
+        z = np.random.default_rng(seed).standard_normal((T1, S, D, B))
+        return convert.ek1_normals_from_numpy(z, device=DEVICE,
+                                              dtype=self.z.dtype)
 
     def states_kernel(self, **kw):
         return self.e1.ek1_filter_states(self.prob.f, self.prob.jac,
@@ -1433,8 +1452,8 @@ def ek1_vs_plain(label, c, rtol, atol):
     """Phases 15-16: the filter kernel against the plain filter (its means
     directly, its stream through the plain smoother; with a linearization
     trajectory; fixed and fixedMAP with their sigma^2), the smoother kernel
-    and the sampler kernel on the plain stream against their plain
-    versions."""
+    and the sampler kernel (S = 8, 3 and 1) on the plain stream against
+    their plain versions, both bit for bit."""
     st_p, st_k = c.states_plain(), c.states_kernel()
     torch.cuda.synchronize()
     name = f"{label} ek1_filter_states_kernel"
@@ -1458,10 +1477,19 @@ def ek1_vs_plain(label, c, rtol, atol):
           rtol, atol)
     hold_smoother_bits(f"{label} ekd_smoother_kernel on the plain stream",
                        (us_k, sd_k), (us_p, sd_p))
-    x_k = c.sampler_kernel(st_p)
-    torch.cuda.synchronize()
-    close(f"{label} ekd_sampler_kernel on the plain stream, samples (S="
-          f"{c.z.shape[1]})", x_k, c.sampler_plain(st_p), rtol, atol)
+    # the sampler at S = 8, 3 and 1 on the first S of 8 numpy normals: a
+    # launch forms each step's gain and conditional factor once for all
+    # its samples; the plain version's samples do not depend on one
+    # another, so its first S of the 8 are its output at S
+    z8 = c.normals(8, 4)
+    x_p = c.sampler_plain(st_p, z8)
+    for S in (8, 3, 1):
+        x_k = c.sampler_kernel(st_p, z8[:, :S].contiguous())
+        torch.cuda.synchronize()
+        what = f"{label} ekd_sampler_kernel on the plain stream, samples (S={S})"
+        close(what, x_k, x_p[:, :S], rtol, atol)
+        bitwise(f"{what} against the plain version", x_k, x_p[:, :S],
+                strict=True)
     lin = us_p.contiguous()
     st_lp, st_lk = c.states_plain(lin=lin), c.states_kernel(lin=lin)
     torch.cuda.synchronize()
@@ -1675,8 +1703,9 @@ EK1_PLAIN_T = 100
 
 def ek1_timing(odt, card, built):
     """Phase 18: the EK1 kernels against their plain versions at 8192 x
-    EK1_PLAIN_T in float32 (normals from ``torch.randn``, S = S_MAIN; the
-    smoother bit for bit), then the timings of each kernel at 8192 x 500,
+    EK1_PLAIN_T in float32 (normals from ``torch.randn``, S = S_MAIN and 1;
+    the smoother and the sampler bit for bit), then the timings of each
+    kernel at 8192 x 500,
     each front door and each plain version once, and the kernels' registers
     and spills. Returns the kernels' (ms, plain ms, max |kernel - plain|)."""
     t0, t1 = TSPAN_MAIN
@@ -1690,10 +1719,16 @@ def ek1_timing(odt, card, built):
     us_kp, sd_kp = c.smoother_kernel(st_p)
     us_kk, sd_kk = c.smoother_kernel(st_k)
     x_kp = c.sampler_kernel(st_p)
+    x1_kp = c.sampler_kernel(st_p, c.z[:, :1].contiguous())
     torch.cuda.synchronize()
     head = f"f32 at {B_MAIN} x {EK1_PLAIN_T}"
     hold_smoother_bits(f"{head} ekd_smoother_kernel on the plain stream",
                        (us_kp, sd_kp), (us_pp, sd_pp))
+    # the plain samples do not depend on one another: its first of the
+    # S_MAIN is its output at S = 1
+    for S, got, ref in ((S_MAIN, x_kp, x_pp), (1, x1_kp, x_pp[:, :1])):
+        bitwise(f"{head} ekd_sampler_kernel on the plain stream, samples "
+                f"(S={S}) against the plain version", got, ref, strict=True)
     rtol, atol = 1e-4, 1e-6
     err = {
         "ek1_filter_states": max(
@@ -1712,7 +1747,8 @@ def ek1_timing(odt, card, built):
             f"{head} ekd_sampler_kernel on the plain stream, samples (S="
             f"{S_MAIN})", x_kp, x_pp, rtol, atol),
     }
-    del x_pp, x_kp, us_kk, sd_kk, us_pp, sd_pp, us_kp, sd_kp, c, st_p, st_k
+    del x_pp, x_kp, x1_kp, us_kk, sd_kk, us_pp, sd_pp, us_kp, sd_kp
+    del c, st_p, st_k
 
     say(f"   timing, float32, B={B_MAIN}, T={T_MAIN}: CUDA events; card: {card}")
     c = EK1Case(B_MAIN, T_MAIN, torch.float32, TSPAN_MAIN, S_MAIN,
@@ -2033,7 +2069,7 @@ def bitwise(name, got, ref, strict=False):
         say(f"   {text}")
 
 
-def adaptive_vs_plain(label, case, rtol, strict=False):
+def adaptive_vs_plain(label, case, rtol, strict=False, strict_smoother=False):
     """Phases 19, 21, 22 and 24: each adaptive kernel of ``case`` (EK0 or
     DiagonalEK1) against its plain version on the same inputs: the counts
     on every member, the outputs at ``rtol`` relative (bit-for-bit
@@ -2041,7 +2077,7 @@ def adaptive_vs_plain(label, case, rtol, strict=False):
     on its accepted rows directly, the smoother kernel on the plain stream.
     Returns each kernel's largest |kernel - plain| and the plain versions'
     milliseconds. ``strict``: bit-for-bit equality is checked, not only
-    reported."""
+    reported (``strict_smoother``: the smoother kernel's only)."""
     n_filter, n_stream, n_smoother = case.names
     (us_p, sd_p, ll_p, cn_p), f_ms = once(case.filter_plain)
     (st_p, ls_p, cs_p), s_ms = once(case.stream_plain)
@@ -2074,8 +2110,8 @@ def adaptive_vs_plain(label, case, rtol, strict=False):
     err[n_smoother] = max(
         close(f"{name}, us", usm_kp, usm_p, rtol, 0.0),
         close(f"{name}, stds", sdm_kp, sdm_p, rtol, 0.0))
-    bitwise(f"{name}, us", usm_kp, usm_p, strict)
-    bitwise(f"{name}, stds", sdm_kp, sdm_p, strict)
+    bitwise(f"{name}, us", usm_kp, usm_p, strict or strict_smoother)
+    bitwise(f"{name}, stds", sdm_kp, sdm_p, strict or strict_smoother)
     return err, {n_filter: f_ms, n_stream: s_ms, n_smoother: m_ms}
 
 
@@ -2286,6 +2322,11 @@ def ptxas_usage(log):
 # kernels at D = 8: the one-thread chunk scan and fixup, the group totals
 # scan (8 lanes a total, D known at compile time).
 KERNEL_SYMBOL = {
+    # the main path's instantiations: the sampler at 8 samples a launch
+    # (float, NQ = 4, DIM = 2, 32 members a CTA, SC = 8), the adaptive EK0
+    # filter at q = 3
+    "ekd_sampler": ("ekd_sampler_kernelIfLi4ELi2ELi32ELi8E", None),
+    "ek0_adaptive": ("ek0_adaptive_kernelIfLi4E", None),
     "tp_chunk_scan": ("tp_chunk_scan_kernelIfNS_10FilterKind",
                       "_ZN2tp14filter_combineIfLi8E"),
     "tp_totals_scan": ("tp_totals_scan_group_kernelIfLi8ELb1ELi8E",
@@ -2430,15 +2471,17 @@ def adaptive_sampler_timing(card):
     return ms, plain_ms, err, b + (ops,)
 
 
-def adaptive_timing(card, case_cls=AdaptiveCase):
-    """Phases 21 and 24: the three adaptive kernels of ``case_cls`` against
-    their plain versions at 8192 members in float32 (each plain version run
-    once), then each kernel's time and its bound from this run's counts.
+def adaptive_timing(card, case_cls=AdaptiveCase, strict_smoother=False):
+    """Phases 21, 24 and 27: the three adaptive kernels of ``case_cls``
+    against their plain versions at 8192 members in float32 (each plain
+    version run once; with ``strict_smoother`` the smoother kernel bit for
+    bit), then each kernel's time and its bound from this run's counts.
     Returns (ms, plain ms, max |kernel - plain|, {name: (bound_ms, bound_by,
     ops per unit)})."""
     n_filter, n_stream, n_smoother = case_cls.names
     case = case_cls(B_MAIN, torch.float32)
-    err, plain_ms = adaptive_vs_plain(f"f32 at {B_MAIN}", case, 1e-5)
+    err, plain_ms = adaptive_vs_plain(f"f32 at {B_MAIN}", case, 1e-5,
+                                      strict_smoother=strict_smoother)
     us, sd, _, cn = case.filter_kernel()
     st, _, cs = case.stream_kernel()
     torch.cuda.synchronize()
@@ -4334,6 +4377,11 @@ TP_DIMS, TP_DIM_NS = ((6, 2), (12, 5)), (1024, 3000)
 # with EK1(order=1) (D = 4), G = 2 and 4 by synthetic conditioned elements
 # at D = 2 and 3 (no model of the library has d = 1 or 3)
 TP_SMALL_DIMS, TP_SYNTH_DIMS, TP_SMALL_N = ((4, 1),), (2, 3), 1024
+# and group size 32 (17 <= D <= 32; Lorenz-63 at q = 5 is D = 18) by
+# synthetic conditioned elements at D = 18 and 32, N = 2048 (two chunk
+# rows, so that the chunk scan combines too); timed in phase 43 at N =
+# 16384 (the plain combines at D = 32 take ~1 s each on the card)
+TP_WIDE_DIMS, TP_WIDE_N = (18, 32), 2048
 # phase 44: the card's default door at D = 6, EK1(order=2), its default
 # iterations: the float64 means held within TP6_DOP853 of DOP853 at N =
 # 16384, and at N = 1024 within TP6_SEQ of the sequential fixed-grid
@@ -4604,13 +4652,15 @@ def tp_dim_door(odt, seq):
     EK1(order=2))`` (D = 6) at N = 16384 in float64 and float32, each run
     with the counts set to 0 before it and read after it: the defaults
     resolve to the fused scan and the warm start, 2 launches of each scan
-    kernel a sweep and 1 of ``ek0_adaptive``; shapes, finite values; float64
+    kernel a sweep and 1 of ``ek0_adaptive`` at order 2 (min(q, 3), as in
+    the JAX package); shapes, finite values; float64
     against DOP853, float32 against float64; then the float64 door at N =
     TP6_SEQ_N against the sequential fixed-grid EK1(order=2) smoother (its
     plain version on the host, ``seq``: a future of `tp_seq_host`).
     Returns the float32 run's launches."""
     import inspect
 
+    from odefilters_torch.ops import ek0_adaptive as ea
     from odefilters_torch.parallel import associative as pa
 
     alg = odt.EK1(order=TP6_Q)
@@ -4629,12 +4679,17 @@ def tp_dim_door(odt, seq):
               f"{label}: the defaults resolve to block={block!r}, "
               f"warm_start={ws} (expected 'fused', 8)")
         reset_counts()
+        by_order = dict(ea.ek0_adaptive.launches_by_order)
         out, d_ms = once(lambda: odt.solve_fixed_parallel(prob, alg, ts=ts))
         n = read_counts(*TP_NAMES, "ek0_adaptive")
-        check(all(n[k] == scans for k in TP_NAMES) and n["ek0_adaptive"] == 1,
+        warm = {q: ea.ek0_adaptive.launches_by_order[q] - by_order[q]
+                for q in by_order}
+        check(all(n[k] == scans for k in TP_NAMES) and n["ek0_adaptive"] == 1
+              and warm[TP6_Q] == 1,
               f"{label}: launches {n} ({d_ms:.1f} ms, the first call): "
               f"{scans} of each scan kernel ({iters} sweeps) and 1 of "
-              "ek0_adaptive (the warm start)")
+              f"ek0_adaptive (the warm start), at order {TP6_Q} as in the JAX "
+              f"package (by order: {warm})")
         u, u_std, means, covs, sigma2 = out
         check(tuple(u.shape) == (N + 1, 2) and u_std.shape == u.shape
               and tuple(covs.shape) == (N + 1, D, D)
@@ -4862,9 +4917,14 @@ def tp_timing(odt, card):
         f"{est:.3f} ms; summed in one door call by torch.profiler: "
         + ("not measured" if prof_ms is None else f"{prof_ms:.3f} ms")
         + f" (card: {card})")
-    # the group kernels at the other state dimensions (D != 8: all three)
-    for D, q in TP_DIMS + TP_SMALL_DIMS:
-        fd, sd = tp_elements(prob, odt.EK1(order=q), ts, u_lin, plain=False)
+    # the group kernels at the other state dimensions (D != 8: all three),
+    # the solver's elements, and synthetic ones at group size 32
+    wide = [(D, tuple(tp_synth_elements(k, TP_N, D, torch.float32, 200 + D)
+                      for k in ("filter", "smooth")))
+            for D in TP_WIDE_DIMS]
+    for D, (fd, sd) in [(D, tp_elements(prob, odt.EK1(order=q), ts, u_lin,
+                                        plain=False))
+                        for D, q in TP_DIMS + TP_SMALL_DIMS] + wide:
         ops_k = {"filter": tp_combine_ops("filter", D),
                  "smooth": tp_combine_ops("smooth", D)}
         for kind, el in (("filter", fd), ("smooth", sd)):
@@ -4912,7 +4972,8 @@ def tp_phases_on_card(odt, card, built, seq):
         "elements (EK1 linearized along DOP853's solution), forward and "
         f"reversed; and at (D, q) in {TP_DIMS}, N in {TP_DIM_NS}; at (D, q) "
         f"in {TP_SMALL_DIMS} and D in {TP_SYNTH_DIMS} (synthetic), "
-        f"N={TP_SMALL_N}")
+        f"N={TP_SMALL_N}; D in {TP_WIDE_DIMS} (synthetic, group size 32), "
+        f"N={TP_WIDE_N}")
     prob64, ts64 = tp_problem(torch.float64)
     truth = tp_reference(prob64, ts64)[1:]
     for N in TP_CHECK_NS:
@@ -4944,12 +5005,12 @@ def tp_phases_on_card(odt, card, built, seq):
             for kind, el in (("filter", fe), ("smooth", se)):
                 tp_vs_plain(f"{str(dtype)[6:]} D={D} N={TP_SMALL_N} {kind}",
                             kind, el)
-        for D in TP_SYNTH_DIMS:
+        for D, N in ([(D, TP_SMALL_N) for D in TP_SYNTH_DIMS]
+                     + [(D, TP_WIDE_N) for D in TP_WIDE_DIMS]):
             for kind in ("filter", "smooth"):
-                tp_vs_plain(f"{str(dtype)[6:]} D={D} N={TP_SMALL_N} {kind} "
+                tp_vs_plain(f"{str(dtype)[6:]} D={D} N={N} {kind} "
                             "(synthetic elements)", kind,
-                            tp_synth_elements(kind, TP_SMALL_N, D, dtype,
-                                              100 + D))
+                            tp_synth_elements(kind, N, D, dtype, 100 + D))
     say(f"== 41. the global time-parallel path: solve_fixed_parallel("
         f"EK1(order={Q})), FitzHugh-Nagumo over {TP_TSPAN}, N={TP_N}, "
         f"iterations={TP_ITERS}, float64 and float32")
@@ -4960,7 +5021,7 @@ def tp_phases_on_card(odt, card, built, seq):
     tp_path(odt, ek1=False)
     say(f"== 43. the time-parallel kernels vs plain and timing, float32, "
         f"N={TP_N} (and the totals scan at N={TP_WINDOW_N}; D in "
-        f"{tuple(D for D, _ in TP_DIMS + TP_SMALL_DIMS)})")
+        f"{tuple(D for D, _ in TP_DIMS + TP_SMALL_DIMS) + TP_WIDE_DIMS})")
     ms, p_ms, err, bounds = tp_timing(odt, card)
     # each entry's lines end with its combine's (compiled into every entry)
     print_registers(built["log"], TP_NAMES + TP_GROUP_NAMES, only="If")
@@ -4970,6 +5031,43 @@ def tp_phases_on_card(odt, card, built, seq):
         "smoother")
     tp_dim_door(odt, seq)
     return launches, ms, p_ms, err, bounds
+
+
+# phase 45: the adaptive EK0 kernel at the orders that the time-parallel
+# solves' warm start runs besides 3 (min(q, 3) for q = 1, 2)
+WARM_ORDERS = (1, 2)
+
+
+def warm_orders_vs_plain():
+    """Phase 45: ``ek0_adaptive_kernel`` at q = 1 and 2 against its plain
+    version at B_CHECK members over TSPAN_ADA (S_ADA save intervals,
+    ADA_TOL), float64 and float32: one launch at that order, the counts
+    equal on every member, us, stds and lls bit for bit."""
+    from odefilters_torch.ops import ek0_adaptive as ea
+
+    for q in WARM_ORDERS:
+        for dtype in (torch.float64, torch.float32):
+            label = f"{str(dtype)[6:]} ek0_adaptive_kernel at q={q}"
+            prob, u0s, ps = inputs(B_CHECK, dtype, TSPAN_ADA)
+            m0, ps_t, dt0s = ea._init(prob.f, u0s, ps, TSPAN_ADA, q,
+                                      **ADA_TOL)
+            c = ea.controller(q, *TSPAN_ADA, S_ADA, dtype,
+                              max_iters=MAX_ITERS_FILTER, **ADA_TOL)
+            (us_p, sd_p, ll_p, cn_p), p_ms = once(
+                lambda: ea.ek0_adaptive_plain(prob.f, m0, ps_t, dt0s, c))
+            before = ea.ek0_adaptive.launches_by_order[q]
+            us_k, sd_k, ll_k, cn_k = ea.ek0_adaptive(prob.f, prob.field, m0,
+                                                     ps_t, dt0s, c)
+            torch.cuda.synchronize()
+            n = ea.ek0_adaptive.launches_by_order[q] - before
+            check(n == 1, f"{label}: {n} launch at order {q} (1 expected)")
+            same_counts(label, cn_k, cn_p)
+            for what, got, ref in (("us", us_k, us_p), ("stds", sd_k, sd_p),
+                                   ("lls", ll_k, ll_p)):
+                bitwise(f"{label}, {what} against the plain version", got,
+                        ref, strict=True)
+            say(f"   {label}: {int(cn_k[0].min())} to {int(cn_k[0].max())} "
+                f"accepted steps a member; plain version {p_ms:.1f} ms (once)")
 
 
 def main() -> int:
@@ -5237,12 +5335,12 @@ def main() -> int:
     static_path(odt, card)
 
     say(f"== 15. EK1 kernels vs plain, float64, B={B_CHECK}, T={T_CHECK}, "
-        f"S={S_CHECK}")
+        f"S = 8, 3 and 1")
     ek1_vs_plain("f64", EK1Case(B_CHECK, T_CHECK, torch.float64, TSPAN_CHECK,
                                 S_CHECK), rtol=1e-10, atol=1e-12)
 
     say(f"== 16. EK1 kernels vs plain, float32, B={B_CHECK}, T={T_CHECK}, "
-        f"S={S_CHECK}")
+        f"S = 8, 3 and 1")
     ek1_vs_plain("f32", EK1Case(B_CHECK, T_CHECK, torch.float32, TSPAN_CHECK,
                                 S_CHECK), rtol=1e-4, atol=1e-6)
 
@@ -5309,8 +5407,8 @@ def main() -> int:
 
     say(f"== 27. the four new kernels vs plain and timing, float32, "
         f"B={B_MAIN}")
-    ea_ms, ea_plain_ms, ea_err, ea_bounds = adaptive_timing(card,
-                                                            EK1AdaptiveCase)
+    ea_ms, ea_plain_ms, ea_err, ea_bounds = adaptive_timing(
+        card, EK1AdaptiveCase, strict_smoother=True)
     sm_ms, sm_plain_ms, sm_err, sm_bound = adaptive_sampler_timing(card)
     print_registers(built["log"], ("ek1_adaptive", "ek1_adaptive_stream",
                                    "ek1_adaptive_smoother",
@@ -5331,6 +5429,10 @@ def main() -> int:
     tp_launches, tp_ms, tp_plain_ms, tp_err, tp_bounds = tp_phases(
         odt, card, built)
     launches.update(tp_launches)
+    say(f"== 45. the warm start's orders: ek0_adaptive_kernel at q in "
+        f"{WARM_ORDERS} vs plain, B={B_CHECK}, tspan={TSPAN_ADA}, {S_ADA} "
+        f"save intervals, {ADA_TOL}, float64 and float32, bit for bit")
+    warm_orders_vs_plain()
 
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))

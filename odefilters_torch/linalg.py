@@ -23,6 +23,8 @@ may reassociate, so the two packages agree to rounding, not bit for bit.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # matmul_unrolled unrolls products up to this size in every dimension
@@ -73,13 +75,14 @@ def solve_triangular_unrolled(A: torch.Tensor, B: torch.Tensor, *,
     return torch.stack([xs[i] for i in range(D)], dim=-2)
 
 
-def matmul_unrolled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_unrolled(a: torch.Tensor, b: torch.Tensor, *,
+                    max_unroll: Optional[int] = UNROLL_MAX) -> torch.Tensor:
     """``a @ b`` with each entry summed over k in index order, ``a_0 b_0 +
-    a_1 b_1 + ...``, leading dimensions broadcast (above ``UNROLL_MAX`` in
-    any dimension, ``a @ b``)."""
+    a_1 b_1 + ...``, leading dimensions broadcast (above ``max_unroll`` in
+    any dimension, ``a @ b``; ``None``: unrolled at every size)."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    if max(m, k, n) > UNROLL_MAX:
+    if max_unroll is not None and max(m, k, n) > max_unroll:
         return a @ b
     s = a[..., :, 0:1] * b[..., 0:1, :]
     for kk in range(1, k):

@@ -26,12 +26,13 @@ SOURCES = ("ek1_datalik.cu", "ek1_adaptive.cu", "ek1_fused.cu",
            "ek0_datalik_pd.cu", "ek1d.cu", "ek0_adaptive.cu", "ek0_datalik.cu",
            "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu", "kron_grid.cu",
            "tp_scan.cu", "tp_scan_f64.cu", "tp_group.cu", "tp_group_f64.cu",
-           "tp_group16.cu", "tp_group16_f64.cu")
+           "tp_group16.cu", "tp_group16_f64.cu", "tp_group32.cu",
+           "tp_group32_f64.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
            "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
            "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh",
            "cooperative.cuh", "kron_grid.cuh", "tp_scan.cuh", "group_mgs.cuh",
-           "tp_group.cuh", "ek1_group.cuh")
+           "tp_group.cuh", "ek1_group.cuh", "ek1_adaptive_group.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -80,7 +81,9 @@ SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "tp_group.cu": ("-fmad=false",),
                 "tp_group_f64.cu": ("-fmad=false",),
                 "tp_group16.cu": ("-fmad=false",),
-                "tp_group16_f64.cu": ("-fmad=false",)}
+                "tp_group16_f64.cu": ("-fmad=false",),
+                "tp_group32.cu": ("-fmad=false",),
+                "tp_group32_f64.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,8 +103,8 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                     consts)
 # ekd_smoother: (stream_in, us, stds, B, T, consts)
 # ekd_sampler: (stream_in, normals, out, B, T, S, consts)
-# ek0_adaptive: (m0, ps, dt0s, us, stds, lls, counts, B, n_save, max_iters,
-#                consts)
+# ek0_adaptive (per order, ORDER_FIELD_ENTRIES): (m0, ps, dt0s, us, stds,
+#                lls, counts, B, n_save, max_iters, consts)
 # ek0_adaptive_stream: (m0, ps, dt0s, stream_out, lls, counts, B, n_save,
 #                       max_iters, consts)
 # ek0_adaptive_smoother: (stream_in, counts, m0, us, stds, B, n_save,
@@ -140,8 +143,8 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                prefixes, t_excl, out, L); tp_chunk_scan_d8,
 #                tp_fixup_d8: as those without D, the one-thread kernels
 #                at D = 8;
-#                tp_group16: (op, kind, D, a, b, work, out, L), the three
-#                group kernels at group size 16
+#                tp_group16, tp_group32: (op, kind, D, a, b, work, out,
+#                L), the three group kernels at group size 16, 32
 FIELD_ENTRIES = {
     "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
     "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
@@ -149,7 +152,6 @@ FIELD_ENTRIES = {
     "ek0_filter_grad_bwd": (_P,) * 7 + (_I, _I, _D, _P),
     "ek0_filter_states": (_P, _P, _P, _I, _I, _D, _P),
     "ek1_filter_states": (_P,) * 5 + (_I,) * 4 + (_D, _P),
-    "ek0_adaptive": (_P,) * 7 + (_I, _I, _I, _D, _P),
     "ek0_adaptive_stream": (_P,) * 6 + (_I, _I, _I, _D, _P),
     "ek1d_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
     "ek1d_adaptive": (_P,) * 7 + (_I, _I, _I, _D, _P),
@@ -183,12 +185,24 @@ PLAIN_ENTRIES = {
     "tp_chunk_scan_d8": (_I, _P, _P, _I, _P),
     "tp_fixup_d8": (_I, _P, _P, _P, _I, _P),
     "tp_group16": (_I, _I, _I, _P, _P, _P, _P, _I, _P),
+    "tp_group32": (_I, _I, _I, _P, _P, _P, _P, _I, _P),
+}
+# Those built at several orders q, once per order and field, named
+# ``<kernel>_q<q>_<field>_<dtype>``: the adaptive EK0 filter at q = 1, 2, 3
+# (the time-parallel solves' warm start runs it at min(q, 3)); every other
+# kernel is built at q = 3 only (_launch.kernel_orders).
+ORDER_FIELD_ENTRIES = {
+    "ek0_adaptive": ((1, 2, 3), (_P,) * 7 + (_I, _I, _I, _D, _P)),
 }
 ENTRIES = {"kron_grid_sync_probe": (_I, _I, _P)}
 for _s in ("f32", "f64"):
     for _name, _args in FIELD_ENTRIES.items():
         for _field in ("fhn", "lv"):
             ENTRIES[f"{_name}_{_field}_{_s}"] = _args
+    for _name, (_orders, _args) in ORDER_FIELD_ENTRIES.items():
+        for _q in _orders:
+            for _field in ("fhn", "lv"):
+                ENTRIES[f"{_name}_q{_q}_{_field}_{_s}"] = _args
     for _name, _args in PLAIN_ENTRIES.items():
         ENTRIES[f"{_name}_{_s}"] = _args
 

@@ -27,8 +27,31 @@ CUDA_JAC_DIAG_FIELDS = frozenset({"fhn", "lv"})
 # CUDA grid stencils of the Kron-grid kernels: name -> species ns (square
 # (N, N) grids; the diffusivity is the solve's p).
 CUDA_GRID_FIELDS = {"brusselator_2d": 2}
-# The kernels are instantiated for this order only (nq = 4).
-CUDA_ORDERS = (3,)
+# The orders q (nq = q + 1) each kernel family is instantiated for, by its
+# wrapper's name (_build.ORDER_FIELD_ENTRIES): the adaptive EK0 filter,
+# which the time-parallel solves' warm start runs at min(q, 3) as the JAX
+# package does, at q = 1, 2, 3; every other family at q = 3 only
+# (ROADMAP.md queue 1, item 5).
+CUDA_ORDERS = {name: orders
+               for name, (orders, _) in _build.ORDER_FIELD_ENTRIES.items()}
+DEFAULT_ORDERS = (3,)
+
+
+def kernel_orders(name: str) -> tuple:
+    """The orders q that the kernel family of wrapper ``name`` is built
+    for."""
+    return CUDA_ORDERS.get(name, DEFAULT_ORDERS)
+
+
+def check_order(name: str, nq: int) -> None:
+    """Raise ``NotImplementedError`` unless the kernel family of wrapper
+    ``name`` is built for order ``nq - 1``."""
+    if nq - 1 not in kernel_orders(name):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is built for the orders q in "
+            f"{kernel_orders(name)}, got q = {nq - 1} (ROADMAP.md queue 1, "
+            "item 5, 'Widen every kernel family')"
+        )
 
 
 def dispatch_device(name: str, t: torch.Tensor) -> str:
@@ -59,10 +82,10 @@ def check_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype):
 def check_field(name: str, field: Optional[str], nq: int, d: int, B: int,
                 ps: torch.Tensor, need_jac: bool = False,
                 need_jac_diag: bool = False) -> None:
-    """Raise unless the kernels are built for vector field ``field`` at
-    order ``nq - 1``, with ``ps`` of shape ``(n_params, B)``, and (with
-    ``need_jac`` / ``need_jac_diag``) the field has a CUDA Jacobian / a
-    CUDA Jacobian diagonal."""
+    """Raise unless the kernels of wrapper ``name`` are built for vector
+    field ``field`` at order ``nq - 1`` (`check_order`), with ``ps`` of
+    shape ``(n_params, B)``, and (with ``need_jac`` / ``need_jac_diag``)
+    the field has a CUDA Jacobian / a CUDA Jacobian diagonal."""
     if field not in CUDA_FIELDS:
         raise NotImplementedError(
             f"no CUDA vector field {field!r}; the kernels are built for "
@@ -79,12 +102,13 @@ def check_field(name: str, field: Optional[str], nq: int, d: int, B: int,
             f"diagonal; the DiagonalEK1 kernels evaluate one in the kernel "
             f"({sorted(CUDA_JAC_DIAG_FIELDS)})"
         )
+    check_order(name, nq)
     d_f, n_params = CUDA_FIELDS[field]
-    if nq - 1 not in CUDA_ORDERS or d != d_f or tuple(ps.shape) != (n_params, B):
+    if d != d_f or tuple(ps.shape) != (n_params, B):
         raise ValueError(
-            f"{name}: field {field!r} takes m0_p (nq, {d_f}, B) with "
-            f"nq - 1 in {CUDA_ORDERS} and ps ({n_params}, B); got "
-            f"nq={nq}, d={d}, B={B} and ps {tuple(ps.shape)}"
+            f"{name}: field {field!r} takes m0_p (nq, {d_f}, B) and ps "
+            f"({n_params}, B); got nq={nq}, d={d}, B={B} and ps "
+            f"{tuple(ps.shape)}"
         )
 
 

@@ -305,19 +305,30 @@ int launch_sampler(const void* st, const void* counts, const void* m0,
 
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). Each
 // launches on the given stream, does not synchronise, and returns
-// cudaGetLastError() after the launch. Instantiated for q = 3 (NQ = 4),
-// d = 2, and the FHN and LV fields for the forwards. consts: At, QLt (NQ*NQ
+// cudaGetLastError() after the launch. Instantiated for d = 2, the filter
+// at q = 1, 2, 3 (NQ = 2, 3, 4: the time-parallel solves' warm start runs
+// it at min(q, 3), as the JAX package does), the other three kernels at
+// q = 3, and the FHN and LV fields for the forwards. consts: At, QLt (NQ*NQ
 // each), then qbx, t0, dt_save, abstol, reltol, dtmin, beta1, beta2.
 extern "C" {
 
+// the filter's arguments, and their names, in each order's entry
+#define EK0_ADAPTIVE_FILTER_ARGS                                             \
+  const void* m0, const void* ps, const void* dt0s, void* us, void* stds,   \
+      void* lls, void* counts, int B, int n_save, int max_iters,            \
+      const double* consts, void* stream
+#define EK0_ADAPTIVE_FILTER_PASS                                             \
+  m0, ps, dt0s, us, stds, lls, counts, B, n_save, max_iters, consts, stream
+
 #define EK0_ADAPTIVE_ENTRIES(NAME, FIELD, S, SUF)                             \
-  int ek0_adaptive_##NAME##_##SUF(                                             \
-      const void* m0, const void* ps, const void* dt0s, void* us,           \
-      void* stds, void* lls, void* counts, int B, int n_save,               \
-      int max_iters, const double* consts, void* stream) {                  \
-    return launch_filter<S, 4, FIELD<S>>(m0, ps, dt0s, us, stds, lls,       \
-                                         counts, B, n_save, max_iters,      \
-                                         consts, stream);                   \
+  int ek0_adaptive_q1_##NAME##_##SUF(EK0_ADAPTIVE_FILTER_ARGS) {             \
+    return launch_filter<S, 2, FIELD<S>>(EK0_ADAPTIVE_FILTER_PASS);         \
+  }                                                                         \
+  int ek0_adaptive_q2_##NAME##_##SUF(EK0_ADAPTIVE_FILTER_ARGS) {             \
+    return launch_filter<S, 3, FIELD<S>>(EK0_ADAPTIVE_FILTER_PASS);         \
+  }                                                                         \
+  int ek0_adaptive_q3_##NAME##_##SUF(EK0_ADAPTIVE_FILTER_ARGS) {             \
+    return launch_filter<S, 4, FIELD<S>>(EK0_ADAPTIVE_FILTER_PASS);         \
   }                                                                         \
   int ek0_adaptive_stream_##NAME##_##SUF(                                      \
       const void* m0, const void* ps, const void* dt0s, void* st,           \
@@ -334,6 +345,8 @@ EK0_ADAPTIVE_ENTRIES(lv, LotkaVolterra, float, f32)
 EK0_ADAPTIVE_ENTRIES(lv, LotkaVolterra, double, f64)
 
 #undef EK0_ADAPTIVE_ENTRIES
+#undef EK0_ADAPTIVE_FILTER_ARGS
+#undef EK0_ADAPTIVE_FILTER_PASS
 
 int ek0_adaptive_smoother_f32(const void* st, const void* counts,
                               const void* m0, void* us, void* stds, int B,

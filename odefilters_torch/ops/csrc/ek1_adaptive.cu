@@ -13,35 +13,44 @@
 //                                   accepted steps).
 // Their plain PyTorch versions, in the same order of operations, and the
 // Python wrappers are in odefilters_torch/ops/ek1_adaptive.py; the
-// per-member bodies are in ek1_adaptive.cuh, the step in ek1_fused.cuh and
-// the loop's begin and control in ek0_adaptive.cuh.
+// forwards' per-member bodies are in ek1_adaptive.cuh, the step in
+// ek1_fused.cuh and the loop's begin and control in ek0_adaptive.cuh; the
+// smoother's group body in ek1_adaptive_group.cuh.
 //
-// Design: one thread per ensemble member, its state in registers (and what
-// does not fit, in local memory) for the whole step loop, 64 threads a
-// block, any B >= 1. The TPU kernels step a block of 1024 lanes in lockstep
-// and stream one row per block attempt, rejected and idle rows included;
-// here each thread runs its own loop, writes its save rows when its
-// accepted step reaches them, and streams only its accepted steps, at row
-// nacc - 1 of a (max_iters, 75, B) stream (mean, factor, log dt_eff, s2,
-// save index; B contiguous). The backward thread walks rows nacc - 1 .. 0 of
-// its member without masks, recomputing each interval's predicted factor
-// by the forward's Gram-Schmidt instead of streaming it.
+// Design (the forwards): one thread per ensemble member, its state in
+// registers (and what does not fit, in local memory) for the whole step
+// loop, 64 threads a block, any B >= 1. The TPU kernels step a block of
+// 1024 lanes in lockstep and stream one row per block attempt, rejected
+// and idle rows included; here each thread runs its own loop, writes its
+// save rows when its accepted step reaches them, and streams only its
+// accepted steps, at row nacc - 1 of a (max_iters, 75, B) stream (mean,
+// factor, log dt_eff, s2, save index; B contiguous). The smoother spreads
+// a member over NQ DIM = 8 lanes (ek1_adaptive_group.cuh), as the
+// fixed-grid EK1 smoother does (ek1_group.cuh): a lane owns a row of the
+// factors and of the gain and a column of each Gram-Schmidt stack, 32
+// float32 (16 float64) members a CTA. Each member walks rows nacc - 1 .. 0
+// of its own stream without masks, recomputing each interval's predicted
+// factor by the forward's Gram-Schmidt instead of streaming it; its lanes
+// load its row together and synchronise among themselves only, so that
+// members that end early do not wait for the others.
 //
 // What bounds them (8192 members over (0, 20), 20 save intervals, abstol
 // 1e-6, reltol 1e-4, float32): each attempt is the fixed-grid EK1 step,
 // several thousand dependent operations (Gram-Schmidt on a 16 x 8 stack,
 // the d x d Choleskys, the gain), and each smoothing step more (two
 // Gram-Schmidts, eight 8 x 8 triangular solves); the stream is ~300 bytes
-// an accepted step. With ~200 (float32) to ~400 (float64) registers' worth
-// of live state a thread, more than the 255 a thread may hold, latency and
-// local-memory spills bound them, not bandwidth. Built without FMA
-// contraction (ops/_build.py: SOURCE_FLAGS): the loop turns a one-ulp
-// difference into another accepted step sequence, so the kernels round op
-// by op as their plain versions do on the card.
+// an accepted step. Latency bounds them, not bandwidth: a forward thread
+// holds ~200 (float32) to ~400 (float64) registers' worth of live state,
+// more than the 255 a thread may hold, and spills; a smoother lane holds a
+// row of each matrix. Built without FMA contraction (ops/_build.py:
+// SOURCE_FLAGS): the loop turns a one-ulp difference into another accepted
+// step sequence, so the kernels round op by op as their plain versions do
+// on the card.
 
 #include <cuda_runtime.h>
 
 #include "ek1_adaptive.cuh"
+#include "ek1_adaptive_group.cuh"
 #include "fields.cuh"
 
 using ek0::AdaptConsts;
@@ -119,20 +128,18 @@ __global__ void __launch_bounds__(THREADS)
   ek0::store_counts<S, D>(counts, b, sB, st, c.n_save);
 }
 
-// Backward pass of member b over rows nacc - 1 .. 0 of its stream, into
-// us, stds (S+1, D, B) (ek1_adaptive.cuh: smooth_member).
-template <typename S, int NQ, int D>
-__global__ void __launch_bounds__(THREADS)
+// Backward pass over each member's rows nacc - 1 .. 0 of its stream, into
+// us, stds (S+1, D, B): a group of NQ D lanes per member, MB members a CTA
+// (ek1_adaptive_group.cuh). Two CTAs an SM (at most 128 registers a lane
+// in float32): 8192 members then fit the card at once.
+template <typename S, int NQ, int D, int MB>
+__global__ void __launch_bounds__(MB * NQ * D, 2)
     ek1_adaptive_smoother_kernel(const S* __restrict__ stream,
                                  const int* __restrict__ counts,
                                  const S* __restrict__ m0,
                                  S* __restrict__ us, S* __restrict__ stds,
                                  int B, AdaptConsts<S, NQ> c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = (size_t)B;
-  ek1a::smooth_member<S, NQ, D>(c, stream, m0, us, stds, counts[b],
-                                counts[3 * sB + b], b, sB);
+  ek1ag::smoother_group<S, NQ, D, MB>(c, stream, counts, m0, us, stds, B);
 }
 
 namespace {
@@ -174,8 +181,14 @@ int launch_smoother(const void* st, const void* counts, const void* m0,
                     void* us, void* stds, int B, int n_save, int max_iters,
                     const double* k, void* stream) {
   if (bad_sizes(B, n_save, max_iters)) return (int)cudaErrorInvalidValue;
-  ek1_adaptive_smoother_kernel<S, NQ, D>
-      <<<blocks_for(B), THREADS, 0, (cudaStream_t)stream>>>(
+  constexpr int MB = ek1g::Tile<S>::MB;
+  constexpr size_t sh = ek1ag::smoother_smem_bytes<S, NQ, D, MB>();
+  const void* kern = (const void*)ek1_adaptive_smoother_kernel<S, NQ, D, MB>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh);
+  if (e != cudaSuccess) return (int)e;
+  ek1_adaptive_smoother_kernel<S, NQ, D, MB>
+      <<<(B + MB - 1) / MB, MB * NQ * D, sh, (cudaStream_t)stream>>>(
           (const S*)st, (const int*)counts, (const S*)m0, (S*)us, (S*)stds, B,
           ek0::read_adapt_consts<S, NQ>(k, n_save, max_iters));
   return (int)cudaGetLastError();

@@ -10,37 +10,41 @@
 //                               square-root RTS pass over its stream; a
 //                               group of lanes per member, ek1_group.cuh);
 //   ekd_sampler_kernel       <- _ekd_sampler_kernel (the backward
-//                               conditioning sampler, S samples a member).
+//                               conditioning sampler, S samples a member;
+//                               a group of lanes per member, as the
+//                               smoother).
 // Their plain PyTorch versions, in the same order of operations, and the
-// Python wrappers are in odefilters_torch/ops/ek1_fused.py; the per-member
-// bodies are in ek1_fused.cuh.
+// Python wrappers are in odefilters_torch/ops/ek1_fused.py; the filter's
+// per-member body is in ek1_fused.cuh, the backward passes' group bodies
+// in ek1_group.cuh.
 //
-// Design (the filter and the sampler): one thread per ensemble member, its
-// state in registers (and what does not fit, in local memory) for the
-// whole time loop, every index
-// loop unrolled so that the structural zeros of A = kron(At, I) and
-// QLf = kron(QLt, I) cost nothing; arrays (T+1, rows, B) with the member
-// index contiguous, so that a warp's loads and stores coalesce; 64 threads
-// a block, any B >= 1. The filter streams 109 values a step at q = 3, d = 2
-// (mean, full factor, s2 and the lower triangle of the predicted factor,
-// which the backward passes read instead of re-factoring; 73 without a
-// backward pass). The sampler keeps a chunk of SC samples in registers
-// (SC = 1, 2 or 4 in float32, up to 2 in float64, the largest not above S)
-// and recomputes the shared per-step work once per chunk: the grid's y
-// dimension runs over the chunks. The smoother spreads a member over
-// NQ DIM = 8 lanes (ek1_group.cuh): a lane owns a row of the gain and of
-// the factors and a column of the Gram-Schmidt stack, its members' stream
-// rows staged in shared memory, 32 float32 (16 float64) members a CTA.
+// Design (the filter): one thread per ensemble member, its state in
+// registers (and what does not fit, in local memory) for the whole time
+// loop, every index loop unrolled so that the structural zeros of
+// A = kron(At, I) and QLf = kron(QLt, I) cost nothing; arrays (T+1, rows,
+// B) with the member index contiguous, so that a warp's loads and stores
+// coalesce; 64 threads a block, any B >= 1. The filter streams 109 values
+// a step at q = 3, d = 2 (mean, full factor, s2 and the lower triangle of
+// the predicted factor, which the backward passes read instead of
+// re-factoring; 73 without a backward pass). The smoother and the sampler
+// spread a member over NQ DIM = 8 lanes (ek1_group.cuh): a lane owns a row
+// of the gain and of the factors and a column of the Gram-Schmidt stack,
+// its members' stream rows staged in shared memory, 32 float32 (16
+// float64) members a CTA. The sampler's lane also owns its entry of up to
+// 8 samples, so that a step's gain and conditional factor, most of its
+// work, are formed once for all of them (more than 8 samples run in chunks
+// of 8 on the grid's y dimension); its normals are staged with the rows.
 //
 // What bounds them (8192 members, 500 steps, float32): by bytes, the
 // filter writes a 1.79 GB stream (0.53 ms at 3.35 TB/s), the smoother reads
 // it (0.55 ms with its outputs), the sampler reads it and the normals
 // (0.58 ms at S = 1). Each is a serial recursion per member of several
 // thousand dependent operations a step (Gram-Schmidt on a 16 x 8 or
-// 24 x 8 stack, eight 8 x 8 triangular solves for the gain), with about
-// 200 (float32) to 400 (float64) registers' worth of live state a thread,
-// more than the 255 a thread may hold: latency and local-memory spills
-// bound them, not bandwidth. Built without FMA contraction
+// 24 x 8 stack, eight 8 x 8 triangular solves for the gain): latency
+// bounds them, not bandwidth. The filter holds about 200 (float32) to 400
+// (float64) registers' worth of live state a thread, more than the 255 a
+// thread may hold, and spills; the group bodies hold a row of each matrix
+// a lane. Built without FMA contraction
 // (ops/_build.py: SOURCE_FLAGS): the stream's s2 and the static models'
 // sigma^2 carry the innovation at the accuracy floor, so the kernels round
 // op by op as their plain versions do on the card.
@@ -114,16 +118,16 @@ __global__ void __launch_bounds__(MB * NQ * DIM, 2)
   ek1g::smoother_group<S, NQ, DIM, MB>(c, st, us, stds, B, T);
 }
 
-// The backward sampler: samples blockIdx.y * SC .. of member b.
-template <typename S, int NQ, int DIM, int SC>
-__global__ void __launch_bounds__(THREADS)
+// The backward sampler: st (T+1, V, B) and the normals zn (T+1, NS, N, B)
+// into out (T+1, NS, DIM, B), a group of NQ DIM lanes per member, MB
+// members a CTA (ek1_group.cuh), samples blockIdx.y * SC .. SC at a time.
+template <typename S, int NQ, int DIM, int MB, int SC>
+__global__ void __launch_bounds__(MB * NQ * DIM, 2)
     ekd_sampler_kernel(const S* __restrict__ st, const S* __restrict__ zn,
                        S* __restrict__ out, int B, int T, int NS,
                        Consts<S, NQ, DIM> c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  ek1::sampler_member<S, NQ, DIM, SC>(c, st, zn, out, b, B, T, NS,
-                                      blockIdx.y * SC);
+  ek1g::sampler_group<S, NQ, DIM, MB, SC>(c, st, zn, out, B, T, NS,
+                                          blockIdx.y * SC);
 }
 
 namespace {
@@ -166,33 +170,37 @@ int launch_smoother(const void* st, void* us, void* stds, int B, int T,
 }
 
 template <typename S, int NQ, int DIM, int SC>
-void launch_sampler_chunk(const void* st, const void* zn, void* out, int B,
+int launch_sampler_chunks(const void* st, const void* zn, void* out, int B,
                           int T, int NS, const Consts<S, NQ, DIM>& c,
                           cudaStream_t stream) {
-  const dim3 grid(blocks_for(B), (NS + SC - 1) / SC);
-  ekd_sampler_kernel<S, NQ, DIM, SC><<<grid, THREADS, 0, stream>>>(
+  constexpr int MB = ek1g::Tile<S>::MB;
+  constexpr size_t sh = ek1g::sampler_smem_bytes<S, NQ, DIM, MB, SC>();
+  const void* kern = (const void*)ekd_sampler_kernel<S, NQ, DIM, MB, SC>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((B + MB - 1) / MB, (NS + SC - 1) / SC);
+  ekd_sampler_kernel<S, NQ, DIM, MB, SC><<<grid, MB * NQ * DIM, sh, stream>>>(
       (const S*)st, (const S*)zn, (S*)out, B, T, NS, c);
+  return (int)cudaGetLastError();
 }
 
-// The chunk of samples a thread keeps in registers: the largest of 1, 2, 4
-// not above NS, at most MAX_SC.
-template <typename S, int NQ, int DIM, int MAX_SC>
+// The samples a lane keeps in registers: the least of 1, 2, 4, 8 at or
+// above NS, so that up to 8 samples share one launch's conditioning; above
+// 8, chunks of 8 on the grid's y dimension.
+template <typename S, int NQ, int DIM>
 int launch_sampler(const void* st, const void* zn, void* out, int B, int T,
                    int NS, const double* k, void* stream) {
   if (B < 1 || T < 0 || NS < 1) return (int)cudaErrorInvalidValue;
   const auto c = read_consts<S, NQ, DIM>(k, false);
   const cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (MAX_SC >= 4) {
-    if (NS >= 4) {
-      launch_sampler_chunk<S, NQ, DIM, 4>(st, zn, out, B, T, NS, c, s);
-      return (int)cudaGetLastError();
-    }
-  }
-  if (NS >= 2)
-    launch_sampler_chunk<S, NQ, DIM, 2>(st, zn, out, B, T, NS, c, s);
-  else
-    launch_sampler_chunk<S, NQ, DIM, 1>(st, zn, out, B, T, NS, c, s);
-  return (int)cudaGetLastError();
+  if (NS == 1)
+    return launch_sampler_chunks<S, NQ, DIM, 1>(st, zn, out, B, T, NS, c, s);
+  if (NS == 2)
+    return launch_sampler_chunks<S, NQ, DIM, 2>(st, zn, out, B, T, NS, c, s);
+  if (NS <= 4)
+    return launch_sampler_chunks<S, NQ, DIM, 4>(st, zn, out, B, T, NS, c, s);
+  return launch_sampler_chunks<S, NQ, DIM, 8>(st, zn, out, B, T, NS, c, s);
 }
 
 }  // namespace
@@ -233,14 +241,14 @@ int ekd_smoother_f64(const void* st, void* us, void* stds, int B, int T,
 
 int ekd_sampler_f32(const void* st, const void* zn, void* out, int B, int T,
                     int NS, const double* consts, void* stream) {
-  return launch_sampler<float, 4, 2, 4>(st, zn, out, B, T, NS, consts,
-                                        stream);
+  return launch_sampler<float, 4, 2>(st, zn, out, B, T, NS, consts,
+                                     stream);
 }
 
 int ekd_sampler_f64(const void* st, const void* zn, void* out, int B, int T,
                     int NS, const double* consts, void* stream) {
-  return launch_sampler<double, 4, 2, 2>(st, zn, out, B, T, NS, consts,
-                                         stream);
+  return launch_sampler<double, 4, 2>(st, zn, out, B, T, NS, consts,
+                                      stream);
 }
 
 }  // extern "C"

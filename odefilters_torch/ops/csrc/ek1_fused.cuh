@@ -1,11 +1,9 @@
 // Per-member bodies of the fused EK1 kernels (ek1_fused.cu): the square-root
-// EK1 filter step with the field's Jacobian evaluated in the kernel, the
-// backward conditioning step over the filter's D x D factor stream, and the
-// loops over one member's time steps that the filter and the sampler run
-// (the smoother spreads a member over a group of lanes: ek1_group.cuh).
-// Their plain PyTorch versions, in the same order of operations, are in
-// odefilters_torch/ops/ek1_fused.py (ek1_step, ek1_filter_states_plain,
-// ekd_sampler_plain).
+// EK1 filter step with the field's Jacobian evaluated in the kernel and the
+// loop over one member's time steps that the filter runs (the smoother and
+// the sampler spread a member over a group of lanes: ek1_group.cuh). Their
+// plain PyTorch versions, in the same order of operations, are in
+// odefilters_torch/ops/ek1_fused.py (ek1_step, ek1_filter_states_plain).
 //
 // The state is flat and derivative-major, N = DIM * NQ entries: entry i is
 // derivative i / DIM of dimension i % DIM. The transition A = kron(At, I)
@@ -435,167 +433,6 @@ __device__ __forceinline__ void filter_member(
                     smooth);
   }
   if (STATIC) sig_out[b] = sig;
-}
-
-// Row k's mean and full factor.
-template <typename S, int N>
-__device__ __forceinline__ void load_state(const S* __restrict__ st,
-                                           size_t row0, size_t sB,
-                                           S (&m)[N], S (&L)[N][N]) {
-#pragma unroll
-  for (int r = 0; r < N; ++r) m[r] = st[row0 + r * sB];
-#pragma unroll
-  for (int r = 0; r < N; ++r)
-#pragma unroll
-    for (int k = 0; k < N; ++k) L[r][k] = st[row0 + (Layout<N>::L + r * N + k) * sB];
-}
-
-// Row k's diffusion and predicted factor (those of interval k-1 -> k);
-// Lp's upper entries are zero.
-template <typename S, int N>
-__device__ __forceinline__ S load_predicted(const S* __restrict__ st,
-                                            size_t row0, size_t sB,
-                                            S (&Lp)[N][N]) {
-  int v = Layout<N>::LP;
-#pragma unroll
-  for (int r = 0; r < N; ++r)
-#pragma unroll
-    for (int k = 0; k < N; ++k) Lp[r][k] = k <= r ? st[row0 + (v++) * sB] : S(0);
-  return st[row0 + Layout<N>::S2 * sB];
-}
-
-// The work of a backward step from the filtered state (m_f, L_f) at t_k
-// that does not depend on what is carried from t_{k+1}: the gain
-// G = L_f (A L_f)^T (Lp Lp^T)^-1 (one Cholesky solve per row), the
-// predicted mean mp, and the first 2N rows of the stack: row l holds
-// column l of (I - G A) L_f, row N + l column l of sq G QLf.
-template <typename S, int NQ, int DIM, int K, class C>
-__device__ __forceinline__ void backward_shared(
-    const C& c, const S (&m_f)[NQ * DIM],
-    const S (&L_f)[NQ * DIM][NQ * DIM], const S (&Lp)[NQ * DIM][NQ * DIM],
-    S sq, S (&G)[NQ * DIM][NQ * DIM], S (&mp)[NQ * DIM],
-    S (&v)[K][NQ * DIM]) {
-  constexpr int N = NQ * DIM;
-  {
-    S AL[N][N];
-    a_times_mat<S, NQ, DIM>(c, L_f, AL);
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      S M[N];
-#pragma unroll
-      for (int l = 0; l < N; ++l) {
-        S acc = S(0);
-#pragma unroll
-        for (int k = 0; k < N; ++k) acc += L_f[r][k] * AL[l][k];
-        M[l] = acc;
-      }
-      cho_solve<S, N>(Lp, M, G[r]);
-    }
-  }
-  a_times_vec<S, NQ, DIM>(c, m_f, mp);
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    S IGA[N];
-#pragma unroll
-    for (int l = 0; l < N; ++l) {
-      S ga = S(0);
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-        if (a_live<DIM>(k, l)) ga += G[r][k] * c.At[k / DIM][l / DIM];
-      IGA[l] = (r == l ? S(1) : S(0)) - ga;
-    }
-#pragma unroll
-    for (int l = 0; l < N; ++l) {
-      S b1 = S(0), gq = S(0);
-#pragma unroll
-      for (int k = 0; k < N; ++k) b1 += IGA[k] * L_f[k][l];
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-        if (q_live<DIM>(k, l)) gq += G[r][k] * c.QLt[k / DIM][l / DIM];
-      v[l][r] = b1;
-      v[N + l][r] = sq * gq;
-    }
-  }
-}
-
-// The backward sampler over one member's stream: samples s0 .. s0+ns-1 of
-// NS (ns <= SC kept in registers), normals zn (T+1, NS, N, B), into out
-// (T+1, NS, DIM, B) as pinv0 x[0 .. DIM-1].
-template <typename S, int NQ, int DIM, int SC>
-__device__ __forceinline__ void sampler_member(const Consts<S, NQ, DIM>& c,
-                                               const S* __restrict__ st,
-                                               const S* __restrict__ zn,
-                                               S* __restrict__ out, int b,
-                                               int B, int T, int NS, int s0) {
-  constexpr int N = NQ * DIM;
-  constexpr size_t V = Layout<N>::V;
-  const size_t sB = (size_t)B;
-  const int ns = NS - s0 < SC ? NS - s0 : SC;
-  auto zrow = [&](int k, int s) {
-    return ((size_t)k * NS + s0 + s) * N * sB + b;
-  };
-  auto emit = [&](int k, const S (&x)[SC][N]) {
-#pragma unroll
-    for (int s = 0; s < SC; ++s) {
-      if (s >= ns) continue;
-      const size_t o = ((size_t)k * NS + s0 + s) * DIM * sB + b;
-#pragma unroll
-      for (int j = 0; j < DIM; ++j) out[o + j * sB] = c.pinv0 * x[s][j];
-    }
-  };
-
-  // x_T = m_T + L_T z_T, L_T the filter's full factor
-  S x[SC][N];
-  {
-    S m[N], L[N][N];
-    load_state<S, N>(st, (size_t)T * V * sB + b, sB, m, L);
-#pragma unroll
-    for (int s = 0; s < SC; ++s) {
-      if (s >= ns) continue;
-      const size_t zo = zrow(T, s);
-#pragma unroll
-      for (int r = 0; r < N; ++r) {
-        S acc = S(0);
-#pragma unroll
-        for (int k = 0; k < N; ++k) acc += L[r][k] * zn[zo + k * sB];
-        x[s][r] = m[r] + acc;
-      }
-    }
-  }
-  emit(T, x);
-
-  for (int k = T - 1; k >= 0; --k) {
-    S m_f[N], L_f[N][N], Lp[N][N], G[N][N], mp[N], Lc[N][N];
-    load_state<S, N>(st, (size_t)k * V * sB + b, sB, m_f, L_f);
-    const S s2 = load_predicted<S, N>(st, (size_t)(k + 1) * V * sB + b, sB,
-                                      Lp);
-    {
-      S v[2 * N][N];
-      backward_shared<S, NQ, DIM, 2 * N>(c, m_f, L_f, Lp,
-                                         sqrt_(floor_at(s2, S(0))), G, mp, v);
-      // the conditional factor: the smoothing stack without its G L_s
-      // block (the conditioning target has zero covariance)
-      mgs_tril<S, N, 2 * N, false>(v, Lc);
-    }
-#pragma unroll
-    for (int s = 0; s < SC; ++s) {
-      if (s >= ns) continue;
-      const size_t zo = zrow(k, s);
-      S dm[N];
-#pragma unroll
-      for (int r = 0; r < N; ++r) dm[r] = x[s][r] - mp[r];
-#pragma unroll
-      for (int r = 0; r < N; ++r) {
-        S g = S(0), lz = S(0);
-#pragma unroll
-        for (int l = 0; l < N; ++l) g += G[r][l] * dm[l];
-#pragma unroll
-        for (int l = 0; l <= r; ++l) lz += Lc[r][l] * zn[zo + l * sB];
-        x[s][r] = m_f[r] + g + lz;
-      }
-    }
-    emit(k, x);
-  }
 }
 
 }  // namespace ek1

@@ -73,6 +73,53 @@ __device__ __forceinline__ bool tri_zero(int k, int j) {
   return TRI && k >= GM && j < k - GM;
 }
 
+// Pivot j of mgs_rows (below): its lane forms the norm and the scaled
+// column and publishes them, and every later lane takes its dot product and
+// updates its own column.
+template <typename S, int GM, int KM, int NS, bool TRI, class Sync>
+__device__ __forceinline__ void mgs_pivot(S (&col)[NS][KM], int D, int lane,
+                                          S* q, S (&L)[NS][GM], Sync sync,
+                                          int j) {
+  S* qj = q + (j & 1) * NS * KM;
+  if (lane == j) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      S ss = S(0);
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+        if (live<GM>(k, D) && !tri_zero<GM, TRI>(k, j))
+          ss += col[s][k] * col[s][k];
+      const S rjj = ek0::sqrt_(ek0::floor_at(ss, S(1e-30)));
+      const S inv = S(1) / rjj;
+      L[s][j] = rjj;
+      S qv[KM];
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+        qv[k] = live<GM>(k, D) && !tri_zero<GM, TRI>(k, j) ? col[s][k] * inv
+                                                           : S(0);
+      st<S, KM>(qj + s * KM, qv);
+    }
+  }
+  sync();
+  if (lane > j && lane < D) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      S qv[KM];
+      ld<S, KM>(qj + s * KM, qv);
+      S r = S(0);
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+        if (live<GM>(k, D) && !tri_zero<GM, TRI>(k, j))
+          r += qv[k] * col[s][k];
+      L[s][j] = r;
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+        if (live<GM>(k, D) && !tri_zero<GM, TRI>(k, j))
+          col[s][k] = col[s][k] - r * qv[k];
+    }
+  }
+}
+
 // Row `lane` of the lower factor L (L L^T = M^T M) of the stack M whose
 // column `lane` is col (laid out as above), for NS stacks at once (each
 // lane holds column `lane` of every stack in col[s]; the stacks' pivots
@@ -81,7 +128,10 @@ __device__ __forceinline__ bool tri_zero(int k, int j) {
 // suffices).
 // L[s][j] = 0 above the diagonal; col is overwritten. Lanes at or past D
 // hold no column and only take the barriers, which `sync` runs over the
-// group (uniformly in every lane).
+// group (uniformly in every lane). The pivots are unrolled up to 16 lanes;
+// at 32 (tp_group.cuh, a warp per combine) they stay rolled, so that the
+// code, and nvcc's time, stay a fraction of the unrolled one's (L then
+// lives in local memory); the arithmetic is the same.
 template <typename S, int GM, int KM, int NS, bool TRI, class Sync>
 __device__ __forceinline__ void mgs_rows(S (&col)[NS][KM], int D, int lane,
                                          S* q, S (&L)[NS][GM], Sync sync) {
@@ -89,46 +139,17 @@ __device__ __forceinline__ void mgs_rows(S (&col)[NS][KM], int D, int lane,
   for (int s = 0; s < NS; ++s)
 #pragma unroll
     for (int j = 0; j < GM; ++j) L[s][j] = S(0);
+  if constexpr (GM <= 16) {
 #pragma unroll
-  for (int j = 0; j < GM; ++j) {
-    if (j >= D) break;
-    S* qj = q + (j & 1) * NS * KM;
-    if (lane == j) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        S ss = S(0);
-#pragma unroll
-        for (int k = 0; k < KM; ++k)
-          if (live<GM>(k, D) && !tri_zero<GM, TRI>(k, j))
-            ss += col[s][k] * col[s][k];
-        const S rjj = ek0::sqrt_(ek0::floor_at(ss, S(1e-30)));
-        const S inv = S(1) / rjj;
-        L[s][j] = rjj;
-        S qv[KM];
-#pragma unroll
-        for (int k = 0; k < KM; ++k)
-          qv[k] = live<GM>(k, D) && !tri_zero<GM, TRI>(k, j) ? col[s][k] * inv
-                                                             : S(0);
-        st<S, KM>(qj + s * KM, qv);
-      }
+    for (int j = 0; j < GM; ++j) {
+      if (j >= D) break;
+      mgs_pivot<S, GM, KM, NS, TRI>(col, D, lane, q, L, sync, j);
     }
-    sync();
-    if (lane > j && lane < D) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        S qv[KM];
-        ld<S, KM>(qj + s * KM, qv);
-        S r = S(0);
-#pragma unroll
-        for (int k = 0; k < KM; ++k)
-          if (live<GM>(k, D) && !tri_zero<GM, TRI>(k, j))
-            r += qv[k] * col[s][k];
-        L[s][j] = r;
-#pragma unroll
-        for (int k = 0; k < KM; ++k)
-          if (live<GM>(k, D) && !tri_zero<GM, TRI>(k, j))
-            col[s][k] = col[s][k] - r * qv[k];
-      }
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < GM; ++j) {
+      if (j >= D) break;
+      mgs_pivot<S, GM, KM, NS, TRI>(col, D, lane, q, L, sync, j);
     }
   }
 }

@@ -1,5 +1,5 @@
 // The fused time-parallel scan for Hopper (sm_90a) at any state dimension
-// 2 <= D <= 16: the three scan kernels with a group of lanes per combine.
+// 2 <= D <= 32: the three scan kernels with a group of lanes per combine.
 //
 // Replaces the TPU kernels in odefilters/parallel/pallas_scan.py, which take
 // D from the elements:
@@ -26,6 +26,12 @@
 // shifted by one. The chunk scan runs a group per chunk over its rows, the
 // fixup a group per element. D is an argument; G is a template parameter,
 // so every loop is unrolled over G with the entries at or past D skipped.
+// At G = 32 (17 <= D <= 32) a group is a warp, and its workspace (ten
+// 32 x 32 operands, 42.75 kB in float32, 85.5 kB in float64) leaves room
+// for one CTA an SM of 4 (2) groups: the totals scan's 1024 totals then
+// run 2 (4) a group, one after another within each round, in 128 CTAs that
+// are all resident. Above D = 32 the ten operands of a combine outgrow an
+// SM's shared memory (327 kB at D = 64 in float64).
 //
 // What bounds them: as tp_scan.cu's kernels, their bytes (the totals scan
 // moves 1.7 MB of float32 filter totals at D = 8: half a microsecond), far
@@ -38,6 +44,9 @@
 // Group size 16 (9 <= D <= 16), built by tp_group16.cu in parallel.
 extern "C" int tp_group16_f32(int, int, int, const void*, const void*,
                               void*, void*, int, void*);
+// Group size 32 (17 <= D <= 32), built by tp_group32.cu in parallel.
+extern "C" int tp_group32_f32(int, int, int, const void*, const void*,
+                              void*, void*, int, void*);
 
 // The D = 8 one-thread chunk scan and fixup (tp_scan.cu).
 extern "C" int tp_chunk_scan_d8_f32(int, const void*, void*, int, void*);
@@ -46,7 +55,7 @@ extern "C" int tp_fixup_d8_f32(int, const void*, const void*, void*, int,
 
 // Plain C entry points, bound with ctypes (ops/_build.py: ENTRIES). kind: 0
 // filter elements (A, b, U, eta, Z), 1 smoothing elements (E, g, P); D the
-// state dimension, 2..16. Each launches on the given stream, does not
+// state dimension, 2..32. Each launches on the given stream, does not
 // synchronise, and returns the CUDA error code of the launch (the totals
 // scan cudaErrorCooperativeLaunchTooLarge when its grid cannot be
 // co-resident).
@@ -56,20 +65,20 @@ int tp_chunk_scan_f32(int kind, int D, const void* elems, void* out, int L,
                       void* stream) {
   if (D == 8) return tp_chunk_scan_d8_f32(kind, elems, out, L, stream);
   return tpg::run_for<float>(0, kind, D, elems, nullptr, nullptr, out, L,
-                          stream, tp_group16_f32);
+                          stream, tp_group16_f32, tp_group32_f32);
 }
 
 int tp_totals_scan_f32(int kind, int D, const void* totals, void* work,
                        void* out, void* stream) {
   return tpg::run_for<float>(1, kind, D, totals, nullptr, work, out, 1, stream,
-                          tp_group16_f32);
+                          tp_group16_f32, tp_group32_f32);
 }
 
 int tp_fixup_f32(int kind, int D, const void* prefixes, const void* t_excl,
                  void* out, int L, void* stream) {
   if (D == 8) return tp_fixup_d8_f32(kind, prefixes, t_excl, out, L, stream);
   return tpg::run_for<float>(2, kind, D, prefixes, t_excl, nullptr, out, L,
-                          stream, tp_group16_f32);
+                          stream, tp_group16_f32, tp_group32_f32);
 }
 
 }  // extern "C"

@@ -1,12 +1,12 @@
 // The fused time-parallel scan's combines spread over a group of lanes, at
-// any state dimension 2 <= D <= 16 (a run-time argument), and the three
+// any state dimension 2 <= D <= 32 (a run-time argument), and the three
 // scan kernels built on them (tp_group.cu has the design). The combines
 // compute what tp_scan.cuh's one-thread combines compute, entry by entry in
 // the same order of operations (the plain versions' in
 // odefilters_torch/ops/tp_scan.py: every sum over an index in index order),
 // so they are bit for bit with both.
 //
-// A group of G lanes (G the power of two at or above D, G <= 16) combines
+// A group of G lanes (G the power of two at or above D, G <= 32) combines
 // one element pair: lane r owns row r of every matrix and entry r of every
 // vector, computes that row of each product, and publishes in the group's
 // shared memory the operands that other rows need; lane j owns column j of
@@ -25,12 +25,15 @@ namespace tpg {
 
 using tp::NC;
 
-constexpr int D_MAX = 16;
+// The largest state dimension: above it, the ten D x D operands of a
+// filtering combine outgrow an SM's shared memory (at D = 64 in float64,
+// 327 kB against the 227 kB a CTA may take).
+constexpr int D_MAX = 32;
 constexpr int BLOCK = 128;  // threads per CTA, all three kernels
 
 // The group size for state dimension D: the power of two at or above it.
 inline int group_for(int D) {
-  return D <= 2 ? 2 : D <= 4 ? 4 : D <= 8 ? 8 : 16;
+  return D <= 2 ? 2 : D <= 4 ? 4 : D <= 8 ? 8 : D <= 16 ? 16 : 32;
 }
 
 // Offsets of the leaves in a packed element at run-time D.
@@ -68,12 +71,15 @@ __device__ __forceinline__ S* group_ws() {
   return reinterpret_cast<S*>(tp_smem) + (threadIdx.x / G) * Ws<G>::SIZE;
 }
 
-// The barrier of the group of G lanes (G divides the warp).
+// The barrier of the group of G lanes (G divides the warp; at G = 32 the
+// whole warp, whose mask 1 << 32 would not give).
 template <int G>
 struct GroupSync {
   unsigned mask;
   __device__ __forceinline__ GroupSync()
-      : mask(((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1))) {}
+      : mask(G == 32 ? 0xffffffffu
+                     : ((1u << (G % 32)) - 1u)
+                           << ((threadIdx.x & 31) & ~(G - 1))) {}
   __device__ __forceinline__ void operator()() const { __syncwarp(mask); }
 };
 
@@ -125,6 +131,19 @@ __device__ __forceinline__ void get_col(const S* M, int D, int c, S (&x)[G]) {
     if (k < D) x[k] = M[k * Ws<G>::P + c];
 }
 
+// The loops over a group's rows below (k, j, i up to D) are unrolled up to
+// 16 lanes; at 32 they stay rolled, as grp::mgs_rows's pivots, each step a
+// forced-inline function so that the unrolled code is the plain loop's.
+
+// c += ak B[k] (row k of B at Bk in shared memory)
+template <typename S, int G>
+__device__ __forceinline__ void row_acc(S ak, const S* Bk, S (&c)[G]) {
+  S row[G];
+  grp::ld<S, G>(Bk, row);
+#pragma unroll
+  for (int j = 0; j < G; ++j) c[j] = c[j] + ak * row[j];
+}
+
 // c = a B: c[j] = a[0] B[0][j] + a[1] B[1][j] + ... (B in shared memory,
 // a row of B at a time; each entry summed over k in index order; the
 // entries past D are not used)
@@ -136,13 +155,31 @@ __device__ __forceinline__ void row_times(const S (&a)[G], const S* B, int D,
   grp::ld<S, G>(B, row);
 #pragma unroll
   for (int j = 0; j < G; ++j) c[j] = a[0] * row[j];
+  if constexpr (G <= 16) {
 #pragma unroll
-  for (int k = 1; k < G; ++k) {
-    if (k >= D) break;
-    grp::ld<S, G>(B + k * P, row);
-#pragma unroll
-    for (int j = 0; j < G; ++j) c[j] = c[j] + a[k] * row[j];
+    for (int k = 1; k < G; ++k) {
+      if (k >= D) break;
+      row_acc<S, G>(a[k], B + k * P, c);
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 1; k < G; ++k) {
+      if (k >= D) break;
+      row_acc<S, G>(a[k], B + k * P, c);
+    }
   }
+}
+
+// a . B[j] = a[0] B[j][0] + a[1] B[j][1] + ... (row j at Bj)
+template <typename S, int G>
+__device__ __forceinline__ S row_dot(const S (&a)[G], const S* Bj, int D) {
+  S row[G];
+  grp::ld<S, G>(Bj, row);
+  S acc = a[0] * row[0];
+#pragma unroll
+  for (int k = 1; k < G; ++k)
+    if (k < D) acc = acc + a[k] * row[k];
+  return acc;
 }
 
 // c = a B^T: c[j] = a[0] B[j][0] + a[1] B[j][1] + ...
@@ -150,16 +187,18 @@ template <typename S, int G>
 __device__ __forceinline__ void row_times_t(const S (&a)[G], const S* B,
                                             int D, S (&c)[G]) {
   constexpr int P = Ws<G>::P;
+  if constexpr (G <= 16) {
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
-    if (j >= D) break;
-    S row[G];
-    grp::ld<S, G>(B + j * P, row);
-    S acc = a[0] * row[0];
-#pragma unroll
-    for (int k = 1; k < G; ++k)
-      if (k < D) acc = acc + a[k] * row[k];
-    c[j] = acc;
+    for (int j = 0; j < G; ++j) {
+      if (j >= D) break;
+      c[j] = row_dot<S, G>(a, B + j * P, D);
+    }
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < G; ++j) {
+      if (j >= D) break;
+      c[j] = row_dot<S, G>(a, B + j * P, D);
+    }
   }
 }
 
@@ -175,21 +214,50 @@ __device__ __forceinline__ S dot(const S (&a)[G], const S* x, int D) {
   return acc;
 }
 
+// y[i] = (x[i] - L[i][0] y[0] - ... - L[i][i-1] y[i-1]) / L[i][i] (row i
+// of L at Li)
+template <typename S, int G>
+__device__ __forceinline__ void fwd_step(const S* Li, const S (&x)[G], int i,
+                                         S (&y)[G]) {
+  S row[G];
+  grp::ld<S, G>(Li, row);
+  S s = x[i];
+#pragma unroll
+  for (int k = 0; k < i; ++k) s = s - row[k] * y[k];
+  y[i] = s / row[i];
+}
+
 // Row r of Y solving L y = x by forward substitution (L lower, shared).
 template <typename S, int G>
 __device__ __forceinline__ void fwd_row(const S* L, const S (&x)[G], int D,
                                         S (&y)[G]) {
   constexpr int P = Ws<G>::P;
+  if constexpr (G <= 16) {
 #pragma unroll
-  for (int i = 0; i < G; ++i) {
-    if (i >= D) break;
-    S row[G];
-    grp::ld<S, G>(L + i * P, row);
-    S s = x[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = s - row[k] * y[k];
-    y[i] = s / row[i];
+    for (int i = 0; i < G; ++i) {
+      if (i >= D) break;
+      fwd_step<S, G>(L + i * P, x, i, y);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < G; ++i) {
+      if (i >= D) break;
+      fwd_step<S, G>(L + i * P, x, i, y);
+    }
   }
+}
+
+// x[i] = (y[i] - L[i+1][i] x[i+1] - ...) / L[i][i], the terms past D
+// skipped
+template <typename S, int G>
+__device__ __forceinline__ void back_step(const S* L, const S (&y)[G], int D,
+                                          int i, S (&x)[G]) {
+  constexpr int P = Ws<G>::P;
+  S s = y[i];
+#pragma unroll
+  for (int k = i + 1; k < G; ++k)
+    if (k < D) s = s - L[k * P + i] * x[k];
+  x[i] = s / L[i * P + i];
 }
 
 // x solving L L^T x = b: forward, then back substitution (k ascending),
@@ -197,18 +265,16 @@ __device__ __forceinline__ void fwd_row(const S* L, const S (&x)[G], int D,
 template <typename S, int G>
 __device__ __forceinline__ void cho_solve(const S* L, const S (&b)[G], int D,
                                           S (&x)[G]) {
-  constexpr int P = Ws<G>::P;
   S y[G];
   fwd_row<S, G>(L, b, D, y);
+  if constexpr (G <= 16) {
 #pragma unroll
-  for (int i = G - 1; i >= 0; --i) {
-    if (i < D) {
-      S s = y[i];
-#pragma unroll
-      for (int k = i + 1; k < G; ++k)
-        if (k < D) s = s - L[k * P + i] * x[k];
-      x[i] = s / L[i * P + i];
-    }
+    for (int i = G - 1; i >= 0; --i)
+      if (i < D) back_step<S, G>(L, y, D, i, x);
+  } else {
+#pragma unroll 1
+    for (int i = G - 1; i >= 0; --i)
+      if (i < D) back_step<S, G>(L, y, D, i, x);
   }
 }
 
@@ -545,6 +611,22 @@ __device__ __forceinline__ int width(bool filter, int D) {
   return filter ? 3 * D * D + 2 * D : 2 * D * D + D;
 }
 
+// Threads per CTA at group size G: BLOCK, except float64 at G = 32, whose
+// group workspace (85.5 kB) lets two groups share a CTA.
+template <typename S, int G>
+__host__ __device__ constexpr int block_of() {
+  return sizeof(S) == 8 && G == 32 ? 64 : BLOCK;
+}
+
+// Chunk totals per group in the cooperative totals scan: 1, except at
+// G = 32, where an SM holds one CTA of 4 (float32) or 2 (float64) groups
+// and 1024 groups would not all be resident at once (a grid barrier needs
+// them so): 2 (float32) or 4 (float64) totals a group, 128 CTAs.
+template <typename S, int G>
+__host__ __device__ constexpr int totals_per_group() {
+  return G < 32 ? 1 : sizeof(S) == 8 ? 4 : 2;
+}
+
 // ---- the three kernels (a group per combine) and their launches ----
 
 // prefixes[k][c] = combine(prefixes[k-1][c], elems[k][c]): a group per
@@ -566,15 +648,18 @@ __global__ void __launch_bounds__(BLOCK)
 }
 
 // The inclusive scan of the chunk totals (V, 1024), shifted by one into
-// out, as tp_scan.cuh's tp_totals_scan_kernel: a group per total, 1024
-// groups, cooperative; work: two (V, 1024) buffers. DC: D when known at
+// out, as tp_scan.cuh's tp_totals_scan_kernel: a group per total (or
+// totals_per_group of them, one after another within each round), 1024
+// totals, cooperative; work: two (V, 1024) buffers. DC: D when known at
 // compile time, else 0.
 template <typename S, int G, bool FILTER, int DC>
 __global__ void __launch_bounds__(BLOCK)
     tp_totals_scan_group_kernel(const S* __restrict__ totals, S* work,
                                 S* __restrict__ out, int D) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  constexpr int TPG = totals_per_group<S, G>();
+  constexpr int NG = NC / TPG;  // groups in the grid
+  const int g0 = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int V = width(FILTER, D);
   const size_t size = (size_t)V * NC;
   const S* src = totals;
@@ -582,12 +667,16 @@ __global__ void __launch_bounds__(BLOCK)
   for (int shift = 1; shift < NC; shift <<= 1) {
     const bool last = 2 * shift >= NC;
     S* dst = last ? out : work + w * size;
-    const int o = last ? (i + 1) % NC : i;
-    if (i >= shift)
-      combine<S, G, FILTER, DC>(src + (i - shift), NC, src + i, NC, dst + o,
-                                NC, D);
-    else
-      copy_elem<S, G>(src + i, NC, dst + o, NC, V);
+#pragma unroll
+    for (int t = 0; t < TPG; ++t) {
+      const int i = g0 + t * NG;
+      const int o = last ? (i + 1) % NC : i;
+      if (i >= shift)
+        combine<S, G, FILTER, DC>(src + (i - shift), NC, src + i, NC,
+                                  dst + o, NC, D);
+      else
+        copy_elem<S, G>(src + i, NC, dst + o, NC, V);
+    }
     if (!last) {
       grid.sync();
       src = work + w * size;
@@ -617,7 +706,7 @@ __global__ void __launch_bounds__(BLOCK)
 
 template <typename S, int G>
 constexpr size_t smem_bytes() {
-  return (size_t)(BLOCK / G) * Ws<G>::SIZE * sizeof(S);
+  return (size_t)(block_of<S, G>() / G) * Ws<G>::SIZE * sizeof(S);
 }
 
 // Dynamic shared memory above the 48 kB default must be asked for per
@@ -633,9 +722,10 @@ int chunk_scan(const void* elems, void* out, int L, int D, void* stream) {
   const size_t sh = smem_bytes<S, G>();
   int e = allow_smem(kern, sh);
   if (e) return e;
+  constexpr int bl = block_of<S, G>();
   tp_chunk_scan_group_kernel<S, G, FILTER>
-      <<<NC * G / BLOCK, BLOCK, sh, (cudaStream_t)stream>>>(
-          (const S*)elems, (S*)out, L, D);
+      <<<NC * G / bl, bl, sh, (cudaStream_t)stream>>>((const S*)elems,
+                                                      (S*)out, L, D);
   return (int)cudaGetLastError();
 }
 
@@ -650,8 +740,9 @@ int totals_scan(const void* totals, void* work, void* out, int D,
   const S* tp_ = (const S*)totals;
   S *wp = (S*)work, *op = (S*)out;
   void* args[] = {&tp_, &wp, &op, &D};
-  return coop::launch_cooperative(kern, NC * G / BLOCK, BLOCK, args, sh,
-                                  stream);
+  constexpr int bl = block_of<S, G>();
+  return coop::launch_cooperative(
+      kern, NC * G / bl / totals_per_group<S, G>(), bl, args, sh, stream);
 }
 
 template <typename S, int G, bool FILTER>
@@ -661,8 +752,9 @@ int fixup(const void* prefixes, const void* t_excl, void* out, int L, int D,
   const size_t sh = smem_bytes<S, G>();
   int e = allow_smem(kern, sh);
   if (e) return e;
-  const int nb = (int)(((size_t)L * NC * G + BLOCK - 1) / BLOCK);
-  tp_fixup_group_kernel<S, G, FILTER><<<nb, BLOCK, sh, (cudaStream_t)stream>>>(
+  constexpr int bl = block_of<S, G>();
+  const int nb = (int)(((size_t)L * NC * G + bl - 1) / bl);
+  tp_fixup_group_kernel<S, G, FILTER><<<nb, bl, sh, (cudaStream_t)stream>>>(
       (const S*)prefixes, (const S*)t_excl, (S*)out, L, D);
   return (int)cudaGetLastError();
 }
@@ -698,17 +790,18 @@ int run(int op, int kind, int D, const void* a, const void* b, void* w,
 using RunFn = int (*)(int, int, int, const void*, const void*, void*, void*,
                      int, void*);
 
-// run at the group size for D, 2 <= D <= 16; group size 16 through run16
-// (built in a unit of its own).
+// run at the group size for D, 2 <= D <= 32; group sizes 16 and 32
+// through run16 and run32 (each built in a unit of its own).
 template <typename S>
 int run_for(int op, int kind, int D, const void* a, const void* b, void* w,
-            void* o, int L, void* stream, RunFn run16) {
+            void* o, int L, void* stream, RunFn run16, RunFn run32) {
   if (D < 2 || D > D_MAX) return (int)cudaErrorInvalidValue;
   switch (group_for(D)) {
     case 2: return run<S, 2>(op, kind, D, a, b, w, o, L, stream);
     case 4: return run<S, 4>(op, kind, D, a, b, w, o, L, stream);
     case 8: return run<S, 8>(op, kind, D, a, b, w, o, L, stream);
-    default: return run16(op, kind, D, a, b, w, o, L, stream);
+    case 16: return run16(op, kind, D, a, b, w, o, L, stream);
+    default: return run32(op, kind, D, a, b, w, o, L, stream);
   }
 }
 

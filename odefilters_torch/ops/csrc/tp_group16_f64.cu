@@ -1,6 +1,6 @@
 // The fused time-parallel scan's group kernels at group size 16 (state
 // dimensions 9..16) in float64 (tp_group.cuh; tp_group.cu has the
-// design): a translation unit of its own, the largest of the group sizes,
+// design): a translation unit of its own, as each of the two largest group sizes,
 // so that nvcc builds it in parallel with tp_group_f64.cu, whose entries
 // call it.
 

@@ -78,7 +78,11 @@ where the step reached save point ``seg + 1``, else 0.
 
 The plain versions run every member of the ensemble at once on lists of
 ``(B,)`` tensors, with per-member masks in place of the kernels' per-thread
-control flow, in the kernels' order of operations. Dispatch: each wrapper
+control flow, in the kernels' order of operations, at any order q. The
+filter's kernel is built for q = 1, 2, 3 (the time-parallel solves' warm
+start runs it at min(q, 3), as the JAX package does; it also counts its
+launches by order in ``ek0_adaptive.launches_by_order``), the other
+kernels for q = 3 (``_launch.kernel_orders``). Dispatch: each wrapper
 runs its plain version on CPU tensors, launches its CUDA kernel on CUDA
 tensors, raises on any other device, and counts its launches in
 ``.launches``.
@@ -639,14 +643,18 @@ def ek0_adaptive(f: Callable, field: Optional[str], m0: torch.Tensor,
     lls = torch.empty((B,), **new)
     counts = _new_counts(B, m0.device)
     _launch.launch(ek0_adaptive, m0.device,
-                   f"ek0_adaptive_{field}_{_launch.suffix(m0.dtype)}",
+                   f"ek0_adaptive_q{nq - 1}_{field}_{_launch.suffix(m0.dtype)}",
                    m0.data_ptr(), ps.data_ptr(), dt0s.data_ptr(),
                    us.data_ptr(), stds.data_ptr(), lls.data_ptr(),
                    counts.data_ptr(), B, c.n_save, c.max_iters, c.host())
+    ek0_adaptive.launches_by_order[nq - 1] += 1
     return us, stds, lls, counts
 
 
 ek0_adaptive.launches = 0
+# its launches by order q (the kernel is built for several)
+ek0_adaptive.launches_by_order = dict.fromkeys(
+    _launch.kernel_orders("ek0_adaptive"), 0)
 
 
 def ek0_adaptive_stream(f: Callable, field: Optional[str], m0: torch.Tensor,
@@ -678,13 +686,13 @@ def check_smoother_inputs(name: str, st, counts, m0, c: Controller,
     ``(max_iters, width, B)`` stream, ``(N_COUNTS, B)`` int32 counts, all
     contiguous on one device."""
     nq, d, B = m0.shape
-    if (nq - 1 not in _launch.CUDA_ORDERS or d != 2
-            or tuple(st.shape) != (c.max_iters, width, B)
+    _launch.check_order(name, nq)
+    if (d != 2 or tuple(st.shape) != (c.max_iters, width, B)
             or tuple(counts.shape) != (N_COUNTS, B)
             or counts.dtype != torch.int32):
         raise ValueError(
-            f"{name}: the kernel takes nq - 1 in {_launch.CUDA_ORDERS}, "
-            f"d = 2, a ({c.max_iters}, {width}, B) stream and ({N_COUNTS}, B) "
+            f"{name}: the kernel takes d = 2, a ({c.max_iters}, {width}, B) "
+            f"stream and ({N_COUNTS}, B) "
             f"int32 counts; got nq={nq}, d={d}, {tuple(st.shape)}, "
             f"{tuple(counts.shape)} {counts.dtype}"
         )

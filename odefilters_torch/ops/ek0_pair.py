@@ -45,7 +45,7 @@ import torch
 
 from odefilters_torch.ops._blocks import _is0, _lists, _smul, _sreduce
 from odefilters_torch.ops._launch import (
-    CUDA_ORDERS, check_cuda_inputs, check_field, check_ported,
+    check_cuda_inputs, check_field, check_order, check_ported,
     dispatch_device, host_consts, launch, suffix,
 )
 from odefilters_torch.priors import _ibm_small_np, precond_small
@@ -488,11 +488,11 @@ def ek0_pair_bwd(
             st, nq=nq, d=d, At=At, Qt=Qt, QLt=QLt, pinv0=pinv0, jitter=jitter,
         )
     _, V = pair_layout(nq, d, 1)
-    if (nq - 1 not in CUDA_ORDERS or d != 2 or st.ndim != 3
-            or st.shape[1] != V):
+    check_order("ek0_pair_bwd", nq)
+    if d != 2 or st.ndim != 3 or st.shape[1] != V:
         raise ValueError(
-            f"ek0_pair_bwd: the kernel takes nq - 1 in {CUDA_ORDERS}, d = 2 "
-            f"and a (T+1, {V}, B) stream; got nq={nq}, d={d}, "
+            f"ek0_pair_bwd: the kernel takes d = 2 and a (T+1, {V}, B) "
+            f"stream; got nq={nq}, d={d}, "
             f"{tuple(st.shape)}"
         )
     check_cuda_inputs("ek0_pair_bwd", {"st": st}, st.dtype)

@@ -318,12 +318,12 @@ def ek0_sampler(st: torch.Tensor, normals: torch.Tensor, *, At, QLt,
         return ek0_sampler_plain(st, normals, At=At, QLt=QLt, pinv0=pinv0,
                                  nq=nq, d=d)
     T1, V, B = st.shape
-    if (nq - 1 not in _launch.CUDA_ORDERS or d != 2
-            or V != states_width(nq, d) or normals.ndim != 5
+    _launch.check_order("ek0_sampler", nq)
+    if (d != 2 or V != states_width(nq, d) or normals.ndim != 5
             or normals.shape[0] != T1 or normals.shape[2:] != (nq, d, B)):
         raise ValueError(
-            f"ek0_sampler: the kernel takes nq - 1 in {_launch.CUDA_ORDERS}, "
-            f"d = 2, a (T+1, {states_width(nq, d)}, B) stream and "
+            f"ek0_sampler: the kernel takes d = 2, a (T+1, "
+            f"{states_width(nq, d)}, B) stream and "
             f"(T+1, S, {nq}, {d}, B) normals; got nq={nq}, d={d}, "
             f"{tuple(st.shape)}, {tuple(normals.shape)}"
         )

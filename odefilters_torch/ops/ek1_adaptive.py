@@ -449,13 +449,17 @@ def solve_ensemble_ek1_adaptive_smooth(
                                      field=field)
 
 
-def runnable_order(q: int, device: torch.device) -> int:
-    """The order `solve_adaptive_single` runs for order ``q`` on ``device``:
-    ``q`` on the CPU and wherever its kernels are built for it; else, on
-    the card, the largest order they are built for (``_launch.CUDA_ORDERS``;
-    ROADMAP.md queue 1, item 5)."""
-    if device.type == "cuda" and q not in _launch.CUDA_ORDERS:
-        return max(_launch.CUDA_ORDERS)
+def runnable_order(q: int, device: torch.device,
+                   kernel: str = "ek0_adaptive") -> int:
+    """The order `solve_adaptive_single` runs for order ``q`` on ``device``
+    with the adaptive filter ``kernel`` (``"ek0_adaptive"``, the warm
+    start's, by default; ``"ek1_adaptive"``, ``"ek1d_adaptive"``): ``q`` on
+    the CPU and wherever the kernel is built for it; else, on the card, the
+    largest order it is built for (``_launch.kernel_orders``; ROADMAP.md
+    queue 1, item 5)."""
+    orders = _launch.kernel_orders(kernel)
+    if device.type == "cuda" and q not in orders:
+        return max(orders)
     return q
 
 

@@ -426,11 +426,9 @@ def ekd_sampler_plain(st: torch.Tensor, normals: torch.Tensor, *, At, QLt,
 
 
 def _check_kernel_shape(name: str, nq: int, d: int):
-    if nq - 1 not in _launch.CUDA_ORDERS or d != 2:
-        raise ValueError(
-            f"{name}: the kernel is built for nq - 1 in {_launch.CUDA_ORDERS} "
-            f"and d = 2; got nq={nq}, d={d}"
-        )
+    _launch.check_order(name, nq)
+    if d != 2:
+        raise ValueError(f"{name}: the kernel is built for d = 2; got d={d}")
 
 
 def ek1_filter_states(

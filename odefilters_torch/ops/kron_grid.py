@@ -294,12 +294,11 @@ def _grid_consts(field: Optional[str], p, N: int, M: int, ns: int,
             f"no CUDA grid field {field!r}; the Kron-grid kernels are built "
             f"for {sorted(_launch.CUDA_GRID_FIELDS)}"
         )
-    if (ns != _launch.CUDA_GRID_FIELDS[field] or N != M
-            or nq - 1 not in _launch.CUDA_ORDERS):
+    _launch.check_order("kron_grid", nq)
+    if ns != _launch.CUDA_GRID_FIELDS[field] or N != M:
         raise ValueError(
             f"field {field!r} takes m0 (nq, {_launch.CUDA_GRID_FIELDS[field]}, "
-            f"N, N) with nq - 1 in {_launch.CUDA_ORDERS}; got "
-            f"({nq}, {ns}, {N}, {M})"
+            f"N, N); got ({nq}, {ns}, {N}, {M})"
         )
     if isinstance(p, torch.Tensor) or not isinstance(p, (int, float)):
         raise TypeError(

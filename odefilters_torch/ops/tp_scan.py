@@ -65,15 +65,14 @@ import math
 
 import torch
 
-from odefilters_torch.linalg import matmul_unrolled as _mm
-from odefilters_torch.linalg import solve_triangular_unrolled
+from odefilters_torch.linalg import matmul_unrolled, solve_triangular_unrolled
 from odefilters_torch.ops import _launch
 
 NC = 1024                       # chunks
 KINDS = {"filter": ("mat", "vec", "mat", "vec", "mat"),
          "smooth": ("mat", "vec", "mat")}
 _KIND_CODE = {"filter": 0, "smooth": 1}
-CUDA_D_MAX = 16                 # the kernels' largest state dimension
+CUDA_D_MAX = 32                 # the kernels' largest state dimension
 
 
 def width(kind: str, D: int) -> int:
@@ -97,12 +96,19 @@ def _dim(kind: str, V: int) -> int:
 
 # --------------------------------------------------------------------------
 # small-matrix algebra on (..., D, D) / (..., D), sums in index order
-# (linalg's matmul_unrolled and forward substitution keep that order)
+# (the unrolled products and forward substitution keep that order)
 # --------------------------------------------------------------------------
 
 
 def _T(X):
     return X.transpose(-1, -2)
+
+
+def _mm(A, B):
+    """``A @ B``, each entry summed over k in index order at every D the
+    kernels take (`linalg.matmul_unrolled` hands products above 16 to
+    ``A @ B``)."""
+    return matmul_unrolled(A, B, max_unroll=None)
 
 
 def _mv(A, x):
@@ -331,8 +337,9 @@ def _check_cuda(name, kind, tensors):
     if not 2 <= D <= CUDA_D_MAX:
         raise NotImplementedError(
             f"{name}: the CUDA kernels take state dimensions 2 <= D <= "
-            f"{CUDA_D_MAX}, got D = {D} (ROADMAP.md queue 1, item 5, 'Widen "
-            "every kernel family')"
+            f"{CUDA_D_MAX}, got D = {D}: above {CUDA_D_MAX} the ten D x D "
+            "operands of a combine outgrow an SM's shared memory (ROADMAP.md "
+            "queue 1, item 5, 'Widen every kernel family')"
         )
     return D
 

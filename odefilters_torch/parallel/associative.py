@@ -309,10 +309,9 @@ def _interp(x, xp, fp):
 
 def warm_start_order(q: int, device: torch.device) -> int:
     """The order of the warm start's adaptive EK0 solve: min(q, 3), as in the
-    JAX package, where the single solve runs it on ``device``; else the
-    order it runs there (``ek1_adaptive.runnable_order``: 3 on the card,
-    ROADMAP.md queue 1, item 5): the warm start is only the first
-    linearization, which the sweeps replace."""
+    JAX package, wherever the single solve runs that order on ``device``
+    (``ek1_adaptive.runnable_order``: on the card the adaptive EK0 kernel is
+    built for q = 1, 2, 3, so everywhere)."""
     from odefilters_torch.ops.ek1_adaptive import runnable_order
 
     return runnable_order(min(q, 3), device)
@@ -354,9 +353,11 @@ def _check_fused_dim(prob, alg, block, on_card):
     if on_card and block == "fused" and D > CUDA_D_MAX:
         raise NotImplementedError(
             f"the fused scan kernels take state dimensions D = d (q+1) <= "
-            f"{CUDA_D_MAX}, and this solve has D = {D} (ROADMAP.md queue 1, "
-            "item 5, 'Widen every kernel family'); pass block= a chunk "
-            "length (the blocked scan) or 0 (the plain scan)"
+            f"{CUDA_D_MAX}, and this solve has D = {D}: above {CUDA_D_MAX} "
+            "the ten D x D operands of a combine outgrow an SM's shared "
+            "memory (ROADMAP.md queue 1, item 5, 'Widen every kernel "
+            "family'); pass block= a chunk length (the blocked scan) or 0 "
+            "(the plain scan)"
         )
 
 

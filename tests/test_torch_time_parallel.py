@@ -449,8 +449,8 @@ def test_defaults_resolve_as_the_jax_package():
 
 
 def test_card_fused_default_needs_the_kernels_state_dimension():
-    """On the card the fused scan's kernels take D = d (q+1) up to 16: a
-    default resolves to them at D = 6 and 12 as at 8, and at D = 18 it
+    """On the card the fused scan's kernels take D = d (q+1) up to 32: a
+    default resolves to them at D = 6, 12 and 18 as at 8, and at D = 33 it
     raises at once, naming the ROADMAP item; a block length, or a short
     grid, runs the blocked scan."""
     import types
@@ -464,16 +464,17 @@ def test_card_fused_default_needs_the_kernels_state_dimension():
     for prob, alg, kw in ((card(2), odt.EK1(order=2), {}),
                           (card(3), EK1, {}),
                           (card(3), EK1, {"block": "fused"}),
-                          (card(3), odt.EK0(order=3), {"windows": 16})):
+                          (card(3), odt.EK0(order=3), {"windows": 16}),
+                          (card(3), odt.EK1(order=5), {})):
         assert pa.resolve_options(prob, alg, 16384, **kw) == ("fused", 8)
-    for prob, alg, kw in ((card(3), odt.EK1(order=5), {}),
-                          (card(3), odt.EK1(order=5), {"block": "fused"}),
-                          (card(2), odt.EK0(order=8), {"windows": 16})):
+    for prob, alg, kw in ((card(3), odt.EK1(order=10), {}),
+                          (card(3), odt.EK1(order=10), {"block": "fused"}),
+                          (card(2), odt.EK0(order=16), {"windows": 16})):
         with pytest.raises(NotImplementedError, match="item 5"):
             pa.resolve_options(prob, alg, 16384, **kw)
-    assert pa.resolve_options(card(3), odt.EK1(order=5), 16384,
+    assert pa.resolve_options(card(3), odt.EK1(order=10), 16384,
                               block=128) == (128, 8)
-    assert pa.resolve_options(card(3), odt.EK1(order=5), 1000)[0] == (
+    assert pa.resolve_options(card(3), odt.EK1(order=10), 1000)[0] == (
         blocked.auto_block(1000))
 
 

@@ -1,6 +1,6 @@
 """The fused time-parallel scan of the PyTorch port at state dimensions
 other than 8 (``odefilters_torch/ops/tp_scan.py``; on the card its group
-kernels, ``ops/csrc/tp_group.cuh``, take any 2 <= D <= 16), against the JAX
+kernels, ``ops/csrc/tp_group.cuh``, take any 2 <= D <= 32), against the JAX
 package on the CPU in float64.
 
 As in ``test_torch_time_parallel.py``, the scans are held against a
@@ -79,12 +79,16 @@ def _hold(got, ref, kind, rtol, atol):
                                    err_msg=f"leaf {i}")
 
 
-@pytest.mark.parametrize("D", [4, 6, 12])
-@pytest.mark.parametrize("kind", ["filter", "smooth"])
+@pytest.mark.parametrize("kind, D", [(k, D) for D in (4, 6, 12, 18)
+                                     for k in ("filter", "smooth")]
+                         + [("smooth", 32)])
 def test_scans_match_jax_fold_at_other_dims(kind, D):
     """The fused scan's plain versions at N = 1025 (1024 chunks of two rows,
     the tail padded with identities) against the fold of the jitted JAX
-    combine at D = 4, 6, 12; the smoother reversed."""
+    combine at D = 4, 6, 12, 18, and 32 for the smoothing elements; the
+    smoother reversed. (The filtering scan at D = 32 takes ~40 s of plain
+    combines and ~50 s of the JAX fold's compile on a CPU:
+    `test_filter_combine_matches_jax_at_32` holds its combine.)"""
     rev = kind == "smooth"
     elems = _elements(kind, 1025, D, 100 + D)
     ref = _jax_fold(kind, elems, reverse=rev)
@@ -92,6 +96,20 @@ def test_scans_match_jax_fold_at_other_dims(kind, D):
     assert ts.pack(kind, tel).shape == (2, ts.width(kind, D), ts.NC)
     _hold(ts.fused_associative_scan(kind, tel, reverse=rev), ref, kind,
           rtol=1e-9, atol=1e-12)
+
+
+def test_filter_combine_matches_jax_at_32():
+    """The fused scan's plain filtering combine at D = 32, the largest the
+    card's kernels take, on four element pairs against the JAX combine
+    called eagerly (the JAX list combines take ~18 s a call at this D, and
+    their jitted fold does not compile within minutes), at the scans'
+    tolerances."""
+    a, b = _elements("filter", 4, 32, 7), _elements("filter", 4, 32, 8)
+    ref = jasq._sqrt_filter_combine(tuple(map(jnp.asarray, a)),
+                                    tuple(map(jnp.asarray, b)))
+    got = ts._COMBINES["filter"](tuple(map(torch.tensor, a)),
+                                 tuple(map(torch.tensor, b)))
+    _hold(got, ref, "filter", rtol=1e-9, atol=1e-12)
 
 
 def test_ek1_order2_fixed_point_matches_sequential():
@@ -125,17 +143,20 @@ def _card(d):
 
 
 def test_card_warm_start_runs_the_kernels_order(monkeypatch):
-    """The warm start's adaptive EK0 solve runs at min(q, 3) on the CPU, as
-    in the JAX package, and on the card at the order the ops layer reports
-    its kernel runs (3) whatever q; warm_start_trajectory passes that order
+    """The warm start's adaptive EK0 solve runs at min(q, 3), as in the JAX
+    package, on the CPU and on the card alike: the ops layer reports that
+    the card's adaptive EK0 kernel runs each of those orders (the other
+    adaptive filters q = 3 only); warm_start_trajectory passes that order
     on."""
     from odefilters_torch.ops import ek1_adaptive
 
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     assert [ek1_adaptive.runnable_order(q, cpu) for q in (1, 2, 3)] == [1, 2, 3]
-    assert [ek1_adaptive.runnable_order(q, cuda) for q in (1, 2, 3)] == [3] * 3
+    assert [ek1_adaptive.runnable_order(q, cuda) for q in (1, 2, 3)] == [1, 2, 3]
+    assert [ek1_adaptive.runnable_order(q, cuda, "ek1_adaptive")
+            for q in (1, 2, 3)] == [3, 3, 3]
     assert [pa.warm_start_order(q, cpu) for q in (1, 2, 3, 5)] == [1, 2, 3, 3]
-    assert [pa.warm_start_order(q, cuda) for q in (1, 2, 3, 5)] == [3, 3, 3, 3]
+    assert [pa.warm_start_order(q, cuda) for q in range(1, 6)] == [1, 2, 3, 3, 3]
     seen = []
 
     def fake(f, u0, p, tspan, n_save, q, **kw):
@@ -150,10 +171,12 @@ def test_card_warm_start_runs_the_kernels_order(monkeypatch):
     assert seen == [1, 2, 3]
 
 
-@pytest.mark.parametrize("D, q, d", [(6, 2, 2), (12, 3, 3), (16, 3, 4)])
+@pytest.mark.parametrize("D, q, d", [(6, 2, 2), (12, 3, 3), (16, 3, 4),
+                                     (18, 5, 3), (24, 5, 4), (32, 7, 4)])
 def test_card_fused_default_runs_up_to_the_kernels_largest_dimension(D, q, d):
     """On the card the fused scan is the default above 1024 grid points at
-    every D = d (q+1) up to tp_scan.CUDA_D_MAX = 16, global and windowed."""
+    every D = d (q+1) up to tp_scan.CUDA_D_MAX = 32, global and windowed
+    (Lorenz-63 and SEIR at q = 5 among them)."""
     alg = odt.EK1(order=q)
     assert d * (q + 1) == D <= ts.CUDA_D_MAX
     assert pa.resolve_options(_card(d), alg, 16384) == ("fused", 8)
@@ -163,14 +186,16 @@ def test_card_fused_default_runs_up_to_the_kernels_largest_dimension(D, q, d):
 
 def test_cuda_inputs_take_the_state_dimension_from_the_elements():
     """The kernels' input check reads D from the packed width and refuses
-    D above 16, naming the ROADMAP item; widths that are no element's, or
-    inputs of two widths, raise ValueError."""
-    for kind, D in (("filter", 6), ("smooth", 12), ("filter", 2)):
+    D above 32, naming the reason and the ROADMAP item; widths that are no
+    element's, or inputs of two widths, raise ValueError."""
+    for kind, D in (("filter", 6), ("smooth", 12), ("filter", 2),
+                    ("filter", 18), ("smooth", 32)):
         packed = torch.zeros((1, ts.width(kind, D), ts.NC),
                              dtype=torch.float64)
         assert ts._check_cuda("tp_chunk_scan", kind, {"packed": packed}) == D
-    big = torch.zeros((1, ts.width("filter", 18), ts.NC), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    big = torch.zeros((1, ts.width("filter", 33), ts.NC), dtype=torch.float64)
+    with pytest.raises(NotImplementedError,
+                       match="shared memory .*item 5"):
         ts._check_cuda("tp_chunk_scan", "filter", {"packed": big})
     odd = torch.zeros((1, ts.width("smooth", 6) + 1, ts.NC),
                       dtype=torch.float64)
@@ -180,3 +205,49 @@ def test_cuda_inputs_take_the_state_dimension_from_the_elements():
     b = torch.zeros((ts.width("smooth", 4), ts.NC), dtype=torch.float64)
     with pytest.raises(ValueError, match="every input"):
         ts._check_cuda("tp_fixup", "smooth", {"prefixes": a, "t_excl": b})
+
+
+def test_check_fused_dim_takes_up_to_32():
+    """``solve_fixed_parallel``'s check on the card: D = d (q+1) <= 32 runs
+    the fused scan, D = 33 raises NotImplementedError naming why (the ten
+    D x D operands of a combine outgrow an SM's shared memory) and the
+    ROADMAP item; the CPU and the blocked scan are not refused."""
+    for d, q in ((3, 5), (4, 5), (4, 7), (8, 3)):
+        pa._check_fused_dim(_card(d), odt.EK1(order=q), "fused", True)
+    with pytest.raises(NotImplementedError,
+                       match="D = 33: above 32 the ten D x D operands .*"
+                             "shared memory .*item 5"):
+        pa._check_fused_dim(_card(3), odt.EK1(order=10), "fused", True)
+    pa._check_fused_dim(_card(3), odt.EK1(order=10), "fused", False)
+    pa._check_fused_dim(_card(3), odt.EK1(order=10), 128, True)
+
+
+def test_kernel_families_take_their_orders():
+    """The orders each CUDA kernel family is built for: the adaptive EK0
+    filter (the warm start's) at q = 1, 2, 3; every other family at q = 3,
+    refusing q = 2 with NotImplementedError naming ROADMAP queue 1 item 5.
+    The checks run before any launch, on CPU tensors too."""
+    from odefilters_torch.ops import _launch, ek0_adaptive, ek1_fused
+
+    assert _launch.kernel_orders("ek0_adaptive") == (1, 2, 3)
+    ps = torch.zeros((4, 5), dtype=torch.float64)
+    for q in (1, 2, 3):
+        _launch.check_field("ek0_adaptive", "fhn", q + 1, 2, 5, ps)
+    for name in ("ek0_adaptive_stream", "ek1_adaptive", "ek1d_adaptive",
+                 "ek0_filter", "ek0_pair_fwd", "ek1_filter_states"):
+        _launch.check_field(name, "fhn", 4, 2, 5, ps)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            _launch.check_field(name, "fhn", 3, 2, 5, ps)
+    for name in ("ekd_smoother", "ekd_sampler"):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            ek1_fused._check_kernel_shape(name, 3, 2)
+    c = ek0_adaptive.controller(2, 0.0, 1.0, 4, torch.float64, abstol=1e-6,
+                                reltol=1e-4, max_iters=8)
+    m0 = torch.zeros((3, 2, 5), dtype=torch.float64)
+    st = torch.zeros((8, ek0_adaptive.stream_width(3, 2), 5),
+                     dtype=torch.float64)
+    counts = torch.zeros((ek0_adaptive.N_COUNTS, 5), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ek0_adaptive.check_smoother_inputs(
+            "ek0_adaptive_smoother", st, counts, m0, c,
+            ek0_adaptive.stream_width(3, 2))
