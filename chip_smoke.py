@@ -249,11 +249,15 @@ Phases:
      members in phase 34), the full-state row's times,
      the door's candidates/s and gradient candidates/s beside the host
      step table and the Taylor init, the kernels' bounds and registers;
- 37. the two Kron-grid kernels (cooperative: one thread per grid point, two
-     grid barriers a step) against their plain versions on the 2-D
-     Brusselator at N = 37 (1369 points: 11 CTAs, the last partial),
-     T = 200, dt = 1e-5, float64 and float32: us, var and ll bit for bit,
-     one launch each;
+ 37. the two Kron-grid kernels (one thread per grid point, two barriers a
+     step: EK0 a cooperative grid, DiagonalEK1 one thread-block cluster of
+     16 CTAs, or a cooperative grid above the cluster's points) against
+     their plain versions on the 2-D Brusselator at N = 37 (1369 points:
+     11 blocks, the last partial), T = 200, dt = 1e-5, float64 and float32:
+     us, var and ll bit for bit, one launch each; DiagonalEK1 also over 40
+     steps at N = 100 and 120 (grids larger than the cluster's threads: 2
+     and 4 points a thread) and at N = 160 (larger than the cluster holds:
+     the cooperative kernel), each timed (float32);
  38. the Kron-grid front doors ``solve_brusselator_ek0`` and
      ``solve_brusselator_ek1d`` at the JAX package's rows (N = 70, d =
      9800, 1000 steps over (0, 0.01), save_every = 50), float32 and
@@ -269,8 +273,8 @@ Phases:
  39. each Kron-grid kernel against its plain version at that width in
      float32 (the plain version once; bit for bit), the kernels' and the
      doors' times and steps/s (median of 20 after 3 warm-ups), the Taylor
-     init alone, the bounds, the 2000 grid barriers alone as a latency
-     floor, registers and spills;
+     init alone, the bounds, the 2000 grid barriers and the 2000 cluster
+     barriers alone as latency floors, registers and spills;
  40. the three time-parallel scan kernels (at D = 8 ``tp_scan.cuh``'s
      chunk scan, a thread per chunk, and fixup, a thread per element;
      ``tp_group.cuh``'s cooperative totals scan, a group of lanes per
@@ -283,7 +287,10 @@ Phases:
      8 and 16) at N = 1024 and 3000, and at N = 1024 at D = 4
      (EK1(order=1)) and on synthetic elements at D = 2 and 3 (group sizes
      2 and 4), and at N = 2048 on synthetic elements at D = 18 and 32
-     (group size 32: a warp per combine);
+     (group size 32: a warp per combine), and at N = 1025 on synthetic
+     elements at D = 40, 64 and 96 (a CTA per combine, its workspace in
+     shared memory or global; the plain totals scan's combine replayed
+     from a CUDA graph);
  41. the global time-parallel door ``solve_fixed_parallel(prob,
      EK1(order=3), ts=linspace(0, 20, 16385), iterations=2)`` at the JAX
      package's time-parallel record, float64 and float32, each run with the
@@ -309,10 +316,11 @@ Phases:
      reported); the global door's parts (Taylor init, warm start, one
      sweep's element build and scans, calibration) and both doors' times
      (the windowed one the median of 5 after 1 warm-up); the windowed
-     door's 64 totals scans summed (from the N = 1024 times, and their
-     kernel time in one door call by ``torch.profiler``, with the count of
-     launches it saw held at 64); the group kernels' times and bounds at
-     D = 4, 6 and 12, and on synthetic elements at D = 18 and 32;
+     door's 64 totals scans summed (from the N = 1024 times) and its 64
+     launches of each scan kernel, their kernel time in one door call by
+     ``torch.profiler``, with the count of launches it saw held at 64; the
+     group kernels' times and bounds at D = 4, 6 and 12, and on synthetic
+     elements at D = 18 and 32 (N = 16384) and D = 40, 64, 96 (N = 2048);
      registers and spills;
  44. the card's default ``solve_fixed_parallel(prob, EK1(order=2))`` (D =
      6) at N = 16384, float64 and float32, each run with the counts set to
@@ -329,7 +337,16 @@ Phases:
      2 against its plain version at 1000 members over (0, 20), 20 save
      intervals, abstol 1e-6, reltol 1e-4, float64 and float32, one launch
      at that order, the counts equal on every member, us, stds and lls
-     bit for bit.
+     bit for bit;
+ 46. the card's default ``solve_fixed_parallel(prob, EK1(order=3),
+     warm_start=0)`` above D = 32: a d = 10 torch field (``tp_chain``, D =
+     40) over (0, 5) on 2048 steps, float64 and float32, each run with the
+     counts set to 0 before it and read after it: the defaults resolve to
+     the fused scan, 4 launches of each scan kernel (a CTA per combine);
+     shapes, finite values; the float64 means within ``TP40_BLOCKED`` of
+     the same solve on the XLA-form scan on the card (the plain associative
+     scan, ``block=0``), stds and covariances within ``TP40_STD_RTOL`` of
+     their largest; float32 against float64.
 
 The second-last line of the output names the card and its power limit;
 the line before it lists the thirty-five kernels with their launches on
@@ -2327,6 +2344,8 @@ KERNEL_SYMBOL = {
     # filter at q = 3
     "ekd_sampler": ("ekd_sampler_kernelIfLi4ELi2ELi32ELi8E", None),
     "ek0_adaptive": ("ek0_adaptive_kernelIfLi4E", None),
+    "ek1d_kron_grid": ("ek1d_kron_cluster_kernelIfLi4EN4kron15BrusselatorGridIfEELi1E",
+                       None),
     "tp_chunk_scan": ("tp_chunk_scan_kernelIfNS_10FilterKind",
                       "_ZN2tp14filter_combineIfLi8E"),
     "tp_totals_scan": ("tp_totals_scan_group_kernelIfLi8ELb1ELi8E",
@@ -4068,6 +4087,13 @@ def ek1dl_phases(odt, card, built):
 KG_NAMES = ("ek0_kron_grid", "ek1d_kron_grid")
 # phase 37: several CTAs and a partial last one (1369 points, 11 CTAs)
 KG_N_CHECK, KG_T_CHECK, KG_SE_CHECK, KG_DT_CHECK = 37, 200, 10, 1e-5
+# DiagonalEK1 on grids larger than its cluster's threads, 40 steps each:
+# N = 100 (10,000 points, 79 blocks: 5 a CTA, 2 points a thread) and N =
+# 120 (14,400 points, 113 blocks: 8 a CTA, 4 points a thread, the last CTAs
+# partial or empty), and on one larger than the cluster holds (N = 160,
+# 25,600 points > 16 x 384 x 4 = 24,576: the cooperative kernel, 200 CTAs
+# of 128)
+KG_N_BIG, KG_N_COOP, KG_T_BIG = (100, 120), 160, 40
 # phases 38-39: the JAX package's rows (benchmarks/run_all.py), d = 9800
 KG_N, KG_T, KG_SE, KG_TSPAN, KG_ALPHA = 70, 1000, 50, (0.0, 0.01), 0.1
 # float64 means against DOP853 (rtol 1e-10, atol 1e-12): the CPU plain path
@@ -4110,6 +4136,7 @@ class KronGrid:
                              dt=dt, n_steps=T, save_every=save_every)
 
     def kernel(self):
+        """The wrapper's launch."""
         kw = dict(field="brusselator_2d")
         if self.ek1d:
             return self.kg.ek1d_kron_grid_solve(self.f, self.jd, *self.args,
@@ -4127,22 +4154,32 @@ class KronGrid:
                                                  KG_ALPHA, **kw)
 
 
+def kron_route(case):
+    """The kernel DiagonalEK1's launch runs at ``case``'s grid, as its C
+    entry picks it: "cluster" or "cooperative"."""
+    from odefilters_torch.ops import _build
+
+    on = _build.load().ek1d_kron_grid_on_cluster(case.N, case.N)
+    return "cluster" if on else "cooperative"
+
+
 def kron_vs_plain(label, case):
     """The kernel against its plain version on the same inputs: us, var and
     ll bit for bit (checked), one launch. Returns (max |kernel - plain|,
     the plain version's milliseconds)."""
     name = KG_NAMES[case.ek1d]
     ref, p_ms = once(case.plain)
+    err = 0.0
     reset_counts()
     got = case.kernel()
     torch.cuda.synchronize()
     n = read_counts(name)[name]
-    check(n == 1, f"{label} {name}: {n} launch(es), expected 1")
-    err = 0.0
+    at = f"{label} ({kron_route(case)})" if case.ek1d else label
+    check(n == 1, f"{at} {name}: {n} launch(es), expected 1")
     for what, g, r in zip(("us", "var", "ll"), got, ref):
         finite = bool(torch.isfinite(g).all())
-        check(finite, f"{label} {name}_kernel, {what}: finite")
-        bitwise(f"{label} {name}_kernel, {what}", g, r, strict=True)
+        check(finite, f"{at} {name}_kernel, {what}: finite")
+        bitwise(f"{at} {name}_kernel, {what}", g, r, strict=True)
         err = max(err, float((g.double() - r.double()).abs().max()))
     return err, p_ms
 
@@ -4276,6 +4313,18 @@ def kron_timing(odt, card):
             raise RuntimeError(f"kron_grid_sync_probe: CUDA error {rc}")
 
     floor_ms = time_ms(barriers, warmup=3, iters=20)
+
+    def cluster_barriers():
+        threads = min(-(-nb // kg.KRON_CLUSTER), 3) * kg.KRON_BLOCK
+        rc = lib.kron_cluster_sync_probe(
+            threads, 2 * KG_T,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"kron_cluster_sync_probe: CUDA error {rc}")
+
+    c_floor = time_ms(cluster_barriers, warmup=3, iters=20)
+    say(f"   {2 * KG_T} cluster barriers alone ({kg.KRON_CLUSTER} CTAs): "
+        f"{c_floor:.4f} ms (card: {card})")
     i_ms = time_ms(lambda: kg.brusselator_init(KG_N, KG_TSPAN, Q, KG_ALPHA,
                                                torch.float32, device=DEVICE),
                    warmup=3, iters=20)
@@ -4299,8 +4348,9 @@ def kron_timing(odt, card):
         say(f"   {door.__name__} (Taylor init + kernel): {d_ms:.3f} ms = "
             f"{KG_T / d_ms * 1e3:.0f} steps/s")
         say(f"   {name}: {ops} operations per step; {nbytes / 1e6:.3f} MB; "
-            f"bound {b_ms:.4f} ms by {b_by}; the grid barriers' floor "
-            f"{floor_ms:.4f} ms")
+            f"bound {b_ms:.4f} ms by {b_by}; the "
+            + (f"cluster barriers' floor {c_floor:.4f} ms" if ek1d else
+               f"grid barriers' floor {floor_ms:.4f} ms"))
         del case
     return ms, p_ms, err, bounds
 
@@ -4310,12 +4360,30 @@ def kron_phases(odt, card, built):
     ms, max |kernel - plain|, bounds) of the two Kron-grid kernels."""
     say(f"== 37. the Kron-grid kernels vs plain, N={KG_N_CHECK} "
         f"({KG_N_CHECK ** 2} points), T={KG_T_CHECK}, dt={KG_DT_CHECK:g}, "
-        "float64 and float32, bit for bit")
+        "float64 and float32, bit for bit; DiagonalEK1 also at N in "
+        f"{KG_N_BIG + (KG_N_COOP,)}, T={KG_T_BIG}")
+    big = {}
     for dtype in (torch.float64, torch.float32):
         for ek1d in (False, True):
             kron_vs_plain(str(dtype)[6:],
                           KronGrid(ek1d, KG_N_CHECK, KG_T_CHECK, KG_SE_CHECK,
                                    dtype, KG_DT_CHECK))
+        for N in KG_N_BIG + (KG_N_COOP,):
+            case = KronGrid(True, N, KG_T_BIG, KG_SE_CHECK, dtype,
+                            KG_DT_CHECK)
+            want = "cooperative" if N == KG_N_COOP else "cluster"
+            route = kron_route(case)
+            check(route == want,
+                  f"N={N} ({N * N} points): DiagonalEK1's launch runs its "
+                  f"{route} kernel, expected the {want} one")
+            kron_vs_plain(f"{str(dtype)[6:]} N={N} ({N * N} points)", case)
+            if dtype == torch.float32:
+                big[N] = time_ms(case.kernel, warmup=3, iters=20)
+            del case
+    say(f"   f32 ek1d_kron_grid kernel over {KG_T_BIG} steps: "
+        + ", ".join(f"N={N} ({'cooperative' if N == KG_N_COOP else 'cluster'}"
+                    f") {t:.4f} ms" for N, t in big.items())
+        + f" (card: {card})")
     say(f"== 38. the Kron-grid paths: solve_brusselator_ek0 / _ek1d, "
         f"N={KG_N} (d = {2 * KG_N ** 2}), tspan={KG_TSPAN}, T={KG_T}, "
         f"save_every={KG_SE}, float32 and float64")
@@ -4323,7 +4391,8 @@ def kron_phases(odt, card, built):
     say(f"== 39. the Kron-grid kernels vs plain and timing, float32, "
         f"N={KG_N}, T={KG_T}")
     ms, p_ms, err, bounds = kron_timing(odt, card)
-    print_registers(built["log"], KG_NAMES, only="_kernelIf")
+    print_registers(built["log"], KG_NAMES + ("ek1d_kron_cluster",),
+                    only="_kernelIf")
     return launches, ms, p_ms, err, bounds
 
 
@@ -4334,6 +4403,8 @@ TP_NAMES = ("tp_chunk_scan", "tp_totals_scan", "tp_fixup")
 # at every D)
 TP_GROUP_NAMES = ("tp_chunk_scan_group", "tp_totals_scan_group",
                   "tp_fixup_group")
+# and those of tp_wide.cuh (all three above D = 32, a CTA per combine)
+TP_WIDE_NAMES = ("tp_chunk_scan_wide", "tp_totals_scan_wide", "tp_fixup_wide")
 # the JAX package's time-parallel record (benchmarks/tp_accuracy_experiment.py,
 # time_parallel_sweep.py): FitzHugh-Nagumo over (0, 20), N = 16384 uniform
 # steps, q = 3 (D = 8), 2 sweeps; EK1 global, EK0 in 16 windows of 1024
@@ -4382,6 +4453,32 @@ TP_SMALL_DIMS, TP_SYNTH_DIMS, TP_SMALL_N = ((4, 1),), (2, 3), 1024
 # rows, so that the chunk scan combines too); timed in phase 43 at N =
 # 16384 (the plain combines at D = 32 take ~1 s each on the card)
 TP_WIDE_DIMS, TP_WIDE_N = (18, 32), 2048
+# and above 32, a CTA per combine (ops/csrc/tp_wide.cuh), by synthetic
+# conditioned elements at N = 1025 (two chunk rows): D = 40 (the workspace
+# in shared memory in both dtypes), 64 (shared in float32, global in
+# float64) and 96 (global in both), the plain totals scan's ten rounds
+# replayed from a CUDA graph (the plain combines at D = 96 take ~3 s a
+# round of host-side launches); timed in phase 43 at N = 2048
+TP_CTA_DIMS, TP_CTA_N, TP_CTA_TIME_N = (40, 64, 96), 1025, 2048
+# phase 46: the card's default door at D = 40, a d = 10 torch field
+# (tp_chain: a damped chain of oscillators, linear, so that EK1's
+# linearization is exact) at q = 3 over (0, 5) on N = 2048 steps, without
+# the warm start (no CUDA field of d >= 9 exists for its adaptive kernel),
+# 2 sweeps: float64 means within TP40_BLOCKED of the same solve on the
+# XLA-form scan on the card (the plain associative scan, block=0: the
+# blocked scan at auto_block(N) took 58 s there, its chunks' sequential
+# combines launch-bound), the stds and the state covariances within
+# TP40_STD_RTOL of their largest value (the fused
+# combines floor their Gram-Schmidt pivots at sqrt(1e-30), as the JAX
+# kernels do: on the solver's rank-deficient factors the covariances differ
+# from the XLA-form scans' by more than rounding; the stds of a 2-sweep
+# solve by up to 2.8e-4 relative at D = 8, tests/test_torch_time_parallel.py;
+# here, against the plain associative scan (block=0): means 2.83e-13, stds
+# 5.93e-4 and covariances 3.98e-4 of their largest value on the card (H100,
+# float64), 3.89e-13, 7.36e-4 and 5.35e-4 on the CPU plain path; against
+# DOP853 3.8e-12)
+TP40_D, TP40_N, TP40_TSPAN, TP40_BLOCKED, TP40_STD_RTOL = 10, 2048, (0.0, 5.0), \
+    1e-9, 1e-3
 # phase 44: the card's default door at D = 6, EK1(order=2), its default
 # iterations: the float64 means held within TP6_DOP853 of DOP853 at N =
 # 16384, and at N = 1024 within TP6_SEQ of the sequential fixed-grid
@@ -4457,18 +4554,60 @@ def tp_plain_scan(kind, elems):
     return ts_.unpack(kind, out, elems[0].shape[0])
 
 
-def tp_vs_plain(label, kind, elems, strict=True):
+class ReplayedCombine:
+    """A plain combine captured once in a CUDA graph on its first call and
+    replayed on every later one (inputs copied into the captured ones): the
+    same kernels on the same values in the same order, so the same bits,
+    without the host-side launches, which at D > 32 take seconds a call."""
+
+    def __init__(self, combine):
+        self.combine, self.graph = combine, None
+
+    def __call__(self, ea, eb):
+        if self.graph is None:
+            self.ea = tuple(x.clone() for x in ea)
+            self.eb = tuple(x.clone() for x in eb)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.combine(self.ea, self.eb)  # warm-up, as capture asks
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = self.combine(self.ea, self.eb)
+        for dst, src in zip(self.ea + self.eb, tuple(ea) + tuple(eb)):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.out
+
+
+def tp_totals_plain_replayed(kind, prefixes):
+    """`tp_scan.totals_scan_plain` with its combine a `ReplayedCombine`:
+    nine of its ten rounds replayed."""
+    from odefilters_torch.ops import tp_scan as ts_
+
+    plain = ts_._COMBINES[kind]
+    ts_._COMBINES[kind] = ReplayedCombine(plain)
+    try:
+        return ts_.totals_scan_plain(kind, prefixes)
+    finally:
+        ts_._COMBINES[kind] = plain
+
+
+def tp_vs_plain(label, kind, elems, strict=True, replay=False):
     """Each of the three kernels against its plain version on the same
     inputs (the chunk scan on the packed elements, the totals scan and the
     fixup on the plain version's prefixes and totals), bit for bit, and the
     fused scan through `fused_associative_scan` against the plain phases,
-    one launch of each kernel. Returns (max |kernel - plain|, plain
-    milliseconds of each phase)."""
+    one launch of each kernel (``replay``: the plain totals scan's combine
+    replayed from a CUDA graph, `tp_totals_plain_replayed`). Returns (max
+    |kernel - plain|, plain milliseconds of each phase)."""
     from odefilters_torch.ops import tp_scan as ts_
 
     packed = ts_.pack(kind, elems)
     pre, p_pre = once(lambda: ts_.chunk_scan_plain(kind, packed))
-    tex, p_tex = once(lambda: ts_.totals_scan_plain(kind, pre))
+    totals = tp_totals_plain_replayed if replay else ts_.totals_scan_plain
+    tex, p_tex = once(lambda: totals(kind, pre))
     out, p_fix = once(lambda: ts_.fixup_plain(kind, pre, tex))
     got = (ts_.tp_chunk_scan(kind, packed), ts_.tp_totals_scan(kind, pre),
            ts_.tp_fixup(kind, pre, tex))
@@ -4727,6 +4866,87 @@ def tp_dim_door(odt, seq):
     return launches
 
 
+def tp_chain(u, p, t):
+    """Phase 46's d = TP40_D field: a periodic chain of oscillators, each
+    coupled to its two neighbours and damped, du_i/dt = -0.1 u_i + u_{i-1}
+    - u_{i+1} (a torch field: no CUDA stencil, its Jacobian by forward-mode
+    JVPs)."""
+    return -0.1 * u + torch.roll(u, 1, 0) - torch.roll(u, -1, 0)
+
+
+def tp_cta_door(odt):
+    """Phase 46: ``solve_fixed_parallel(EK1(order=3), warm_start=0)`` on
+    tp_chain (D = 40) at N = TP40_N in float64 and float32, each run with
+    the counts set to 0 before it and read after it: the defaults resolve
+    to the fused scan, whose kernels run a CTA per combine (2 launches of
+    each a sweep); shapes, finite values; float64 against the same solve
+    on the XLA-form scan (its combines: the plain associative scan,
+    block=0) on the card and against DOP853; float32 against float64.
+    Returns the float32 run's launches."""
+    from scipy.integrate import solve_ivp
+
+    from odefilters_torch.parallel import associative as pa
+
+    alg = odt.EK1(order=Q)
+    D = TP40_D * (Q + 1)
+    u0 = np.sin(np.arange(TP40_D) + 1.0)
+    outs, launches = {}, None
+    for dtype in (torch.float64, torch.float32):
+        prob = odt.ode_problem(tp_chain, u0, TP40_TSPAN, device=DEVICE,
+                               dtype=dtype)
+        ts = torch.linspace(*TP40_TSPAN, TP40_N + 1, dtype=dtype,
+                            device=DEVICE)
+        label = f"{str(dtype)[6:]} EK1(order={Q}) at D={D}, N={TP40_N}"
+        block, ws = pa.resolve_options(prob, alg, TP40_N, warm_start=0)
+        check(block == "fused" and ws == 0,
+              f"{label}: the defaults resolve to block={block!r}, "
+              f"warm_start={ws} (expected 'fused', 0)")
+        reset_counts()
+        out, d_ms = once(lambda: odt.solve_fixed_parallel(
+            prob, alg, ts=ts, warm_start=0, iterations=TP_ITERS))
+        n = read_counts(*TP_NAMES)
+        check(all(n[k] == 2 * TP_ITERS for k in TP_NAMES),
+              f"{label}: launches {n} ({d_ms:.1f} ms, the first call), "
+              f"{2 * TP_ITERS} of each scan kernel ({TP_ITERS} sweeps)")
+        u, u_std, means, covs, sigma2 = out
+        check(tuple(u.shape) == (TP40_N + 1, TP40_D) and u_std.shape == u.shape
+              and tuple(covs.shape) == (TP40_N + 1, D, D)
+              and bool(torch.isfinite(u).all() and torch.isfinite(u_std).all()
+                       and torch.isfinite(sigma2)),
+              f"{label}: shapes u {tuple(u.shape)}, covs {tuple(covs.shape)}; "
+              f"finite u, u_std and sigma2 ({float(sigma2):.6e})")
+        outs[dtype] = out
+        if dtype == torch.float32:
+            launches = n
+    prob = odt.ode_problem(tp_chain, u0, TP40_TSPAN, device=DEVICE)
+    ts = torch.linspace(*TP40_TSPAN, TP40_N + 1, dtype=torch.float64,
+                        device=DEVICE)
+    ref, b_ms = once(lambda: odt.solve_fixed_parallel(
+        prob, alg, ts=ts, warm_start=0, iterations=TP_ITERS, block=0))
+    u, u_std, _, covs = outs[torch.float64][:4]
+    du = float((u - ref[0]).abs().max())
+    dsd = float((u_std - ref[1]).abs().max() / ref[1].abs().max())
+    dcov = float((covs - ref[3]).abs().max() / ref[3].abs().max())
+    check(du <= TP40_BLOCKED and dsd <= TP40_STD_RTOL
+          and dcov <= TP40_STD_RTOL,
+          f"f64 D={D}: fused scan vs the plain associative scan (the XLA-form "
+          f"combines, block=0) on the card ({b_ms:.1f} ms): max |du| "
+          f"{du:.3e} <= {TP40_BLOCKED:g}; "
+          f"max |du_std| {dsd:.3e} and max |dcov| {dcov:.3e} of their "
+          f"largest <= {TP40_STD_RTOL:g}; sigma2 "
+          f"{float(outs[torch.float64][4]):.9e} vs {float(ref[4]):.9e}")
+    tsn = ts.cpu().numpy()
+    dop = solve_ivp(lambda t, y: -0.1 * y + np.roll(y, 1) - np.roll(y, -1),
+                    TP40_TSPAN, u0, method="DOP853", t_eval=tsn, rtol=1e-12,
+                    atol=1e-12)
+    e_ref = float(np.abs(u.cpu().numpy() - dop.y.T).max())
+    du32 = float((outs[torch.float32][0].double() - u).abs().max())
+    check(du32 <= TP_F32_LIMIT,
+          f"f32 vs f64 at D={D}: max |du| {du32:.3e} <= {TP_F32_LIMIT:g}; f64 "
+          f"vs DOP853 {e_ref:.3e} (reported)")
+    return launches
+
+
 def tp_combine_ops(kind, D):
     """Floating-point operations of one combine as the CUDA body runs it
     (``tp_scan.cuh``: filter_combine, smooth_combine): each add, subtract,
@@ -4756,27 +4976,37 @@ def tp_combine_ops(kind, D):
     return 2 * mm + mv + D + mgs(False)
 
 
-def tp_door_totals_profile(door):
-    """One call of ``door`` under ``torch.profiler``: the card's time in the
-    totals scan kernel, summed over its launches as the profiler records
-    them, and their number. The time is None where the profiler records no
-    device time at all."""
+# the scan kernels of a door at D = 8, as torch.profiler names them: the
+# one-thread chunk scan and fixup, the group totals scan
+TP_PROFILED = ("tp_chunk_scan_kernel", "tp_totals_scan_group_kernel",
+               "tp_fixup_kernel")
+
+
+def tp_door_profile(door):
+    """One call of ``door`` under ``torch.profiler``: for each kernel of
+    TP_PROFILED, the card's time in it summed over its launches as the
+    profiler records them, and their number. The times are None where the
+    profiler records no device time at all."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         door()
         torch.cuda.synchronize()
-    total_us, kernel_us, n = 0.0, 0.0, 0
+    total_us = 0.0
+    kernel_us = {k: 0.0 for k in TP_PROFILED}
+    n = {k: 0 for k in TP_PROFILED}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = ev.self_cuda_time_total
         total_us += t
-        if "tp_totals_scan_group_kernel" in ev.key and t > 0:
-            kernel_us += t
-            n += ev.count
-    return (kernel_us / 1e3 if total_us > 0 else None), n
+        for k in TP_PROFILED:
+            if k in ev.key and t > 0:
+                kernel_us[k] += t
+                n[k] += ev.count
+    return {k: ((kernel_us[k] / 1e3 if total_us > 0 else None), n[k])
+            for k in TP_PROFILED}
 
 
 TP_WINDOW_N = TP_N // TP_WINDOWS  # the windowed door's scans: one chunk row
@@ -4904,24 +5134,27 @@ def tp_timing(odt, card):
             f"(card: {card})")
     est = TP_WINDOWS * TP_ITERS * sum(win.values())
     n_want = 2 * TP_WINDOWS * TP_ITERS
-    prof_ms, prof_n = tp_door_totals_profile(door0)
-    if prof_ms is None:
-        say("   windowed door: torch.profiler recorded no device time; the "
-            "totals scans' kernel time in a door call is not measured")
-    else:
+    prof = tp_door_profile(door0)
+    for k, (prof_ms, prof_n) in prof.items():
+        if prof_ms is None:
+            say(f"   windowed door: torch.profiler recorded no device time; "
+                f"{k}'s time in a door call is not measured")
+            continue
         check(prof_n == n_want,
               f"windowed door under torch.profiler: {prof_n} launches of "
-              f"tp_totals_scan_group_kernel ({n_want} expected)")
+              f"{k} ({n_want} expected)")
+        say(f"   windowed door, {k}: {prof_n} launches, {prof_ms:.4f} ms in "
+            f"all, {prof_ms / max(prof_n, 1):.4f} ms a launch, summed in one "
+            f"door call by torch.profiler (card: {card})")
     say(f"   windowed door: its {n_want} totals scans, "
         f"{TP_WINDOWS * TP_ITERS} x (filter + smoother) at the times above: "
-        f"{est:.3f} ms; summed in one door call by torch.profiler: "
-        + ("not measured" if prof_ms is None else f"{prof_ms:.3f} ms")
-        + f" (card: {card})")
+        f"{est:.3f} ms (card: {card})")
     # the group kernels at the other state dimensions (D != 8: all three),
     # the solver's elements, and synthetic ones at group size 32
-    wide = [(D, tuple(tp_synth_elements(k, TP_N, D, torch.float32, 200 + D)
+    wide = [(D, tuple(tp_synth_elements(k, N, D, torch.float32, 200 + D)
                       for k in ("filter", "smooth")))
-            for D in TP_WIDE_DIMS]
+            for D, N in [(D, TP_N) for D in TP_WIDE_DIMS]
+            + [(D, TP_CTA_TIME_N) for D in TP_CTA_DIMS]]
     for D, (fd, sd) in [(D, tp_elements(prob, odt.EK1(order=q), ts, u_lin,
                                         plain=False))
                         for D, q in TP_DIMS + TP_SMALL_DIMS] + wide:
@@ -4942,10 +5175,13 @@ def tp_timing(odt, card):
                      "tp_totals_scan": 2 * V * ts_.NC,
                      "tp_fixup": (2 * L + 1) * V * ts_.NC}
             for name in TP_NAMES:
-                k_ms = time_ms(t[name], warmup=3, iters=20)
+                k_ms = (time_ms(t[name], warmup=3, iters=20) if D <= 32
+                        else time_ms(t[name], warmup=1, iters=3))
                 b = bound(moved[name] * item, ops_k[kind] * combines[name],
                           1, 1)
-                say(f"   D={D} {kind} {name} (group kernel) {k_ms:.4f} ms; "
+                route = "group kernel" if D <= 32 else "CTA per combine"
+                say(f"   D={D} N={el[0].shape[0]} {kind} {name} ({route}) "
+                    f"{k_ms:.4f} ms; "
                     f"{combines[name]} combines of {ops_k[kind]} operations, "
                     f"{moved[name] * item / 1e6:.2f} MB: bound {b[0]:.4f} ms by "
                     f"{b[1]} (card: {card})")
@@ -4973,7 +5209,8 @@ def tp_phases_on_card(odt, card, built, seq):
         f"reversed; and at (D, q) in {TP_DIMS}, N in {TP_DIM_NS}; at (D, q) "
         f"in {TP_SMALL_DIMS} and D in {TP_SYNTH_DIMS} (synthetic), "
         f"N={TP_SMALL_N}; D in {TP_WIDE_DIMS} (synthetic, group size 32), "
-        f"N={TP_WIDE_N}")
+        f"N={TP_WIDE_N}; D in {TP_CTA_DIMS} (synthetic, a CTA per combine), "
+        f"N={TP_CTA_N}")
     prob64, ts64 = tp_problem(torch.float64)
     truth = tp_reference(prob64, ts64)[1:]
     for N in TP_CHECK_NS:
@@ -5006,11 +5243,13 @@ def tp_phases_on_card(odt, card, built, seq):
                 tp_vs_plain(f"{str(dtype)[6:]} D={D} N={TP_SMALL_N} {kind}",
                             kind, el)
         for D, N in ([(D, TP_SMALL_N) for D in TP_SYNTH_DIMS]
-                     + [(D, TP_WIDE_N) for D in TP_WIDE_DIMS]):
+                     + [(D, TP_WIDE_N) for D in TP_WIDE_DIMS]
+                     + [(D, TP_CTA_N) for D in TP_CTA_DIMS]):
             for kind in ("filter", "smooth"):
                 tp_vs_plain(f"{str(dtype)[6:]} D={D} N={N} {kind} "
                             "(synthetic elements)", kind,
-                            tp_synth_elements(kind, N, D, dtype, 100 + D))
+                            tp_synth_elements(kind, N, D, dtype, 100 + D),
+                            replay=D in TP_CTA_DIMS)
     say(f"== 41. the global time-parallel path: solve_fixed_parallel("
         f"EK1(order={Q})), FitzHugh-Nagumo over {TP_TSPAN}, N={TP_N}, "
         f"iterations={TP_ITERS}, float64 and float32")
@@ -5021,10 +5260,12 @@ def tp_phases_on_card(odt, card, built, seq):
     tp_path(odt, ek1=False)
     say(f"== 43. the time-parallel kernels vs plain and timing, float32, "
         f"N={TP_N} (and the totals scan at N={TP_WINDOW_N}; D in "
-        f"{tuple(D for D, _ in TP_DIMS + TP_SMALL_DIMS) + TP_WIDE_DIMS})")
+        f"{tuple(D for D, _ in TP_DIMS + TP_SMALL_DIMS) + TP_WIDE_DIMS}; "
+        f"the CTA-per-combine kernels at D in {TP_CTA_DIMS})")
     ms, p_ms, err, bounds = tp_timing(odt, card)
     # each entry's lines end with its combine's (compiled into every entry)
-    print_registers(built["log"], TP_NAMES + TP_GROUP_NAMES, only="If")
+    print_registers(built["log"], TP_NAMES + TP_GROUP_NAMES + TP_WIDE_NAMES,
+                    only="If")
     say(f"== 44. the card's default time-parallel door at D = "
         f"{2 * (TP6_Q + 1)}: solve_fixed_parallel(EK1(order={TP6_Q})), N={TP_N}"
         f", float64 and float32; N={TP6_SEQ_N} against the sequential "
@@ -5433,6 +5674,11 @@ def main() -> int:
         f"{WARM_ORDERS} vs plain, B={B_CHECK}, tspan={TSPAN_ADA}, {S_ADA} "
         f"save intervals, {ADA_TOL}, float64 and float32, bit for bit")
     warm_orders_vs_plain()
+    say(f"== 46. the card's default time-parallel door above D = 32: "
+        f"solve_fixed_parallel(EK1(order={Q}), warm_start=0) on a d = "
+        f"{TP40_D} chain (D = {TP40_D * (Q + 1)}), tspan={TP40_TSPAN}, "
+        f"N={TP40_N}, float64 and float32, against the XLA-form scan")
+    tp_cta_door(odt)
 
     say("== bounds at the timed shape (float32, B={}, T={}, S={})".format(
         B_MAIN, T_MAIN, S_MAIN))

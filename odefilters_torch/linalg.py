@@ -86,7 +86,7 @@ def matmul_unrolled(a: torch.Tensor, b: torch.Tensor, *,
         return a @ b
     s = a[..., :, 0:1] * b[..., 0:1, :]
     for kk in range(1, k):
-        s = s + a[..., :, kk:kk + 1] * b[..., kk:kk + 1, :]
+        s.add_(a[..., :, kk:kk + 1] * b[..., kk:kk + 1, :])
     return s
 
 

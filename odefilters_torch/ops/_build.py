@@ -27,12 +27,13 @@ SOURCES = ("ek1_datalik.cu", "ek1_adaptive.cu", "ek1_fused.cu",
            "ek0_pair.cu", "ek0_filter.cu", "ek0_sample.cu", "kron_grid.cu",
            "tp_scan.cu", "tp_scan_f64.cu", "tp_group.cu", "tp_group_f64.cu",
            "tp_group16.cu", "tp_group16_f64.cu", "tp_group32.cu",
-           "tp_group32_f64.cu")
+           "tp_group32_f64.cu", "tp_wide.cu", "tp_wide_f64.cu")
 HEADERS = ("fields.cuh", "ek0_common.cuh", "ek0_filter.cuh", "ek0_sample.cuh",
            "ek1_fused.cuh", "ek0_adaptive.cuh", "ek1d.cuh", "ek1_adaptive.cuh",
            "ek0_datalik.cuh", "ek0_datalik_pd.cuh", "ek1_datalik.cuh",
            "cooperative.cuh", "kron_grid.cuh", "tp_scan.cuh", "group_mgs.cuh",
-           "tp_group.cuh", "ek1_group.cuh", "ek1_adaptive_group.cuh")
+           "tp_group.cuh", "ek1_group.cuh", "ek1_adaptive_group.cuh",
+           "tp_wide.cuh", "ek1dl_group.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -83,7 +84,9 @@ SOURCE_FLAGS = {"ek0_filter.cu": ("-fmad=false",),
                 "tp_group16.cu": ("-fmad=false",),
                 "tp_group16_f64.cu": ("-fmad=false",),
                 "tp_group32.cu": ("-fmad=false",),
-                "tp_group32_f64.cu": ("-fmad=false",)}
+                "tp_group32_f64.cu": ("-fmad=false",),
+                "tp_wide.cu": ("-fmad=false",),
+                "tp_wide_f64.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,17 +137,25 @@ _D = ctypes.POINTER(ctypes.c_double)
 #                        T, yb, consts)
 # ek1_datalik_grad_bwd: (stream_in, ps, ys, times, codes, ddll, dall, dm0_p,
 #                        dps, dys, B, T, yb, stop_calib, consts)
-# ek0_kron_grid, ek1d_kron_grid: (m0_p, us, var, ll, work, N, M, T,
-#                                 save_every, consts) (the Brusselator
-#                                 stencil, cooperative)
-# kron_grid_sync_probe: (blocks, n_barriers)
+# ek0_kron_grid: (m0_p, us, var, ll, work, N, M, T, save_every, consts)
+#                (the Brusselator stencil, cooperative)
+# ek1d_kron_grid: (m0_p, us, var, ll, work, N, M, T, save_every, consts)
+#                 (one thread-block cluster, or cooperative above a
+#                 cluster's points; ek1d_kron_grid_on_cluster(N, M) says
+#                 which, without a stream)
+# kron_grid_sync_probe: (blocks, n_barriers); kron_cluster_sync_probe:
+#                       (threads, n_barriers)
 # tp_chunk_scan: (kind, D, elems, out, L); tp_totals_scan: (kind, D,
 #                totals, work, out) (cooperative); tp_fixup: (kind, D,
 #                prefixes, t_excl, out, L); tp_chunk_scan_d8,
 #                tp_fixup_d8: as those without D, the one-thread kernels
 #                at D = 8;
 #                tp_group16, tp_group32: (op, kind, D, a, b, work, out,
-#                L), the three group kernels at group size 16, 32
+#                L), the three group kernels at group size 16, 32;
+#                tp_wide: (op, kind, D, a, b, work, out, L, workspace),
+#                the three kernels above D = 32 (a CTA per combine)
+# tp_wide_ws (no stream, no launch): (op, kind, D, L, &values), the values
+#             of global workspace that tp_wide needs, as a long long
 FIELD_ENTRIES = {
     "ek0_pair_fwd": (_P,) * 4 + (_I, _I, _I, _D, _P),
     "ek0_filter": (_P,) * 6 + (_I, _I, _I, _D, _P),
@@ -186,6 +197,8 @@ PLAIN_ENTRIES = {
     "tp_fixup_d8": (_I, _P, _P, _P, _I, _P),
     "tp_group16": (_I, _I, _I, _P, _P, _P, _P, _I, _P),
     "tp_group32": (_I, _I, _I, _P, _P, _P, _P, _I, _P),
+    "tp_wide": (_I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    "tp_wide_ws": (_I, _I, _I, _I, _P),
 }
 # Those built at several orders q, once per order and field, named
 # ``<kernel>_q<q>_<field>_<dtype>``: the adaptive EK0 filter at q = 1, 2, 3
@@ -194,7 +207,9 @@ PLAIN_ENTRIES = {
 ORDER_FIELD_ENTRIES = {
     "ek0_adaptive": ((1, 2, 3), (_P,) * 7 + (_I, _I, _I, _D, _P)),
 }
-ENTRIES = {"kron_grid_sync_probe": (_I, _I, _P)}
+ENTRIES = {"kron_grid_sync_probe": (_I, _I, _P),
+           "kron_cluster_sync_probe": (_I, _I, _P),
+           "ek1d_kron_grid_on_cluster": (_I, _I)}
 for _s in ("f32", "f64"):
     for _name, _args in FIELD_ENTRIES.items():
         for _field in ("fhn", "lv"):

@@ -19,42 +19,48 @@
 // per-member bodies are in ek1_datalik.cuh (the forward's EK1 step is
 // ek1_fused.cuh's filter_step).
 //
-// Design: one thread per ensemble member, its mean and N x N factor in
-// registers (and what does not fit, in local memory) for the whole time
-// loop; arrays (rows, B) with the member index contiguous so that a warp's
-// accesses coalesce; 64 threads a block, any B >= 1. The TPU kernels'
-// switches are template flags of the forward kernels (YB: observations per
-// member or shared) and run-time flags of the adjoint (yb, stop_calib),
-// whose code is the largest of the build: as templates, its four
-// instantiations per field and type took 186 s of nvcc. The schedule is
-// the on-grid step table (time, observation row) staged TILE steps at a
-// time in shared memory by the whole block, with the shared observations'
-// values, as the per-dimension kernels stage it (ek0_datalik_pd.cuh);
-// every thread runs the tile loop to its end, members past B included, and
-// only members below B compute. The observation model (C, R, R R^T, at most DOBS_MAX
-// rows) is a launch constant, padded to DOBS_MAX rows. The TPU backward
-// took the composed step's adjoint from an in-kernel jax.vjp; here it is
-// written by hand from the streamed state: per step in reverse the forward
-// is recomputed with its intermediates recorded, then reversed through the
-// field's vjp and jac_vjp, both MGS QRs (each stage's state recomputed, the
-// stage loop in local memory), the Cholesky factors and solves and, unless
-// stop_calib, the calibration s2. The observations' cotangent is written
-// per member, (n_obs, d_obs, B); the caller sums it over the members when
-// they are shared, so no atomics.
+// Design: the primal and the gradient's forward run one thread per
+// ensemble member, its mean and N x N factor in registers (and what does
+// not fit, in local memory) for the whole time loop; arrays (rows, B) with
+// the member index contiguous so that a warp's accesses coalesce; 64
+// threads a block, any B >= 1. The TPU kernels' switches are template
+// flags of the forward kernels (YB: observations per member or shared) and
+// run-time flags of the adjoint (yb, stop_calib), whose code is the largest
+// of the build: as templates, its four instantiations per field and type
+// took 186 s of nvcc. The schedule is the on-grid step table (time,
+// observation row) staged TILE steps at a time in shared memory by the
+// whole block, with the shared observations' values, as the per-dimension
+// kernels stage it (ek0_datalik_pd.cuh); every thread runs the tile loop
+// to its end, members past B included, and only members below B write.
+// The observation model (C, R, R R^T, at most DOBS_MAX rows) is a launch
+// constant, padded to DOBS_MAX rows. The TPU backward took the composed
+// step's adjoint from an in-kernel jax.vjp; here it is written by hand from
+// the streamed state: per step in reverse the forward is recomputed with
+// its intermediates recorded, then reversed through the field's vjp and
+// jac_vjp, both MGS QRs, the Cholesky factors and solves and, unless
+// stop_calib, the calibration s2. The adjoint runs a group of N = 8 lanes
+// per member (ek1dl_group.cuh), 8 float32 (4 float64) members a CTA: lane
+// r owns row r of the factors and their cotangents and column r of each
+// MGS stack, whose forward keeps every stage's column so that the reverse
+// reads it instead of recomputing the stages. The observations' cotangent
+// is written per member, (n_obs, d_obs, B); the caller sums it over the
+// members when they are shared, so no atomics.
 //
 // What bounds them (8192 members, 120 steps, 9 observations, float32): the
 // primal reads the initial state and parameters and writes two numbers a
 // member, 0.4 MB, and does ~3,300 dependent operations a step; the
 // gradient's forward also writes the 283 MB stream (72 values a step) and
 // the backward reads it and does several times the forward's operations.
-// All three are serial recursions per member, latency- and spill-bound as
-// the other EK1 kernels are. Built without FMA contraction (ops/_build.py:
-// SOURCE_FLAGS): the kernels round op by op as their plain versions do on
-// the card.
+// All three are serial recursions per member, latency-bound as the other
+// EK1 kernels are (the adjoint's chains a member are 8 lanes wide, one
+// Gram-Schmidt pivot or one row's sum at a time). Built without FMA
+// contraction (ops/_build.py: SOURCE_FLAGS): the kernels round op by op as
+// their plain versions do on the card.
 
 #include <cuda_runtime.h>
 
 #include "ek1_datalik.cuh"
+#include "ek1dl_group.cuh"
 #include "fields.cuh"
 
 using ek1dl::DlConsts;
@@ -142,89 +148,101 @@ __global__ void __launch_bounds__(THREADS) ek1_datalik_grad_fwd_kernel(
                              T, c);
 }
 
-// The adjoint sweep of member b over the stream st (T, V, B), from step
-// T-1 down to 0: the step recomputed and recorded from the streamed state;
-// where an observation follows, the data update too, reversed first; then
-// the step reversed. Cotangents: ddll of the data log-likelihood, dall of
-// the ODE one. Writes dm0 (NQ, D, B), dps (NP, B) and each observation's
-// cotangent per member into dy (n_obs, n, B).
+// The adjoint sweep over the stream st (T, V, B), from step T-1 down to 0,
+// a group of N lanes per member (ek1dl_group.cuh), MB members a CTA: the
+// step recomputed and recorded from the streamed state, staged for the
+// CTA's members in shared memory (loads along the member index, the next
+// row's in flight); where an observation follows, the data update too,
+// reversed first; then the step reversed. Cotangents: ddll of the data
+// log-likelihood, dall of the ODE one. Writes dm0 (NQ, D, B), dps (NP, B)
+// and each observation's cotangent per member into dy (n_obs, n, B).
 template <typename S, int NQ, class F>
-__global__ void __launch_bounds__(THREADS) ek1_datalik_grad_bwd_kernel(
-    const S* __restrict__ st, const S* __restrict__ ps,
-    const S* __restrict__ ys, const S* __restrict__ times,
-    const int* __restrict__ codes, const S* __restrict__ ddll,
-    const S* __restrict__ dall, S* __restrict__ dm0, S* __restrict__ dps,
-    S* __restrict__ dy, int B, int T, bool yb, bool stop_calib,
-    DlConsts<S, NQ, F::D> c) {
-  constexpr int N = NQ * F::D;
+__global__ void __launch_bounds__(ek1dlg::Tile<S>::MB * NQ * F::D, 4)
+    ek1_datalik_grad_bwd_kernel(const S* __restrict__ st,
+                                const S* __restrict__ ps,
+                                const S* __restrict__ ys,
+                                const S* __restrict__ times,
+                                const int* __restrict__ codes,
+                                const S* __restrict__ ddll,
+                                const S* __restrict__ dall,
+                                S* __restrict__ dm0, S* __restrict__ dps,
+                                S* __restrict__ dy, int B, int T, bool yb,
+                                bool stop_calib, DlConsts<S, NQ, F::D> c) {
+  constexpr int DIM = F::D;
+  constexpr int N = NQ * DIM;
   constexpr int V = ek1dl::Layout<N>::V;
+  constexpr int MB = ek1dlg::Tile<S>::MB;
+  constexpr int THREADS = MB * N;
+  constexpr int SP = MB + 1;
+  using W = ek1dlg::Ws<N, DIM>;
   __shared__ Tile<S> tile;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(16) unsigned char dl_smem[];
+  S* sR = reinterpret_cast<S*>(dl_smem);
+  const int tid = threadIdx.x, mm = tid / N, r = tid % N;
+  const int b0 = blockIdx.x * MB, b = b0 + mm;
   const bool active = b < B;
   const size_t sB = (size_t)B;
-  S p[F::NP], gp[F::NP], gm[N], gL[N][N];
-  S g_dll = S(0), g_ll = S(0);
+  S* ws = sR + ek1g::staged_size<V, MB>() + mm * W::SIZE;
+  const S* R = sR + mm;
+  const ek1g::MemberSync<N> sync;
+  S p[F::NP], gp[F::NP], gL[N];
 #pragma unroll
   for (int q = 0; q < F::NP; ++q) {
     p[q] = active ? ps[q * sB + b] : S(0);
     gp[q] = S(0);
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    gm[i] = S(0);
-#pragma unroll
-    for (int k = 0; k < N; ++k) gL[i][k] = S(0);
-  }
-  if (active) {
-    g_dll = ddll[b];
-    g_ll = dall[b];
-  }
+  for (int k = 0; k < N; ++k) gL[k] = S(0);
+  S gm = S(0);
+  const S g_dll = active ? ddll[b] : S(0);
+  const S g_ll = active ? dall[b] : S(0);
   const int n_rows = c.n;
-  for (int k0 = ((T - 1) / ek0pd::TILE) * ek0pd::TILE; k0 >= 0;
-       k0 -= ek0pd::TILE) {
-    const int n = T - k0 < ek0pd::TILE ? T - k0 : ek0pd::TILE;
+  ek1g::Stager<S, V, MB, THREADS> stg;
+  if (T > 0) stg.fetch(st + (size_t)(T - 1) * V * sB, sB, b0, B, tid, V);
+  for (int kk = T - 1; kk >= 0; --kk) {
+    const int s = kk % ek0pd::TILE, k0 = kk - s;
+    if (kk == T - 1 || s == ek0pd::TILE - 1) {
+      const int n = T - k0 < ek0pd::TILE ? T - k0 : ek0pd::TILE;
+      __syncthreads();
+      if (yb)
+        ek0pd::load_tile<S, true>(tile, k0, n, T, n_rows, times, codes, ys);
+      else
+        ek0pd::load_tile<S, false>(tile, k0, n, T, n_rows, times, codes, ys);
+    }
+    __syncthreads();  // the tile, and the last step's reads of sR
+    stg.put(sR, tid);
     __syncthreads();
-    if (yb)
-      ek0pd::load_tile<S, true>(tile, k0, n, T, n_rows, times, codes, ys);
-    else
-      ek0pd::load_tile<S, false>(tile, k0, n, T, n_rows, times, codes, ys);
-    __syncthreads();
-    if (!active) continue;
-    for (int s = n - 1; s >= 0; --s) {
-      // the step from the streamed state, recorded; (m1, L1) after it
-      S m1[N], L1[N][N];
-      ek1::StepRec<S, NQ, F::D> rec;
-      ek1dl::load_state<S, N>(st, (size_t)(k0 + s) * V * sB + b, sB, m1, L1);
-      ek1::filter_step<S, NQ, F, false>(c, c.pinv0, c.pinv1, p, tile.t[s],
-                                        nullptr, m1, L1, rec.Lp, nullptr,
-                                        &rec);
-      const int row = tile.row[s];
-      if (row >= 0) {
-        S y[DM], gy[DM], L2[N][N];
-        ek1dl::UpdRec<S, N> u;
-        if (yb)
-          ek0pd::obs_values<S, true>(tile, s, ys, b, sB, n_rows, y);
-        else
-          ek0pd::obs_values<S, false>(tile, s, ys, b, sB, n_rows, y);
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-#pragma unroll
-          for (int k = 0; k < N; ++k) L2[i][k] = L1[i][k];
-        ek1dl::data_update<S, NQ, F::D>(c, y, m1, L2, u);
-        ek1dl::data_update_vjp<S, NQ, F::D>(c, L1, u, g_dll, gm, gL, gy);
+    if (kk > 0) stg.fetch(st + (size_t)(kk - 1) * V * sB, sB, b0, B, tid, V);
+    const S t = tile.t[s];
+    ek1dlg::StepRec<S, NQ, DIM> rec;
+    S lnew[N];
+    ek1dlg::step_fwd<S, NQ, F, SP>(c, p, t, R, r, ws, lnew, rec, sync);
+    const int row = tile.row[s];
+    if (row >= 0) {
+      S y[DM], gy[DM];
+      ek1dlg::UpdRec<S, N> u;
+      if (yb)
+        ek0pd::obs_values<S, true>(tile, s, ys, active ? b : 0, sB, n_rows,
+                                   y);
+      else
+        ek0pd::obs_values<S, false>(tile, s, ys, b, sB, n_rows, y);
+      ek1dlg::update_fwd<S, NQ, DIM>(c, y, r, ws, lnew, u, sync);
+      ek1dlg::update_vjp<S, NQ, DIM>(c, u, g_dll, r, ws, gm, gL, gy, sync);
+      if (active && r == 0) {
 #pragma unroll
         for (int a = 0; a < DM; ++a)
           if (a < n_rows) dy[((size_t)row * n_rows + a) * sB + b] = gy[a];
       }
-      ek1dl::step_vjp<S, NQ, F>(c, p, tile.t[s], rec, stop_calib, g_ll, gm,
-                                gL, gp);
     }
+    ek1dlg::step_vjp<S, NQ, F>(c, p, t, rec, stop_calib, g_ll, r, ws, gm, gL,
+                               gp, sync);
   }
   if (!active) return;
+  dm0[r * sB + b] = gm;
+  if (r == 0) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) dm0[i * sB + b] = gm[i];
-#pragma unroll
-  for (int q = 0; q < F::NP; ++q) dps[q * sB + b] = gp[q];
+    for (int q = 0; q < F::NP; ++q) dps[q * sB + b] = gp[q];
+  }
 }
 
 inline int blocks_for(int B) { return (B + THREADS - 1) / THREADS; }
@@ -291,12 +309,22 @@ int launch_bwd(const void* st, const void* ps, const void* ys,
                const void* times, const void* codes, const void* ddll,
                const void* dall, void* dm0, void* dps, void* dy, int B, int T,
                int yb, int stop_calib, const double* kk, void* stream) {
+  constexpr int N = NQ * F::D;
+  constexpr int MB = ek1dlg::Tile<S>::MB;
   DlConsts<S, NQ, F::D> c;
   if (B < 1 || T < 0 || !read_dl_consts<S, NQ, F::D>(kk, c))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int nb = blocks_for(B);
-  ek1_datalik_grad_bwd_kernel<S, NQ, F><<<nb, THREADS, 0, s>>>(
+  const size_t shared =
+      ((size_t)ek1g::staged_size<ek1dl::Layout<N>::V, MB>() +
+       (size_t)MB * ek1dlg::Ws<N, F::D>::SIZE) *
+      sizeof(S);
+  const void* kern = (const void*)ek1_datalik_grad_bwd_kernel<S, NQ, F>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (e != cudaSuccess) return (int)e;
+  const int nb = (B + MB - 1) / MB;
+  ek1_datalik_grad_bwd_kernel<S, NQ, F><<<nb, MB * N, shared, s>>>(
       (const S*)st, (const S*)ps, (const S*)ys, (const S*)times,
       (const int*)codes, (const S*)ddll, (const S*)dall, (S*)dm0, (S*)dps,
       (S*)dy, B, T, yb != 0, stop_calib != 0, c);

@@ -14,6 +14,22 @@ namespace kron {
 
 // CTA width: one thread per grid point (ops/kron_grid.py: KRON_BLOCK).
 constexpr int BLOCK = 128;
+// The cluster kernel's largest CTA: 3 blocks of points (so that a thread
+// may hold 168 registers: a float64 point's state and its four
+// neighbours' addresses without spilling).
+constexpr int CLUSTER_THREADS = 3 * BLOCK;
+// CTAs in the DiagonalEK1 kernel's cluster (ops/kron_grid.py:
+// KRON_CLUSTER): 16, a non-portable size, which the H100 schedules and
+// which ran faster than 8 (scripts/torch_redesign_ab.py builds this file
+// with -DKRON_CLUSTER=8 to compare the two).
+#ifndef KRON_CLUSTER
+#define KRON_CLUSTER 16
+#endif
+constexpr int CLUSTER = KRON_CLUSTER;
+// Points a thread of the cluster kernel carries at most (its state stays
+// in registers): grids of more than CLUSTER CLUSTER_THREADS PPT_MAX points
+// run on the cooperative kernel instead.
+constexpr int PPT_MAX = 4;
 
 // The solve's constants, each a float64 host value rounded once to S
 // (ops/kron_grid.py: kernel_scalars and _grid_consts).
@@ -89,6 +105,36 @@ struct BrusselatorGrid {
     du[1] = ((A * a) - aab) + alpha * lap(u + NM, b, N, M, i, j);
   }
 
+  // lap and f with the four neighbours' values read through pointers:
+  // nb[0 .. 3] at (i-1, j), (i+1, j), (i, j-1), (i, j+1) for species 0,
+  // species 1 at nb[x][off1]; the same order of operations
+  __device__ __forceinline__ S lap_at(const S* const (&nb)[4], int off,
+                                      S xc) const {
+    const S s = nb[0][off] + nb[1][off];
+    return ((s + nb[2][off]) + nb[3][off] - S(4) * xc) * scale;
+  }
+
+  __device__ __forceinline__ void f_at(const S* const (&nb)[4], int off1,
+                                       const S (&own)[NS],
+                                       S (&du)[NS]) const {
+    const S a = own[0], b = own[1];
+    const S aab = (a * a) * b;
+    du[0] = ((B + aab) - A1 * a) + alpha * lap_at(nb, 0, a);
+    du[1] = ((A * a) - aab) + alpha * lap_at(nb, off1, b);
+  }
+
+  // the flat indices of the four periodic neighbours of (i, j), in lap's
+  // order
+  static __device__ __forceinline__ void neighbours(int N, int M, int i,
+                                                    int j, int (&at)[4]) {
+    const int im = i == 0 ? N - 1 : i - 1, ip = i == N - 1 ? 0 : i + 1;
+    const int jm = j == 0 ? M - 1 : j - 1, jp = j == M - 1 ? 0 : j + 1;
+    at[0] = im * M + j;
+    at[1] = ip * M + j;
+    at[2] = i * M + jm;
+    at[3] = i * M + jp;
+  }
+
   __device__ __forceinline__ void jac_diag(const S (&own)[NS],
                                            S (&jd)[NS]) const {
     const S a = own[0], b = own[1];
@@ -159,6 +205,92 @@ __device__ __forceinline__ void partials_tree(S* sh, int W, const S* part,
   }
 #pragma unroll
   for (int q = 0; q < NV; ++q) out[q] = sh[q * W];
+  __syncthreads();  // sh is written again by the next tree
+}
+
+// The halving tree's levels below a warp (w = 16, 8, 4, 2, 1, those under
+// P): lane x adds lane x + w's value to its own, as sh[x] += sh[x + w]
+// does, so lane 0 ends with the sum in the tree's order.
+template <typename S>
+__device__ __forceinline__ S warp_tree(S v, int P) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1)
+    if (w < P) v = v + __shfl_down_sync(0xffffffffu, v, w);
+  return v;
+}
+
+// cta_tree for a CTA of K = blockDim.x / BLOCK groups of BLOCK threads,
+// each thread holding PPT points (point p of group g in the CTA's block
+// g + K p): each block's NV sums by the same halving tree, the levels 64
+// and 32 by the group's first warp from the values the group left in sh
+// (rows of blockDim.x), the others by warp_tree; that warp's first lane
+// writes its blocks' sums to part[q * bpc + block] (blocks at or past bpc
+// are not the grid's). One CTA barrier; sh is read by the first warps
+// until the caller's next barrier.
+template <typename S, int NV, int PPT>
+__device__ __forceinline__ void cluster_cta_tree(S* sh, const S (&v)[PPT][NV],
+                                                 S* part, int bpc) {
+  static_assert(BLOCK == 128, "the first warp folds the levels 64 and 32");
+  const int tid = threadIdx.x, RW = blockDim.x, K = RW / BLOCK;
+  const int grp = tid / BLOCK, x = tid % BLOCK;
+#pragma unroll
+  for (int p = 0; p < PPT; ++p)
+#pragma unroll
+    for (int q = 0; q < NV; ++q) sh[(q * PPT + p) * RW + tid] = v[p][q];
+  __syncthreads();
+  if (x < 32) {
+#pragma unroll
+    for (int p = 0; p < PPT; ++p) {
+      const int lb = grp + K * p;
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const S* row = sh + (q * PPT + p) * RW + grp * BLOCK;
+        const S lo = row[x] + row[x + 64];
+        const S hi = row[x + 32] + row[x + 96];
+        const S t = warp_tree(lo + hi, BLOCK);
+        if (x == 0 && lb < bpc) part[q * bpc + lb] = t;
+      }
+    }
+  }
+}
+
+// partials_tree over the nb block partials that get(q, block) reads
+// (from whichever CTA of the cluster holds them), zero-padded to P, by
+// the same tree: the levels of 64 and above through sh (rows of P) with a
+// CTA barrier each, the level 32 and below by the first warp; every thread
+// of the CTA gets the NV sums. Ends at a barrier.
+template <typename S, int NV, class Get>
+__device__ __forceinline__ void cluster_partials_tree(S* sh, int P, int nb,
+                                                      Get get, S (&out)[NV]) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int x = tid; x < P; x += nt) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) sh[q * P + x] = x < nb ? get(q, x) : S(0);
+  }
+  __syncthreads();
+  for (int w = P / 2; w >= 64; w >>= 1) {
+    for (int x = tid; x < w; x += nt) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) sh[q * P + x] += sh[q * P + x + w];
+    }
+    __syncthreads();
+  }
+  S* res = sh + NV * P;
+  if (tid < 32) {
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      S t = S(0);
+      if (P >= 64)
+        t = sh[q * P + tid] + sh[q * P + tid + 32];
+      else if (tid < P)
+        t = sh[q * P + tid];
+      t = warp_tree(t, P >= 64 ? 32 : P);
+      if (tid == 0) res[q] = t;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NV; ++q) out[q] = res[q];
   __syncthreads();  // sh is written again by the next tree
 }
 

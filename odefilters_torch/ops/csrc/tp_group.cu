@@ -31,7 +31,8 @@
 // for one CTA an SM of 4 (2) groups: the totals scan's 1024 totals then
 // run 2 (4) a group, one after another within each round, in 128 CTAs that
 // are all resident. Above D = 32 the ten operands of a combine outgrow an
-// SM's shared memory (327 kB at D = 64 in float64).
+// SM's shared memory (327 kB at D = 64 in float64): tp_wide.cu runs a
+// combine on a whole CTA there.
 //
 // What bounds them: as tp_scan.cu's kernels, their bytes (the totals scan
 // moves 1.7 MB of float32 filter totals at D = 8: half a microsecond), far

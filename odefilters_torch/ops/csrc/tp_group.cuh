@@ -1,5 +1,6 @@
 // The fused time-parallel scan's combines spread over a group of lanes, at
-// any state dimension 2 <= D <= 32 (a run-time argument), and the three
+// any state dimension 2 <= D <= 32 (a run-time argument; tp_wide.cuh takes
+// the larger ones), and the three
 // scan kernels built on them (tp_group.cu has the design). The combines
 // compute what tp_scan.cuh's one-thread combines compute, entry by entry in
 // the same order of operations (the plain versions' in
@@ -25,9 +26,10 @@ namespace tpg {
 
 using tp::NC;
 
-// The largest state dimension: above it, the ten D x D operands of a
-// filtering combine outgrow an SM's shared memory (at D = 64 in float64,
-// 327 kB against the 227 kB a CTA may take).
+// The group kernels' largest state dimension: above it the ten D x D
+// operands of a filtering combine outgrow a group's share of an SM's shared
+// memory (at D = 64 in float64, 327 kB against the 227 kB a CTA may take),
+// and tp_wide.cuh runs a combine on a whole CTA.
 constexpr int D_MAX = 32;
 constexpr int BLOCK = 128;  // threads per CTA, all three kernels
 

@@ -50,9 +50,10 @@ step, through the vector field, its Jacobian (``J`` enters ``H``, hence
 the calibration, ``Z``, the gain and the new factor), both MGS QRs, the
 Cholesky factors and, unless ``stop_calib``, ``s2``. Its plain version is
 ``torch.func.vjp`` of the composed step; the CUDA kernel is a hand-written
-adjoint (`mgs_tril_vjp` is its MGS reverse). The observations' cotangent
-is written per member, ``(n_obs, d_obs, B)``, and summed over the members
-by one ``torch.sum`` when they are shared.
+adjoint, a group of D lanes per member (`mgs_tril_vjp` is its MGS reverse,
+which the kernel runs from each stage's kept state). The observations'
+cotangent is written per member, ``(n_obs, d_obs, B)``, and summed over the
+members by one ``torch.sum`` when they are shared.
 
 Dispatch: each wrapper runs its plain version on CPU tensors, launches its
 CUDA kernel on CUDA tensors (which evaluates the CUDA field and its own
@@ -164,10 +165,11 @@ def mgs_tril_vjp(rows, K: int, nq: int, gL):
     ``gL`` of `list_mgs_tril`'s lower factor (its upper entries unread),
     as the CUDA adjoint reverses the MGS: column by column from the last,
     each stage's state recomputed from ``rows`` in the forward's order of
-    operations, then its products, the normalisation and the pivot
-    ``sqrt(max(ss, 1e-30))`` reversed line by line. Python ``0.0`` entries
-    of ``rows`` are structural zeros, skipped as the forward skips them;
-    they get the cotangent ``0.0``.
+    operations (the kernel keeps each stage's state from its forward
+    instead: the same values), then its products, the normalisation and
+    the pivot ``sqrt(max(ss, 1e-30))`` reversed line by line. Python
+    ``0.0`` entries of ``rows`` are structural zeros, skipped as the
+    forward skips them; they get the cotangent ``0.0``.
 
     Line by line, not the closed form ``Q copyltu(R gR^T) R^-T``: after an
     EK1 step's R = 0 update the factor has rank D - d, so the data

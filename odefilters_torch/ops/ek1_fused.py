@@ -80,7 +80,8 @@ def auto_jac(f: Callable) -> Callable:
     for a problem without ``jac``; the kernels need the CUDA field's."""
 
     def jac(u, p, t):
-        dd = u.shape[0]
+        u = u.contiguous()  # a dual tensor needs its own storage, not a view
+        dd = u.shape[0]     # that broadcasts one row
         cols = []
         for b in range(dd):
             tangent = torch.stack([torch.ones_like(u[b]) if i == b

@@ -1,7 +1,8 @@
 """Single-trajectory Kron-grid PDE solves: the plain PyTorch versions and the
-wrappers of the two cooperative CUDA kernels that replace the JAX package's
-Pallas ``_ek0_kron_grid_kernel`` and ``_ek1d_kron_grid_kernel``, and the
-2-D Brusselator front doors.
+wrappers of the CUDA kernels (cooperative grids, and for DiagonalEK1 a
+thread-block cluster up to 24,576 grid points) that
+replace the JAX package's Pallas ``_ek0_kron_grid_kernel`` and
+``_ek1d_kron_grid_kernel``, and the 2-D Brusselator front doors.
 
 ===================================  =========================================
 this module                          ``odefilters/ops/pallas_kernels.py``
@@ -16,7 +17,8 @@ this module                          ``odefilters/ops/pallas_kernels.py``
                                      ``ek0_kron_grid_solve``
 ``ek1d_kron_grid_solve_plain`` /     ``_ek1d_kron_grid_kernel`` (CUDA:
 ``ek1d_kron_grid_solve``             ``csrc/kron_grid.cu::
-                                     ek1d_kron_grid_kernel``) /
+                                     ek1d_kron_cluster_kernel``,
+                                     ``ek1d_kron_grid_kernel``) /
                                      ``ek1d_kron_grid_solve``
 ``solve_brusselator_ek0``            ``solve_brusselator_ek0_pallas``
 ``solve_brusselator_ek1d``           ``solve_brusselator_ek1d_pallas``
@@ -74,6 +76,12 @@ from odefilters_torch.ops.ek0_filter import _LOG_2PI
 # CTA width of the kernels (one thread per grid point), and so the width of
 # the first level of `grid_sum`'s tree; a power of two.
 KRON_BLOCK = 128
+# CTAs in the DiagonalEK1 kernel's thread-block cluster (csrc/kron_grid.cuh:
+# CLUSTER; 16 is a non-portable cluster size, which the H100 schedules). The
+# cluster holds up to 16 x 3 KRON_BLOCK x 4 = 24,576 grid points (CTAs of
+# at most 3 KRON_BLOCK threads, at most 4 points a thread); larger grids run
+# on a cooperative kernel (the C entry ek1d_kron_grid_on_cluster says which).
+KRON_CLUSTER = 16
 
 
 def _halve(x: torch.Tensor) -> torch.Tensor:
@@ -312,9 +320,12 @@ def _grid_consts(field: Optional[str], p, N: int, M: int, ns: int,
 
 def _launch_grid(wrapper, name: str, m0_p, p, field, *, At, Qt,
                  pinv0, pinv1, T, save_every, var_shape):
-    """Launch the cooperative kernel ``name`` on ``m0_p``'s card. Its C
-    entry refuses a grid whose CTAs are not all co-resident
-    (``cudaErrorCooperativeLaunchTooLarge``), which raises here."""
+    """Launch the kernel ``name`` on ``m0_p``'s card: EK0's cooperative one
+    (its C entry refuses a grid whose CTAs are not all co-resident,
+    ``cudaErrorCooperativeLaunchTooLarge``, which raises here) or
+    DiagonalEK1's, on one thread-block cluster up to 24,576 grid points
+    (refused, and raising, when the card cannot schedule the cluster) and
+    cooperative above."""
     nq, ns, N, M = m0_p.shape
     consts = _grid_consts(field, p, N, M, ns, nq)
     _launch.check_cuda_inputs(name, {"m0_p": m0_p}, m0_p.dtype)
@@ -325,7 +336,8 @@ def _launch_grid(wrapper, name: str, m0_p, p, field, *, At, Qt,
     var = torch.empty(var_shape, **new)
     ll = torch.empty((), **new)
     # the scratch grid, then the s2 partials (ns nb) and DiagonalEK1's ll
-    # partials (2 ns nb)
+    # partials (2 ns nb): the cooperative kernels' (the cluster kernel keeps
+    # them in shared memory)
     work = torch.empty((ns * (N * M + 3 * nb),), **new)
     _launch.launch(wrapper, m0_p.device,
                    f"{name}_{_launch.suffix(m0_p.dtype)}", m0_p.data_ptr(),
@@ -419,7 +431,10 @@ def ek1d_kron_grid_solve(
     """Fused single-trajectory DiagonalEK1(dynamic) filter on grid states,
     as `ek0_kron_grid_solve`; ``jd_grids`` gives the per-point Jacobian
     diagonal (the plain version) and ``var`` is per point, ``(S+1, ns, N,
-    M)``. CUDA: ``ek1d_kron_grid_kernel``."""
+    M)``. CUDA: ``ek1d_kron_cluster_kernel`` on one thread-block cluster of
+    ``KRON_CLUSTER`` CTAs up to 24,576 grid points (N <= 156 on a square
+    grid), ``ek1d_kron_grid_kernel`` (cooperative, a CTA per 128 points)
+    above."""
     T, At, Qt, m0_p, pinv0, pinv1 = kron_inputs(m0, dt, n_steps, q,
                                                 save_every, prior)
     kw = dict(At=At, Qt=Qt, pinv0=pinv0, pinv1=pinv1)

@@ -11,12 +11,17 @@ this module                    ``odefilters/parallel/pallas_scan.py``
 ``chunk_scan_plain`` /         ``_chunk_scan_kernel`` (CUDA:
 ``tp_chunk_scan``              ``csrc/tp_scan.cuh::tp_chunk_scan_kernel``
                                at D = 8, ``csrc/tp_group.cuh::
-                               tp_chunk_scan_group_kernel`` at any other D)
+                               tp_chunk_scan_group_kernel`` at any other D
+                               up to 32, ``csrc/tp_wide.cuh::
+                               tp_chunk_scan_wide_kernel`` above)
 ``totals_scan_plain`` /        ``_totals_scan_kernel`` (CUDA:
-``tp_totals_scan``             ``tp_totals_scan_group_kernel``, cooperative)
+``tp_totals_scan``             ``tp_totals_scan_group_kernel`` up to D =
+                               32, ``tp_totals_scan_wide_kernel`` above;
+                               cooperative)
 ``fixup_plain`` / ``tp_fixup``  ``_fixup_kernel`` (CUDA: ``tp_fixup_kernel``
                                at D = 8, ``tp_fixup_group_kernel`` at any
-                               other D)
+                               other D up to 32, ``tp_fixup_wide_kernel``
+                               above)
 ``fused_associative_scan``     ``pallas_associative_scan``
 =============================  ============================================
 
@@ -54,25 +59,31 @@ structural zeros, which adds or subtracts exact zeros in the plain ones.)
 
 Dispatch: each wrapper runs its plain version on CPU tensors, launches its
 CUDA kernel on CUDA tensors (state dimension D from the elements, 2 <= D <=
-``CUDA_D_MAX``; a group of lanes per combine, except the D = 8 chunk scan
-and fixup, a thread per combine), raises on any other device, and counts
-its launches in ``.launches``. No VJP, as in JAX.
+``CUDA_D_MAX``: up to ``GROUP_D_MAX`` a group of lanes per combine, except
+the D = 8 chunk scan and fixup, a thread per combine; above it a CTA per
+combine, ``csrc/tp_wide.cuh``, its workspace in shared memory or, where
+that is too small, in a global buffer the wrapper allocates), raises on any
+other device, and counts its launches in ``.launches``. No VJP, as in
+JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from odefilters_torch.linalg import matmul_unrolled, solve_triangular_unrolled
-from odefilters_torch.ops import _launch
+from odefilters_torch.ops import _build, _launch
 
 NC = 1024                       # chunks
 KINDS = {"filter": ("mat", "vec", "mat", "vec", "mat"),
          "smooth": ("mat", "vec", "mat")}
 _KIND_CODE = {"filter": 0, "smooth": 1}
-CUDA_D_MAX = 32                 # the kernels' largest state dimension
+GROUP_D_MAX = 32                # the group kernels' largest D (tp_group.cuh)
+CUDA_D_MAX = 96                 # the kernels' largest D: the largest held
+                                # on the card (csrc/tp_wide.cuh: D_MAX)
 
 
 def width(kind: str, D: int) -> int:
@@ -140,25 +151,39 @@ def _cho_solve(L, B):
 def _mgs(V):
     """Lower ``L`` with ``L L^T = V^T V`` for the ``(..., K, D)`` stack V,
     by modified Gram-Schmidt column by column (`ek0_sample.list_mgs_tril`,
-    vectorized over the rows and the later columns)."""
-    V = V.clone()
+    vectorized over the rows and the later columns). The stack is held
+    row-major over its K rows, so that each term of a sum over the rows is
+    one contiguous slice; the terms are added in index order. On the card
+    the K products of a column are formed in one launch (its plain version
+    is bound by launches), on the CPU one at a time into one buffer (bound
+    by memory traffic): the same values either way."""
     K, D = V.shape[-2:]
+    Vk = V.movedim(-2, 0).clone(memory_format=torch.contiguous_format)
     R = torch.zeros(V.shape[:-2] + (D, D), dtype=V.dtype, device=V.device)
+    term = None if V.is_cuda else torch.empty_like(Vk[0])
     for j in range(D):
-        col = V[..., :, j]
-        ss = col[..., 0] * col[..., 0]
+        col = Vk[..., j]                              # (K, ...)
+        sq = col * col
+        ss = sq[0].clone()
         for k in range(1, K):
-            ss = ss + col[..., k] * col[..., k]
+            ss.add_(sq[k])
         rjj = torch.sqrt(torch.clamp(ss, min=1e-30))
         R[..., j, j] = rjj
-        q = col * (1.0 / rjj)[..., None]
+        q = col * (1.0 / rjj)
         if j + 1 < D:
-            rest = V[..., :, j + 1:]
-            r = q[..., 0, None] * rest[..., 0, :]
-            for k in range(1, K):
-                r = r + q[..., k, None] * rest[..., k, :]
+            rest = Vk[..., j + 1:]                    # (K, ..., D - j - 1)
+            if term is None:
+                prod = q[..., None] * rest
+                r = prod[0].clone()
+                for k in range(1, K):
+                    r.add_(prod[k])
+            else:
+                t = term[..., :D - j - 1]
+                r = q[0][..., None] * rest[0]
+                for k in range(1, K):
+                    r.add_(torch.mul(q[k][..., None], rest[k], out=t))
             R[..., j, j + 1:] = r
-            V[..., :, j + 1:] = rest - r[..., None, :] * q[..., :, None]
+            rest.sub_(r * q[..., None])
     return _T(R)
 
 
@@ -337,26 +362,50 @@ def _check_cuda(name, kind, tensors):
     if not 2 <= D <= CUDA_D_MAX:
         raise NotImplementedError(
             f"{name}: the CUDA kernels take state dimensions 2 <= D <= "
-            f"{CUDA_D_MAX}, got D = {D}: above {CUDA_D_MAX} the ten D x D "
-            "operands of a combine outgrow an SM's shared memory (ROADMAP.md "
-            "queue 1, item 5, 'Widen every kernel family')"
+            f"{CUDA_D_MAX}, got D = {D}: {CUDA_D_MAX} is the largest D at "
+            "which the CTA-per-combine kernels (csrc/tp_wide.cuh) are held "
+            "on the card against their plain versions (ROADMAP queue 3)"
         )
     return D
 
 
+def _launch_scan(wrapper, name, op, kind, D, x, a, b=None, work=None,
+                 out=None, L=1):
+    """Launch scan kernel ``op`` (0 chunk scan, 1 totals scan, 2 fixup) on
+    ``x``'s card: the entries of ``tp_group.cu`` up to ``GROUP_D_MAX``,
+    ``tp_wide.cu``'s above, with the global workspace its plan asks for."""
+    sfx = _launch.suffix(x.dtype)
+    code = _KIND_CODE[kind]
+    ptr = [t.data_ptr() if t is not None else None for t in (a, b, work, out)]
+    if D <= GROUP_D_MAX:
+        entry = (f"{name}_{sfx}", code, D) + {
+            0: (ptr[0], ptr[3], L), 1: (ptr[0], ptr[2], ptr[3]),
+            2: (ptr[0], ptr[1], ptr[3], L)}[op]
+        _launch.launch(wrapper, x.device, *entry)
+        return
+    n = ctypes.c_longlong(0)
+    with torch.cuda.device(x.device):
+        rc = getattr(_build.load(), f"tp_wide_ws_{sfx}")(op, code, D, L,
+                                                         ctypes.byref(n))
+    if rc:
+        raise RuntimeError(f"tp_wide_ws_{sfx}: CUDA error {rc}")
+    ws = x.new_empty((n.value,)) if n.value else None
+    _launch.launch(wrapper, x.device, f"tp_wide_{sfx}", op, code, D, *ptr, L,
+                   ws.data_ptr() if ws is not None else None)
+
+
 def tp_chunk_scan(kind, packed):
     """Phase 1 on ``packed`` ``(L, V, 1024)``: the plain version on the
-    CPU, on CUDA ``tp_chunk_scan_kernel`` (a thread per chunk) at D = 8 and
+    CPU, on CUDA ``tp_chunk_scan_kernel`` (a thread per chunk) at D = 8,
     ``tp_chunk_scan_group_kernel`` (a group of lanes per chunk) at any
-    other D."""
+    other D up to 32 and ``tp_chunk_scan_wide_kernel`` (a CTA per chunk)
+    above."""
     if _launch.dispatch_device("tp_chunk_scan", packed) == "cpu":
         return chunk_scan_plain(kind, packed)
     D = _check_cuda("tp_chunk_scan", kind, {"packed": packed})
     out = torch.empty_like(packed)
-    _launch.launch(tp_chunk_scan, packed.device,
-                   f"tp_chunk_scan_{_launch.suffix(packed.dtype)}",
-                   _KIND_CODE[kind], D, packed.data_ptr(), out.data_ptr(),
-                   packed.shape[0])
+    _launch_scan(tp_chunk_scan, "tp_chunk_scan", 0, kind, D, packed, packed,
+                 out=out, L=packed.shape[0])
     return out
 
 
@@ -366,7 +415,8 @@ tp_chunk_scan.launches = 0
 def tp_totals_scan(kind, prefixes):
     """Phase 2 on the chunk prefixes ``(L, V, 1024)``: the plain version on
     the CPU, the cooperative ``tp_totals_scan_group_kernel`` (a group of
-    lanes per chunk total, a grid barrier between rounds) on CUDA. Returns
+    lanes per chunk total, a grid barrier between rounds) on CUDA, or above
+    D = 32 ``tp_totals_scan_wide_kernel`` (a CTA per total). Returns
     ``(V, 1024)``."""
     if _launch.dispatch_device("tp_totals_scan", prefixes) == "cpu":
         return totals_scan_plain(kind, prefixes)
@@ -374,10 +424,8 @@ def tp_totals_scan(kind, prefixes):
     V = prefixes.shape[1]
     work = prefixes.new_empty((2, V, NC))
     out = prefixes.new_empty((V, NC))
-    _launch.launch(tp_totals_scan, prefixes.device,
-                   f"tp_totals_scan_{_launch.suffix(prefixes.dtype)}",
-                   _KIND_CODE[kind], D, prefixes[-1].data_ptr(),
-                   work.data_ptr(), out.data_ptr())
+    _launch_scan(tp_totals_scan, "tp_totals_scan", 1, kind, D, prefixes,
+                 prefixes[-1], work=work, out=out)
     return out
 
 
@@ -386,17 +434,16 @@ tp_totals_scan.launches = 0
 
 def tp_fixup(kind, prefixes, t_excl):
     """Phase 3: the plain version on the CPU, on CUDA ``tp_fixup_kernel`` (a
-    thread per element) at D = 8 and ``tp_fixup_group_kernel`` (a group of
-    lanes per element) at any other D. Returns ``(L, V, 1024)``."""
+    thread per element) at D = 8, ``tp_fixup_group_kernel`` (a group of
+    lanes per element) at any other D up to 32 and ``tp_fixup_wide_kernel``
+    (a CTA per element) above. Returns ``(L, V, 1024)``."""
     if _launch.dispatch_device("tp_fixup", prefixes) == "cpu":
         return fixup_plain(kind, prefixes, t_excl)
     D = _check_cuda("tp_fixup", kind, {"prefixes": prefixes,
                                        "t_excl": t_excl})
     out = torch.empty_like(prefixes)
-    _launch.launch(tp_fixup, prefixes.device,
-                   f"tp_fixup_{_launch.suffix(prefixes.dtype)}",
-                   _KIND_CODE[kind], D, prefixes.data_ptr(), t_excl.data_ptr(),
-                   out.data_ptr(), prefixes.shape[0])
+    _launch_scan(tp_fixup, "tp_fixup", 2, kind, D, prefixes, prefixes,
+                 b=t_excl, out=out, L=prefixes.shape[0])
     return out
 
 

@@ -353,11 +353,11 @@ def _check_fused_dim(prob, alg, block, on_card):
     if on_card and block == "fused" and D > CUDA_D_MAX:
         raise NotImplementedError(
             f"the fused scan kernels take state dimensions D = d (q+1) <= "
-            f"{CUDA_D_MAX}, and this solve has D = {D}: above {CUDA_D_MAX} "
-            "the ten D x D operands of a combine outgrow an SM's shared "
-            "memory (ROADMAP.md queue 1, item 5, 'Widen every kernel "
-            "family'); pass block= a chunk length (the blocked scan) or 0 "
-            "(the plain scan)"
+            f"{CUDA_D_MAX}, and this solve has D = {D}: {CUDA_D_MAX} is the "
+            "largest D at which the CTA-per-combine kernels "
+            "(ops/csrc/tp_wide.cuh) are held on the card against their plain "
+            "versions (ROADMAP queue 3); pass block= a chunk length (the "
+            "blocked scan) or 0 (the plain scan)"
         )
 
 
@@ -370,8 +370,8 @@ def resolve_options(prob: ODEProblem, alg: AbstractEK, n_steps: int, *,
     steps a window or more) and a warm start; on the CPU the blocked scan
     at ``auto_block`` and a warm start for EK0 and DiagonalEK1 only
     (windowed: none). On the card the fused scan takes state dimensions
-    D = d (q+1) up to ``tp_scan.CUDA_D_MAX``; above it a solve that resolves
-    to the fused scan raises."""
+    D = d (q+1) up to ``tp_scan.CUDA_D_MAX`` (96, the largest held on the
+    card); above it a solve that resolves to the fused scan raises."""
     check_block(block)
     on_card = prob.u0.device.type == "cuda"
     if windows:

@@ -449,10 +449,10 @@ def test_defaults_resolve_as_the_jax_package():
 
 
 def test_card_fused_default_needs_the_kernels_state_dimension():
-    """On the card the fused scan's kernels take D = d (q+1) up to 32: a
-    default resolves to them at D = 6, 12 and 18 as at 8, and at D = 33 it
-    raises at once, naming the ROADMAP item; a block length, or a short
-    grid, runs the blocked scan."""
+    """On the card the fused scan's kernels take D = d (q+1) up to 96: a
+    default resolves to them at D = 6, 12 and 18 as at 8, and at D = 33, 34
+    and 96 (a CTA per combine), and above 96 it raises at once, naming why;
+    a block length, or a short grid, runs the blocked scan."""
     import types
 
     def card(d):
@@ -465,16 +465,22 @@ def test_card_fused_default_needs_the_kernels_state_dimension():
                           (card(3), EK1, {}),
                           (card(3), EK1, {"block": "fused"}),
                           (card(3), odt.EK0(order=3), {"windows": 16}),
-                          (card(3), odt.EK1(order=5), {})):
-        assert pa.resolve_options(prob, alg, 16384, **kw) == ("fused", 8)
-    for prob, alg, kw in ((card(3), odt.EK1(order=10), {}),
+                          (card(3), odt.EK1(order=5), {}),
+                          (card(3), odt.EK1(order=10), {}),
                           (card(3), odt.EK1(order=10), {"block": "fused"}),
-                          (card(2), odt.EK0(order=16), {"windows": 16})):
-        with pytest.raises(NotImplementedError, match="item 5"):
+                          (card(2), odt.EK0(order=16), {"windows": 16}),
+                          (card(8), odt.EK1(order=11), {})):
+        assert pa.resolve_options(prob, alg, 16384, **kw) == ("fused", 8)
+    for prob, alg, kw in ((card(14), odt.EK1(order=6), {}),
+                          (card(14), odt.EK1(order=6), {"block": "fused"}),
+                          (card(49), odt.EK0(order=1), {"windows": 16})):
+        with pytest.raises(NotImplementedError,
+                           match="D = 98: 96 is the largest D .*held on the "
+                                 "card"):
             pa.resolve_options(prob, alg, 16384, **kw)
-    assert pa.resolve_options(card(3), odt.EK1(order=10), 16384,
+    assert pa.resolve_options(card(14), odt.EK1(order=6), 16384,
                               block=128) == (128, 8)
-    assert pa.resolve_options(card(3), odt.EK1(order=10), 1000)[0] == (
+    assert pa.resolve_options(card(14), odt.EK1(order=6), 1000)[0] == (
         blocked.auto_block(1000))
 
 
@@ -627,3 +633,22 @@ def test_float32_calibration_matches_jax_float32(N):
         assert 1 / S32_FLOOR_FACTOR < s32 / sj < S32_FLOOR_FACTOR
         assert (1 / S32_FLOOR_FACTOR < std32.max() / stdj.max()
                 < S32_FLOOR_FACTOR)
+
+
+def test_ek1_torch_field_without_jacobian_starts_from_u0():
+    """An EK1 solve of a field given without ``jac`` and without the warm
+    start linearizes first at u0 broadcast over the grid, a view; the
+    forward-mode Jacobian (`ek1_fused.auto_jac`) takes a contiguous copy of
+    it, and the solve equals the one with the field's own Jacobian."""
+    from odefilters_torch.models import library
+
+    ref = odt.models.fitzhugh_nagumo(tspan=(0.0, 1.0), device="cpu")
+    nojac = odt.ode_problem(library.fitzhugh_nagumo_f, ref.u0, ref.tspan,
+                            ref.p, device="cpu")
+    assert nojac.jac is None and ref.jac is not None
+    ts_ = torch.linspace(0.0, 1.0, 17, dtype=torch.float64)
+    got, want = (odt.solve_fixed_parallel(prob, odt.EK1(order=3), ts=ts_,
+                                          warm_start=0, iterations=2)
+                 for prob in (nojac, ref))
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-9, atol=1e-14)

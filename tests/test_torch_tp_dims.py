@@ -1,7 +1,8 @@
 """The fused time-parallel scan of the PyTorch port at state dimensions
 other than 8 (``odefilters_torch/ops/tp_scan.py``; on the card its group
-kernels, ``ops/csrc/tp_group.cuh``, take any 2 <= D <= 32), against the JAX
-package on the CPU in float64.
+kernels, ``ops/csrc/tp_group.cuh``, take any 2 <= D <= 32, and its
+CTA-per-combine kernels, ``ops/csrc/tp_wide.cuh``, any 32 < D <= 96),
+against the JAX package on the CPU in float64.
 
 As in ``test_torch_time_parallel.py``, the scans are held against a
 sequential fold of the JAX package's jitted XLA combines (the JAX Pallas
@@ -79,16 +80,16 @@ def _hold(got, ref, kind, rtol, atol):
                                    err_msg=f"leaf {i}")
 
 
-@pytest.mark.parametrize("kind, D", [(k, D) for D in (4, 6, 12, 18)
+@pytest.mark.parametrize("kind, D", [(k, D) for D in (4, 6, 12, 18, 40)
                                      for k in ("filter", "smooth")]
                          + [("smooth", 32)])
 def test_scans_match_jax_fold_at_other_dims(kind, D):
     """The fused scan's plain versions at N = 1025 (1024 chunks of two rows,
     the tail padded with identities) against the fold of the jitted JAX
-    combine at D = 4, 6, 12, 18, and 32 for the smoothing elements; the
-    smoother reversed. (The filtering scan at D = 32 takes ~40 s of plain
-    combines and ~50 s of the JAX fold's compile on a CPU:
-    `test_filter_combine_matches_jax_at_32` holds its combine.)"""
+    combine at D = 4, 6, 12, 18, 40 (above 32: the card's CTA-per-combine
+    kernels), and 32 for the smoothing elements; the smoother reversed.
+    (`test_filter_combine_matches_jax_at_32` holds the filtering combine at
+    D = 32.)"""
     rev = kind == "smooth"
     elems = _elements(kind, 1025, D, 100 + D)
     ref = _jax_fold(kind, elems, reverse=rev)
@@ -175,8 +176,9 @@ def test_card_warm_start_runs_the_kernels_order(monkeypatch):
                                      (18, 5, 3), (24, 5, 4), (32, 7, 4)])
 def test_card_fused_default_runs_up_to_the_kernels_largest_dimension(D, q, d):
     """On the card the fused scan is the default above 1024 grid points at
-    every D = d (q+1) up to tp_scan.CUDA_D_MAX = 32, global and windowed
-    (Lorenz-63 and SEIR at q = 5 among them)."""
+    every D = d (q+1) up to tp_scan.CUDA_D_MAX (the group kernels' D <= 32
+    here; `test_card_fused_default_runs_above_32` the rest), global and
+    windowed (Lorenz-63 and SEIR at q = 5 among them)."""
     alg = odt.EK1(order=q)
     assert d * (q + 1) == D <= ts.CUDA_D_MAX
     assert pa.resolve_options(_card(d), alg, 16384) == ("fused", 8)
@@ -185,17 +187,24 @@ def test_card_fused_default_runs_up_to_the_kernels_largest_dimension(D, q, d):
 
 
 def test_cuda_inputs_take_the_state_dimension_from_the_elements():
-    """The kernels' input check reads D from the packed width and refuses
-    D above 32, naming the reason and the ROADMAP item; widths that are no
-    element's, or inputs of two widths, raise ValueError."""
+    """The kernels' input check reads D from the packed width and takes
+    every D up to 96 (the group kernels to 32, a CTA per combine above),
+    refusing D above it, naming the reason (96 is the largest D held on the
+    card); widths that are no element's, or inputs of two widths, raise
+    ValueError. (The inputs are meta tensors: nothing is allocated.)"""
     for kind, D in (("filter", 6), ("smooth", 12), ("filter", 2),
-                    ("filter", 18), ("smooth", 32)):
-        packed = torch.zeros((1, ts.width(kind, D), ts.NC),
-                             dtype=torch.float64)
+                    ("filter", 18), ("smooth", 32), ("filter", 33),
+                    ("smooth", 40), ("filter", 96)):
+        packed = torch.empty((1, ts.width(kind, D), ts.NC),
+                             dtype=torch.float64, device="meta")
         assert ts._check_cuda("tp_chunk_scan", kind, {"packed": packed}) == D
-    big = torch.zeros((1, ts.width("filter", 33), ts.NC), dtype=torch.float64)
+    assert ts.CUDA_D_MAX == 96 and ts.GROUP_D_MAX == 32
+    big = torch.empty((1, ts.width("filter", 97), ts.NC),
+                      dtype=torch.float64, device="meta")
     with pytest.raises(NotImplementedError,
-                       match="shared memory .*item 5"):
+                       match="D = 97: 96 is the largest D at which the "
+                             "CTA-per-combine kernels .* are held on the "
+                             "card"):
         ts._check_cuda("tp_chunk_scan", "filter", {"packed": big})
     odd = torch.zeros((1, ts.width("smooth", 6) + 1, ts.NC),
                       dtype=torch.float64)
@@ -209,17 +218,47 @@ def test_cuda_inputs_take_the_state_dimension_from_the_elements():
 
 def test_check_fused_dim_takes_up_to_32():
     """``solve_fixed_parallel``'s check on the card: D = d (q+1) <= 32 runs
-    the fused scan, D = 33 raises NotImplementedError naming why (the ten
-    D x D operands of a combine outgrow an SM's shared memory) and the
-    ROADMAP item; the CPU and the blocked scan are not refused."""
-    for d, q in ((3, 5), (4, 5), (4, 7), (8, 3)):
+    the fused scan (the group kernels), and so do D = 33, 40 and 96 (a CTA
+    per combine); D = 98 raises NotImplementedError naming why (96 is the
+    largest D held on the card); the CPU and the blocked scan are not
+    refused."""
+    for d, q in ((3, 5), (4, 5), (4, 7), (8, 3), (3, 10), (10, 3),
+                 (8, 11)):
         pa._check_fused_dim(_card(d), odt.EK1(order=q), "fused", True)
     with pytest.raises(NotImplementedError,
-                       match="D = 33: above 32 the ten D x D operands .*"
-                             "shared memory .*item 5"):
-        pa._check_fused_dim(_card(3), odt.EK1(order=10), "fused", True)
-    pa._check_fused_dim(_card(3), odt.EK1(order=10), "fused", False)
-    pa._check_fused_dim(_card(3), odt.EK1(order=10), 128, True)
+                       match="D = 98: 96 is the largest D at which the "
+                             "CTA-per-combine kernels .* are held on the "
+                             "card"):
+        pa._check_fused_dim(_card(14), odt.EK1(order=6), "fused", True)
+    pa._check_fused_dim(_card(14), odt.EK1(order=6), "fused", False)
+    pa._check_fused_dim(_card(14), odt.EK1(order=6), 128, True)
+
+
+@pytest.mark.parametrize("windows", [None, 16])
+def test_card_fused_default_runs_above_32(windows):
+    """On the card the fused scan is the default above 1024 grid points at
+    D = 40 too: a d = 10 torch field (a damped linear oscillator chain) at
+    q = 3, with ``warm_start=0`` (no CUDA field of d >= 9 exists for the
+    warm start's adaptive kernel), global and windowed; the problem runs
+    on the CPU here, so the card is a stand-in with its device."""
+
+    def chain(u, p, t):
+        return -0.1 * u + torch.roll(u, 1, 0) - torch.roll(u, -1, 0)
+
+    prob = odt.ode_problem(chain, torch.linspace(0.0, 1.0, 10,
+                                                 dtype=torch.float64),
+                           (0.0, 1.0), device="cpu")
+    card = types.SimpleNamespace(
+        d=prob.d, u0=types.SimpleNamespace(device=torch.device("cuda", 0)))
+    alg = odt.EK1(order=3)
+    assert card.d * (alg.order + 1) == 40
+    assert pa.resolve_options(card, alg, 16384, warm_start=0,
+                              windows=windows) == ("fused", 0)
+    assert pa.resolve_options(card, alg, 16384, windows=windows) == (
+        "fused", 8)
+    # on the CPU the same problem resolves to the blocked scan
+    assert pa.resolve_options(prob, alg, 16384, warm_start=0,
+                              windows=windows)[0] != "fused"
 
 
 def test_kernel_families_take_their_orders():
